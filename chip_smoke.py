@@ -5,16 +5,29 @@
 Three phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
-2. Build the engine and the hand kernels from this checkout (in
-   parallel), hold each kernel against its plain PyTorch version on the
-   card — adversarial integer inputs at H = 10,000, a ragged
-   H = 10,001 and a scalar `now`, exact equality — and time both.
+2. Build the engine and the two kernel libraries from this checkout
+   (in parallel), hold each kernel against its plain PyTorch version on
+   the card and time both:
+   - the standalone law kernels (stt_bucket_step, stt_codel_head) on
+     adversarial integer inputs at H = 10,000, a ragged H = 10,001 and
+     a scalar `now`;
+   - the fused relay kernels (stt_relay1_law, stt_relay2_law) at
+     H = 10,000 with the span's ring widths, on lanes built to reach
+     every branch (tools/relay_cases.py) at mask densities of 0.1%, 10%
+     and 100%: every state word, every flag, the packet handed back on
+     the lanes that carried one and the refill instant on the throttled
+     lanes, exactly equal; card time with every launch on a fresh copy
+     of the checked state, and the bound from the bytes each lane's
+     branch needs.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
    port's Manager on the card, once with the C++ engine serving every
    round (`tpu_device_spans: off`) and once with forced device spans,
-   and require identical traces, device spans, and both kernels
-   launched by the device run.  Then the same stream at 16 hosts,
-   where at least half the rounds must run on the card.
+   and require identical traces, device spans, each relay kernel
+   launched once per fire of its stage by the device run and the
+   standalone law kernels never (their laws run inside the relay
+   kernels); print the per-stage
+   fire/lane counters.  Then the same stream at 16 hosts, where at
+   least half the rounds must run on the card.
 
 It prints a `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`.  It imports nothing of JAX and
@@ -24,7 +37,6 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import subprocess
 import sys
@@ -35,11 +47,18 @@ import numpy as np
 import torch
 
 H_MAIN = 10_000
+CONNS_MAIN = 32_768  # the 10,000-host stream's conn capacity CC
 BANDWIDTH = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 BYTES_PER_LANE = {"bucket_step": 66, "codel_head": 46}
 REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
-            "codel_head": "shadow_tpu/ops/pallas_queues.py:119"}
-SOURCE = "shadow_tpu_torch/csrc/queues.cu"
+            "codel_head": "shadow_tpu/ops/pallas_queues.py:119",
+            "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
+            "relay2_law": "shadow_tpu/ops/pallas_queues.py:119"}
+SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
+          "codel_head": "shadow_tpu_torch/csrc/queues.cu",
+          "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
+          "relay2_law": "shadow_tpu_torch/csrc/relay.cu"}
+DENSITIES = (0.001, 0.1, 1.0)
 
 
 def card() -> str:
@@ -59,9 +78,10 @@ def card() -> str:
 
 
 def build_all():
-    """The engine (make) and the kernel library (nvcc), started together."""
+    """The engine (make) and the kernel libraries (one nvcc per source),
+    started together."""
     from shadow_tpu_torch.native import plane
-    from shadow_tpu_torch.ops import queues
+    from shadow_tpu_torch.ops import queues, relay
     errs = []
     walls = {}
 
@@ -79,16 +99,19 @@ def build_all():
 
     threads = [threading.Thread(target=run, args=a)
                for a in (("engine", engine),
-                         ("kernels", queues.LIBRARY.build))]
+                         ("queues.cu", queues.LIBRARY.build),
+                         ("relay.cu", relay.LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errs:
         raise RuntimeError(f"build failed: {errs}")
-    print(f"[build] engine {walls['engine']:.1f}s (make {plane.build_seconds():.1f}s), "
-          f"kernels {walls['kernels']:.1f}s (nvcc "
-          f"{queues.LIBRARY.build_s:.1f}s)", flush=True)
+    print(f"[build] engine {walls['engine']:.1f}s (make "
+          f"{plane.build_seconds():.1f}s), queues.cu "
+          f"{walls['queues.cu']:.1f}s (nvcc {queues.LIBRARY.build_s:.1f}s), "
+          f"relay.cu {walls['relay.cu']:.1f}s (nvcc "
+          f"{relay.LIBRARY.build_s:.1f}s)", flush=True)
 
 
 def adversarial(H: int, seed: int = 7):
@@ -124,9 +147,11 @@ def adversarial(H: int, seed: int = 7):
     return t
 
 
-def events_ms(fn, reps: int) -> float:
-    """CUDA-event time of fn() (which issues `reps` units), per unit."""
-    fn()
+def events_ms(fn, reps: int, warm: bool = True) -> float:
+    """CUDA-event time of fn() (which issues `reps` units), per unit,
+    after one untimed call unless `warm` is false."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -205,21 +230,125 @@ def check_kernels() -> dict:
                 if H == H_MAIN and not scalar_now:
                     reps = 1000
                     ms = events_ms(lambda: launch(name, reps), reps)
+                    gms = graph_ms(lambda: launch(name, 1), 200)
                     call_ms = events_ms(
                         lambda: [kern() for _ in range(reps)], reps)
                     pms = graph_ms(plain)
                     bound = BYTES_PER_LANE[name] * H / BANDWIDTH * 1e3
-                    stats[name] = {"ms": ms, "plain_ms": pms,
-                                   "call_ms": call_ms, "bound_ms": bound,
-                                   "max_abs_err": err}
+                    stats[name] = {"ms": ms, "graph_ms": gms,
+                                   "plain_ms": pms, "call_ms": call_ms,
+                                   "bound_ms": bound, "max_abs_err": err}
                 print(f"[kernel] {name} H={H} scalar_now={scalar_now}: "
                       f"exact (max |err| {err})", flush=True)
     for name, s in stats.items():
         print(f"[kernel] {name} H={H_MAIN}: {s['ms'] * 1e3:.3f} us per "
               f"launch on the card (back-to-back launches), "
+              f"{s['graph_ms'] * 1e3:.3f} us in a CUDA graph, "
               f"{s['call_ms'] * 1e3:.2f} us per wrapper call from Python; "
               f"plain PyTorch {s['plain_ms'] * 1e3:.3f} us (CUDA graph); "
               f"bound {s['bound_ms'] * 1e3:.3f} us by bytes", flush=True)
+    return stats
+
+
+def fresh_ms(fn, st0: dict, n: int) -> float:
+    """Device time per call of fn(st) over `n` calls, each on its own
+    fresh copy of st0's lane state (the read-only rings shared), captured
+    in one CUDA graph so the host's issue cost drops out.  The copies are
+    restored from st0 before each replay, so every timed call sees the
+    inputs the exactness check and the bound used."""
+    H = st0["now"].shape[0]
+    lane = [k for k, v in st0.items()
+            if v.dim() == 1 and v.shape[0] == H or k == "drop_causes"]
+    copies = [dict(st0, **{k: st0[k].clone() for k in lane})
+              for _ in range(n + 1)]
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn(copies[n])  # warm-up
+    cur.wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for c in copies[:n]:
+            fn(c)
+    best = float("inf")
+    for _ in range(3):
+        for c in copies[:n]:
+            for k in lane:
+                c[k].copy_(st0[k])
+        torch.cuda.synchronize()
+        best = min(best, events_ms(g.replay, n, warm=False))
+    del g, copies
+    return best
+
+
+def check_relay_kernels() -> dict:
+    """Both fused relay kernels against their plain versions at
+    H = 10,000 with the span's ring widths and the 10,000-host stream's
+    conn capacity, at each mask density: exact equality, then card time
+    per launch and the plain version's device time (each call on a fresh
+    copy of the checked state, in a CUDA graph), host time per wrapper
+    call, the plain version's eager wall per call, and the bound from
+    the bytes these inputs need (tools/relay_cases.relay_need_bytes)."""
+    from shadow_tpu_torch.ops.tcp_span import (RELAY1_LAW, RELAY2_LAW,
+                                               TcpSpanRunner)
+    from shadow_tpu_torch.tools.relay_cases import (clone_state,
+                                                    relay_case_state,
+                                                    relay_mismatch,
+                                                    relay_need_bytes)
+    cq, op = TcpSpanRunner.CAP_CQ, TcpSpanRunner.CAP_OP
+    stats = {}
+    for density in DENSITIES:
+        st0, m1, pop, sel, m2, _cases = relay_case_state(
+            H_MAIN, seed=11, density=density, cq_cap=cq, op_cap=op,
+            conns=CONNS_MAIN, device="cuda")
+        for law, mask, lane, ring in ((RELAY1_LAW, m1, (pop, sel), op),
+                                      (RELAY2_LAW, m2, (), cq)):
+            bound = law.bind(H_MAIN, ring, CONNS_MAIN)
+
+            def plain(st):
+                return law.ref(st, mask, *lane, ring=ring, conns=CONNS_MAIN)
+
+            st_k, st_p = clone_state(st0), clone_state(st0)
+            got = bound(st_k, mask, *lane)
+            want = plain(st_p)
+            torch.cuda.synchronize()
+            err, bad = relay_mismatch(law, got, want, st_k, st_p)
+            if bad:
+                raise AssertionError(f"{law.name} density {density}: "
+                                     f"{bad[:8]} (max |err| {err})")
+            nbytes = relay_need_bytes(law, st0, st_p, mask, lane, want)
+            ms = fresh_ms(lambda st: bound(st, mask, *lane), st0, 1000)
+            pms = fresh_ms(plain, st0, 20)
+            reps = 1000
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                bound(st_k, mask, *lane)
+            host_ms = (time.perf_counter() - t0) / reps * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                plain(st_p)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) / 20 * 1e3
+            n = int(mask.sum())
+            stats[(law.name, density)] = {
+                "ms": ms, "call_ms": host_ms, "plain_ms": pms,
+                "plain_eager_ms": eager_ms,
+                "bound_ms": nbytes / BANDWIDTH * 1e3, "bytes": nbytes,
+                "lanes": n, "max_abs_err": err}
+            print(f"[relay] {law.name} H={H_MAIN} density {density:g} "
+                  f"({n} lanes): exact; {ms * 1e3:.3f} us per launch on "
+                  f"the card (CUDA graph, fresh state each launch), "
+                  f"{host_ms * 1e3:.2f} us host per wrapper call; plain "
+                  f"{pms * 1e3:.3f} us (CUDA graph), {eager_ms * 1e3:.1f} "
+                  f"us per eager call; bound {nbytes / BANDWIDTH * 1e6:.3f}"
+                  f" us ({nbytes} B, {(nbytes - 5 * H_MAIN) / n:.0f} B per "
+                  f"mask lane)", flush=True)
+            del st_k, st_p, got, want
+        del st0
+        torch.cuda.empty_cache()
     return stats
 
 
@@ -241,53 +370,47 @@ def log_spans(mgr) -> None:
 
 
 def stream_pair(n_hosts: int, stop_time: str, min_share: float):
-    """The tgen TCP bulk stream through the port's Manager on the card,
-    once with the C++ engine serving every round and once with forced
-    device spans.  Requires identical traces, packets and events, a
-    device span, and at least `min_share` of the rounds on the card.
-    Returns the kernel launch counts of the device run."""
-    from shadow_tpu_torch.core.config import ConfigOptions
+    """The tgen TCP bulk stream (tools/span_loop_bench.stream_config)
+    through the port's Manager on the card, once with the C++ engine
+    serving every round and once with forced device spans.  Requires
+    identical traces, packets and events, a device span, at least
+    `min_share` of the rounds on the card, each relay kernel launched
+    once per fire of its stage and the standalone law kernels never.
+    Returns the device run's kernel launch counts and its runner."""
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import tcp_span
-    from shadow_tpu_torch.tools.netgen import tcp_stream_yaml
-
-    def cfg(spans):
-        return ConfigOptions.from_yaml_text(tcp_stream_yaml(
-            n_hosts, n_servers=max(1, n_hosts // 8), nbytes=50_000_000,
-            loss=0.005, latency="10 ms", bw_down="50 Mbit",
-            bw_up="50 Mbit", stop_time=stop_time, seed=11,
-            scheduler="tpu", device_spans=spans))
+    from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
+                                                        stream_config)
 
     tag = f"[stream {n_hosts}]"
     print(f"{tag} {n_hosts} hosts ({max(1, n_hosts // 8)} tgen servers), "
           f"stop_time {stop_time}", flush=True)
     runs = {}
     for spans in ("off", "force"):
-        mgr = Manager(cfg(spans), device="cuda")
+        mgr = Manager(stream_config(n_hosts, stop_time, spans),
+                      device="cuda")
         if spans == "force":
             log_spans(mgr)
+        wrappers = {"bucket_step": tcp_span.BUCKET_STEP,
+                    "codel_head": tcp_span.CODEL_HEAD,
+                    "relay1_law": tcp_span.RELAY1_LAW,
+                    "relay2_law": tcp_span.RELAY2_LAW}
         # Counts cover this run only: zeroed just before it.
-        tcp_span.BUCKET_STEP.launches = 0
-        tcp_span.CODEL_HEAD.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        summary = mgr.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"bucket_step": tcp_span.BUCKET_STEP.launches,
-                    "codel_head": tcp_span.CODEL_HEAD.launches}
-        lines = mgr.trace_lines()
-        digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
-        r = mgr._dev_span_tcp
-        runs[spans] = dict(summary=summary, digest=digest,
-                           launches=launches, runner=r)
+        run = run_stream(mgr)
+        run["launches"] = {name: w.launches for name, w in wrappers.items()}
+        runs[spans] = run
+        summary, r, wall = run["summary"], run["runner"], run["wall"]
         dev_rounds = r.rounds if r is not None else 0
         print(f"{tag} spans={spans}: rounds {summary.rounds} (device "
               f"{dev_rounds}), events {summary.events}, packets "
               f"{summary.packets_sent} sent / {summary.packets_dropped} "
-              f"dropped, trace lines {len(lines)} sha256 {digest[:16]}, "
-              f"wall {wall:.1f}s, {summary.end_time_ns / 1e9 / wall:.4f} "
-              f"sim-s/wall-s, peak device memory "
+              f"dropped, trace lines {run['lines']} sha256 "
+              f"{run['digest'][:16]}, wall {wall:.1f}s, "
+              f"{summary.end_time_ns / 1e9 / wall:.4f} sim-s/wall-s, peak "
+              f"device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         if r is not None:
@@ -299,7 +422,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
                   f"loop time {r.device_ms / 1e3:.1f}s (CUDA events), "
                   f"export {r.export_bytes / 2**30:.2f} GiB / import "
                   f"{r.import_bytes / 2**30:.2f} GiB, launches "
-                  f"{launches}", flush=True)
+                  f"{run['launches']}", flush=True)
+            print_stages(tag, r)
         if not summary.ok:
             raise AssertionError(f"plugin errors: "
                                  f"{summary.plugin_errors[:3]}")
@@ -317,12 +441,44 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
     if r.rounds < min_share * sd.rounds:
         raise AssertionError(f"{tag} only {r.rounds}/{sd.rounds} rounds "
                              f"on the device (< {min_share:.0%})")
-    for name, n in dev["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{tag} {name} was never launched")
+    launches = dev["launches"]
+    # One launch per fire of the relay stage: the fire counters cover
+    # committed spans, so an aborted span's launches only add.
+    for name, code in (("relay1_law", tcp_span.KS_INET_OUT),
+                       ("relay2_law", tcp_span.KS_CODEL)):
+        fires = int(r.ks_fires[code])
+        if fires <= 0 or launches[name] < fires \
+                or (r.aborts == 0 and launches[name] != fires):
+            raise AssertionError(f"{tag} {name} launched {launches[name]} "
+                                 f"times for {fires} fires of its stage "
+                                 f"({r.aborts} aborted spans)")
+    # The laws run inside the relay kernels: the span loop launches no
+    # standalone law kernel.
+    for name in ("bucket_step", "codel_head"):
+        if launches[name] != 0:
+            raise AssertionError(f"{tag} the span loop launched {name} "
+                                 f"{launches[name]} times")
     print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds "
-          f"on the card", flush=True)
-    return dev["launches"]
+          f"on the card, one relay launch per relay fire", flush=True)
+    return launches, r
+
+
+def print_stages(tag, r) -> None:
+    """The runner's per-stage counters over its committed spans: fires,
+    lanes, lanes per fire, and host wall from each guard's sync to the
+    end of the stage's issue (so the kernels' device time hides in the
+    next sync)."""
+    from shadow_tpu_torch.ops.tcp_span import KS_NAMES
+    print(f"{tag} stages over {r.micro_iters} micro-iterations "
+          f"(name: fires, lanes, lanes/fire, host s, ms/fire):", flush=True)
+    for code, name in enumerate(KS_NAMES):
+        f, n, w = int(r.ks_fires[code]), int(r.ks_lanes[code]), \
+            float(r.ks_wall_s[code])
+        if f:
+            print(f"{tag}   {name}: {f}, {n}, {n / f:.1f}, {w:.3f}, "
+                  f"{w / f * 1e3:.3f}", flush=True)
+    print(f"{tag} stage host wall total {r.ks_wall_s.sum():.3f}s of "
+          f"{r.device_ms / 1e3:.3f}s loop", flush=True)
 
 
 def main(argv=None) -> int:
@@ -333,6 +489,7 @@ def main(argv=None) -> int:
     kind = card()
     build_all()
     stats = check_kernels()
+    relay_stats = check_relay_kernels()
     # The main path: the 10,000-host stream.  Its fleet enters the TCP
     # device-span domain only at 1.23 s simulated (every client's GET
     # acked, every rtx/reassembly ring under half its cap), and the
@@ -342,14 +499,32 @@ def main(argv=None) -> int:
     print(f"[main] stop_time {args.stop_time}: cut from 1s upward to "
           f"reach the device-span domain (entered at 1.23 s) and kept "
           f"short for the time limit", flush=True)
-    launches = stream_pair(H_MAIN, args.stop_time, min_share=0.0)
+    launches, runner = stream_pair(H_MAIN, args.stop_time, min_share=0.0)
     # The device share at a width the eager loop finishes in time.
     stream_pair(16, "500ms", min_share=0.5)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    # The relay kernels' row: the mask density nearest the main path's
+    # mean lanes per fire of the relay stage.
+    from shadow_tpu_torch.ops.tcp_span import KS_CODEL, KS_INET_OUT
+    for name, code in (("relay1_law", KS_INET_OUT),
+                       ("relay2_law", KS_CODEL)):
+        occ = runner.ks_lanes[code] / max(runner.ks_fires[code], 1)
+        dens = min(DENSITIES, key=lambda d: abs(np.log(d * H_MAIN)
+                                                 - np.log(max(occ, 1))))
+        row = relay_stats[(name, dens)]
+        per_lane = (row["bytes"] - 5 * H_MAIN) / row["lanes"]
+        main_bound = (5 * H_MAIN + occ * per_lane) / BANDWIDTH * 1e3
+        print(f"[main] {name}: {occ:.1f} lanes per launch on the main "
+              f"path; bound there {main_bound * 1e3:.3f} us at the branch "
+              f"cases' {per_lane:.0f} B per mask lane (density {dens:g}, "
+              f"the kernels line's row)", flush=True)
+        stats[name] = dict(row, max_abs_err=max(
+            relay_stats[(name, d)]["max_abs_err"] for d in DENSITIES))
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": None,
+                "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"]}
                for name, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,12 @@
 //   stt_bucket_step  <- make_bucket_step (law bucket_step_ref)
 //   stt_codel_head   <- make_codel_head  (law codel_head_ref)
 // Both are per-lane integer laws over the host lane of the TCP device
-// span (ops/tcp_span.py relay micro-ops): one thread per lane with a
-// grid-stride loop, integer-exact, no shared memory.
+// span: one thread per lane with a grid-stride loop, integer-exact, no
+// shared memory.  The laws themselves are device functions in
+// queue_laws.cuh, shared with the fused relay kernels (relay.cu), which
+// are what the span loop launches; these standalone kernels serve the
+// laws one launch each (chip_smoke.py holds them against their plain
+// versions).
 //
 // Bound: both move every input once and write every output once and do
 // a handful of integer operations per lane, so they are bound by bytes.
@@ -29,15 +33,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "queue_laws.cuh"
 
-// Floor division for a positive divisor.  JAX (and torch) `//` floors;
-// C++ `/` truncates toward zero, which differs for the lanes with
-// now < nxt (a negative numerator).
-__device__ __forceinline__ int64_t floor_div_pos(int64_t a, int64_t b) {
-  int64_t q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
+namespace {
 
 __global__ void bucket_step_kernel(
     const int64_t* __restrict__ bal, const int64_t* __restrict__ nxt,
@@ -49,26 +47,12 @@ __global__ void bucket_step_kernel(
     int64_t* __restrict__ nxt_out, uint8_t* __restrict__ ok_out) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t b = bal[i], x = nxt[i], t = now[i * now_stride];
-    const int64_t sz = size[i * size_stride];
-    const bool unl = unlimited[i] != 0;
-    // First touch (nxt == 0) arms the bucket; otherwise a lazy catch-up
-    // refill of k whole intervals, capped at cap.
-    const bool first = x == 0;
-    int64_t k = 1 + floor_div_pos(t - x, refill_ns);
-    if (k < 0) k = 0;
-    const bool do_ref = !first && t >= x;
-    int64_t bal2 = b;
-    if (do_ref) {
-      const int64_t topped = b + k * refill[i];
-      bal2 = cap[i] < topped ? cap[i] : topped;
-    }
-    const int64_t nxt2 =
-        first ? t + refill_ns : (do_ref ? x + k * refill_ns : x);
-    const bool ok = unl || sz <= bal2;
-    bal_out[i] = (!unl && ok) ? bal2 - sz : bal2;
-    nxt_out[i] = nxt2;
-    ok_out[i] = ok ? 1 : 0;
+    const stt::BucketOut o = stt::bucket_law(
+        bal[i], nxt[i], refill[i], cap[i], unlimited[i] != 0,
+        size[i * size_stride], now[i * now_stride], refill_ns);
+    bal_out[i] = o.bal;
+    nxt_out[i] = o.nxt;
+    ok_out[i] = o.ok ? 1 : 0;
   }
 }
 
@@ -84,20 +68,14 @@ __global__ void codel_head_kernel(
     int64_t* __restrict__ fa_out) {
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t t = now[i * now_stride];
-    const int64_t fa = first_above[i];
-    const bool p = pop[i] != 0;
-    // Sojourn vs target with the MTU standing-queue escape.
-    const int64_t sojourn = t - enq[i];
-    const bool quiet = p && (sojourn < target_ns || bytes_after[i] <= mtu);
-    const bool above = p && !quiet;
-    const bool arm = above && fa == 0;
-    const bool cok = above && !arm && t >= fa;
-    fa_out[i] = (quiet || none[i] != 0) ? 0 : (arm ? t + interval_ns : fa);
-    quiet_out[i] = quiet ? 1 : 0;
-    above_out[i] = above ? 1 : 0;
-    arm_out[i] = arm ? 1 : 0;
-    cok_out[i] = cok ? 1 : 0;
+    const stt::CodelHeadOut o = stt::codel_head_law(
+        pop[i] != 0, none[i] != 0, now[i * now_stride], enq[i],
+        bytes_after[i], first_above[i], target_ns, mtu, interval_ns);
+    fa_out[i] = o.fa;
+    quiet_out[i] = o.quiet ? 1 : 0;
+    above_out[i] = o.above ? 1 : 0;
+    arm_out[i] = o.arm ? 1 : 0;
+    cok_out[i] = o.cok ? 1 : 0;
   }
 }
 

@@ -1,10 +1,12 @@
 """Lane-parallel queue-scan laws: plain PyTorch versions and the
 hand-written CUDA kernels (`csrc/queues.cu`) behind one wrapper each.
 
-The port's counterpart of `shadow_tpu/ops/pallas_queues.py`.  The TCP
-device span (ops/tcp_span.py) runs two elementwise integer laws over
-the host lane every micro-iteration: the token-bucket refill and
-conformance scan, and the CoDel head classification of a relay drain.
+The port's counterpart of `shadow_tpu/ops/pallas_queues.py`: two
+elementwise integer laws over the host lane, the token-bucket refill
+and conformance scan and the CoDel head classification of a relay
+drain.  The TCP device span runs both inside its fused relay kernels
+(ops/relay.py, csrc/relay.cu), whose plain versions call the laws
+below; the standalone kernels here serve one law per launch.
 
 - `bucket_step_ref` / `codel_head_ref` are the laws in plain PyTorch.
   A wrapper uses them only for tensors that lie on the CPU (the tier-1
@@ -72,24 +74,36 @@ def codel_head_ref(target_ns, mtu, pop, none, now, enq, bytes_after,
     return quiet, above, arm, cok, fa_new
 
 
-class _Library:
-    """The compiled kernel library: built once per process (or found
-    already built and fresh) and loaded with ctypes."""
+class KernelLibrary:
+    """One compiled kernel library: `source` in csrc/ (with the headers
+    there) built once per process with nvcc, or found already built and
+    newer than every source, and loaded with ctypes.  `declare(lib)`
+    sets the argument and result types of its C functions."""
 
-    def __init__(self):
+    def __init__(self, source: str, name: str, declare, error_fn: str):
+        self.source = source
+        self.name = name
+        self.declare = declare
+        self.error_fn = error_fn
         self.lib = None
         self.build_s = 0.0
 
     def path(self) -> str:
-        return os.path.join(BUILD_DIR, "libstt_queues.so")
+        return os.path.join(BUILD_DIR, self.name)
+
+    def _stale(self, out: str, src: str) -> bool:
+        if not os.path.exists(out):
+            return True
+        deps = [src] + [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                        if f.endswith(".cuh")]
+        return os.path.getmtime(out) < max(map(os.path.getmtime, deps))
 
     def build(self) -> ctypes.CDLL:
         if self.lib is not None:
             return self.lib
-        src = os.path.join(_CSRC, "queues.cu")
+        src = os.path.join(_CSRC, self.source)
         out = self.path()
-        if not os.path.exists(out) \
-                or os.path.getmtime(out) < os.path.getmtime(src):
+        if self._stale(out, src):
             os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = os.path.join(os.environ.get("CUDA_HOME",
                                                "/usr/local/cuda"),
@@ -106,32 +120,35 @@ class _Library:
                                    f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(out)
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.stt_bucket_step.argtypes = [p, p, p, p, p, p, i64, p, i64,
-                                        i64, i64, p, p, p, p]
-        lib.stt_bucket_step.restype = ctypes.c_int
-        lib.stt_codel_head.argtypes = [p, p, p, i64, p, p, p, i64, i64,
-                                       i64, i64, p, p, p, p, p, p]
-        lib.stt_codel_head.restype = ctypes.c_int
-        i32 = ctypes.c_int
-        lib.stt_bucket_step_repeat.argtypes = \
-            lib.stt_bucket_step.argtypes[:-1] + [i32, p]
-        lib.stt_bucket_step_repeat.restype = ctypes.c_int
-        lib.stt_codel_head_repeat.argtypes = \
-            lib.stt_codel_head.argtypes[:-1] + [i32, p]
-        lib.stt_codel_head_repeat.restype = ctypes.c_int
-        lib.stt_error_string.argtypes = [ctypes.c_int]
-        lib.stt_error_string.restype = ctypes.c_char_p
+        self.declare(lib)
+        getattr(lib, self.error_fn).argtypes = [ctypes.c_int]
+        getattr(lib, self.error_fn).restype = ctypes.c_char_p
         self.lib = lib
         return lib
 
     def check(self, code: int, name: str) -> None:
         if code != 0:
-            msg = self.lib.stt_error_string(code).decode()
+            msg = getattr(self.lib, self.error_fn)(code).decode()
             raise RuntimeError(f"{name} launch failed: {msg} ({code})")
 
 
-LIBRARY = _Library()
+def _declare_queues(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.stt_bucket_step.argtypes = [p, p, p, p, p, p, i64, p, i64, i64,
+                                    i64, p, p, p, p]
+    lib.stt_codel_head.argtypes = [p, p, p, i64, p, p, p, i64, i64, i64,
+                                   i64, p, p, p, p, p, p]
+    lib.stt_bucket_step_repeat.argtypes = \
+        lib.stt_bucket_step.argtypes[:-1] + [i32, p]
+    lib.stt_codel_head_repeat.argtypes = \
+        lib.stt_codel_head.argtypes[:-1] + [i32, p]
+    for fn in (lib.stt_bucket_step, lib.stt_codel_head,
+               lib.stt_bucket_step_repeat, lib.stt_codel_head_repeat):
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = KernelLibrary("queues.cu", "libstt_queues.so", _declare_queues,
+                        "stt_error_string")
 
 
 def _lanes(name: str, t, n: int, dtype, scalar_ok: bool = False):

@@ -33,22 +33,27 @@ where it is handled):
   does a real floor division (csrc/queues.cu).
 - Guards.  The `lax.cond(mask.any())` guards and the while loops
   become eager Python.  Every stage runs masked, with its writes
-  behind `torch.where`, so a stage with no active lane leaves the
+  behind `torch.where` (the relay kernels write in place on the
+  mask's lanes only), so a stage with no active lane leaves the
   state bit-identical; a stage (and an emit, a timer push or a trace
   append inside one) is skipped when no lane is active.  That costs
-  one host sync per guard, and skipping saves the launches of the
-  whole stage, which is the larger cost on the card as on the CPU.
-  The loop conditions cost one sync per micro-iteration and one per
-  round.
+  one host sync per guard, which also counts the stage's lanes, and
+  skipping saves the launches of the whole stage, which is the larger
+  cost on the card as on the CPU.  The loop conditions cost one sync
+  per micro-iteration and one per round.
 - Speed.  Launch overhead dominates this first form; CUDA graphs and a
   persistent kernel are later work (ROADMAP B5).
 
-The relay micro-ops call the hand kernels `BUCKET_STEP` and
-`CODEL_HEAD` (ops/queues.py) at the sites where the JAX code calls
-the Pallas kernels.
+The relay micro-ops launch the fused hand kernels `RELAY1_LAW` and
+`RELAY2_LAW` (ops/relay.py, csrc/relay.cu) for their lane-local tails,
+which hold the bucket and CoDel-head laws at the sites where the JAX
+code calls the Pallas kernels; those kernels write the span state in
+place on the stage's lanes.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -57,6 +62,7 @@ from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
                                        threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
 from shadow_tpu_torch.ops.queues import BucketStep, CodelHead
+from shadow_tpu_torch.ops.relay import RelayConsts, RelayLaw
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
 
@@ -174,6 +180,8 @@ KS_ARM = 9
 KS_TIMERS = 10
 KS_EXCHANGE = 11
 KS_N = 12
+KS_NAMES = ("pop", "step", "codel", "on-packet", "reassembly", "ack",
+            "push", "flush", "inet-out", "arm", "timers", "exchange")
 
 # Telemetry sample fields (trace/events.py TEL_REC order after the
 # identity header) -> the SoA column each samples.
@@ -203,9 +211,24 @@ PK_DTYPES = {
 }
 
 
-# The hand kernels the relay micro-ops launch.  Each keeps a plain
-# launch counter that counts CUDA launches only (chip_smoke.py zeroes
-# them before the main path and reads them after).
+# Fire/lane stage counters: how many times per micro-iteration the
+# fused schedule runs each stage (the relay drains and the reassembly
+# drain run twice), so fires <= passes x trips.
+KS_PASSES = {KS_POP: 1, KS_TIMERS: 1, KS_STEP: 1, KS_CODEL: 1,
+             KS_ON_PACKET: 1, KS_REASM: 2, KS_ACK: 1, KS_PUSH: 1,
+             KS_FLUSH: 1, KS_INET_OUT: 2, KS_ARM: 1}
+
+# The hand kernels the relay micro-ops launch: one fused kernel per
+# relay pass.  Each keeps a plain launch counter that counts CUDA
+# launches only (chip_smoke.py zeroes them before the main path and
+# reads them after).
+RELAY_CONSTS = RelayConsts(PK_KEYS, TCP_TOTAL_HDR, REFILL_NS,
+                           CODEL_TARGET_NS, MTU, TEL_CODEL, TEL_LINK_DOWN)
+RELAY1_LAW = RelayLaw(1, RELAY_CONSTS)
+RELAY2_LAW = RelayLaw(2, RELAY_CONSTS)
+# The standalone law kernels (csrc/queues.cu).  The span loop runs their
+# laws inside the relay kernels and never launches these; chip_smoke.py
+# holds them against their plain versions.
 BUCKET_STEP = BucketStep(REFILL_NS)
 CODEL_HEAD = CodelHead(CODEL_TARGET_NS, MTU)
 
@@ -309,6 +332,11 @@ class TcpSpanRunner(SpanMeshMixin):
         self.ineligible = 0
         self.over_caps = 0
         self.micro_iters = 0
+        # Per-stage fires, lanes and host wall of committed spans (KS_*
+        # slots), beside micro_iters (the trips they are bounded by).
+        self.ks_fires = np.zeros(KS_N, np.int64)
+        self.ks_lanes = np.zeros(KS_N, np.int64)
+        self.ks_wall_s = np.zeros(KS_N)
         self.last_abort_code = 0
         self.last_was_cold = False
         self.last_transient = False
@@ -609,8 +637,8 @@ class TcpSpanRunner(SpanMeshMixin):
         # Out-of-bounds scatters: conn-major masked lanes write the
         # trash row CC (JAX writes COOB = CC+1 with mode="drop").
         TRASH = CC
-        bucket_step = BUCKET_STEP
-        codel_head = CODEL_HEAD
+        relay1 = RELAY1_LAW.bind(H, OP, CC)
+        relay2 = RELAY2_LAW.bind(H, CQ, CC)
         where = torch.where
 
         def full(n, v, dtype=i64):
@@ -900,29 +928,7 @@ class TcpSpanRunner(SpanMeshMixin):
                  torch.zeros(H, dtype=i64, device=dev), F_ACK,
                  with_sacks=True, track=False)
 
-        # -------- token bucket / relays ------------------------------
-
-        def bucket_try(st, r, now, mask, size):
-            bal = st[f"r{r}_bal"]
-            nxt = st[f"r{r}_next"]
-            # The hand kernel (replaces the Pallas make_bucket_step at
-            # the reference's bucket_try site).
-            bal3, nxt2, ok = bucket_step(
-                bal, nxt, st[f"r{r}_refill"], st[f"r{r}_cap"],
-                st[f"r{r}_unlimited"] == 1, size, now)
-            st[f"r{r}_bal"] = where(mask, bal3, bal)
-            st[f"r{r}_next"] = where(mask, nxt2, nxt)
-            return ok, nxt2
-
-        def control_time(t, count):
-            v = count << 32
-            g = torch.sqrt(v.to(torch.float64)).to(i64)
-            g = where(g * g > v, g - 1, g)
-            g = where(g * g > v, g - 1, g)
-            g = where((g + 1) * (g + 1) <= v, g + 1, g)
-            g = where((g + 1) * (g + 1) <= v, g + 1, g)
-            g = g.clamp(min=1)
-            return t + (100_000_000 << 16) // g
+        # -------- relays ---------------------------------------------
 
         def op_relay1(st, mask):
             """inet-out drain: iface_pop over the host's queued conns
@@ -942,55 +948,26 @@ class TcpSpanRunner(SpanMeshMixin):
             best = full(H + 1, I64_MAX).scatter_reduce(
                 0, chost_safe, where(eligible, head_prio, I64_MAX),
                 "amin")[:H]
-            src_avail = mask & ~use_pend & (best < I64_MAX)
+            pop = mask & ~use_pend & (best < I64_MAX)
             sel_match = eligible & (head_prio
                                     == best[chost_safe.clamp(0, H - 1)])
             sel = full(H + 1, -1).scatter_reduce(
                 0, chost_safe, where(sel_match, cidx, -1), "amax")[:H]
+            # The lane-local tail in one launch (the packet, eth send
+            # counters, bucket, throttle stash, forward and link-down
+            # counters), in place; it reads op_pos before the pop below.
+            throttled, linkdn, fwd, done, when, pk = relay1(st, mask, pop,
+                                                            sel)
+            # iface_pop: dequeue + requeue-if-more + SND trace
             sel_safe = sel.clamp(0, CC - 1)
-            hsel = head[sel_safe]
-            pk = {kk: where(use_pend, st[f"r1_pk_{kk}"],
-                            st[f"op_{kk}"][sel_safe, hsel])
-                  for kk in PK_KEYS}
-            pop = src_avail
-            st["r1_pk_valid"] = where(use_pend, 0, st["r1_pk_valid"])
-            # iface_pop: dequeue + requeue-if-more + SND trace + eth
             rows = where(pop, sel, TRASH)
             cinc(st, "op_pos", rows)
             still = st["op_len"][sel_safe] > st["op_pos"][sel_safe]
             cput(st, "c_queued", rows, where(still, 1, 0))
-            size = pk["plen"] + TCP_TOTAL_HDR
-            st["eth_psent"] = where(pop, st["eth_psent"] + 1,
-                                    st["eth_psent"])
-            st["eth_bsent"] = where(pop, st["eth_bsent"] + size,
-                                    st["eth_bsent"])
             tr_append(st, pop, now, TR_SND, pk, 0)
-
-            has_pkt = use_pend | pop
-            ok, when = bucket_try(st, 1, now, has_pkt, size)
-            throttled = has_pkt & ~ok
-            st["r1_stalls"] = st["r1_stalls"] + throttled
-            st["r1_pending"] = where(throttled, 1, st["r1_pending"])
-            st["r1_pk_valid"] = where(throttled, 1, st["r1_pk_valid"])
-            for kk in PK_KEYS:
-                st[f"r1_pk_{kk}"] = where(throttled, pk[kk],
-                                          st[f"r1_pk_{kk}"])
             sq = draw_seq(st, throttled)
             th_push(st, throttled, when, sq, TK_RELAY, 1)
-
-            fwd = has_pkt & ok
-            st["r1_fwd_pkts"] = st["r1_fwd_pkts"] + fwd
-            st["r1_fwd_bytes"] = st["r1_fwd_bytes"] + where(fwd, size, 0)
-            st["pkts_sent"] = where(fwd, st["pkts_sent"] + 1,
-                                    st["pkts_sent"])
-            # NIC link down: the send dies at the egress instant, before
-            # the dst lookup and the event-seq draw.
-            linkdn = fwd & ((st["h_fault"] & 2) != 0)
-            st["pkts_dropped"] = where(linkdn, st["pkts_dropped"] + 1,
-                                       st["pkts_dropped"])
-            st["drop_causes"][:, TEL_LINK_DOWN] += linkdn
             tr_append(st, linkdn, now, TR_DRP, pk, RSN_LINKDOWN)
-            fwd = fwd & ~linkdn
             # device_push(dev=2): dst must be a remote engine host
             ips_sorted = st["_ips_sorted"]
             dslot = torch.searchsorted(ips_sorted, pk["dip"]).clamp(
@@ -1006,115 +983,19 @@ class TcpSpanRunner(SpanMeshMixin):
             for kk in PK_KEYS:
                 cols[f"out_{kk}"] = pk[kk]
             seq_append(st, O, hit, cols, "out_n", AB_OUT)
-            done = mask & ~has_pkt | throttled
             st["cont"] = where(done, st["then"], st["cont"])
 
         def op_relay2(st, mask):
             """inet-in drain: CoDel pop -> token bucket ->
             iface_receive -> conn match -> hand to C_TCPIN."""
             now = st["now"]
-            use_pend = mask & (st["r2_pk_valid"] == 1)
-            src_avail = mask & ~use_pend & (st["cq_len"] > st["cq_pos"])
-            pos = st["cq_pos"] % CQ
-            pk = {kk: where(use_pend, st[f"r2_pk_{kk}"],
-                            st[f"cq_{kk}"][hidx, pos])
-                  for kk in PK_KEYS}
-            enq = st["cq_enq"][hidx, pos]
-            pop = mask & ~use_pend & src_avail
-            none = mask & ~use_pend & ~src_avail
-            size = pk["plen"] + TCP_TOTAL_HDR
-
-            st["r2_pk_valid"] = where(use_pend, 0, st["r2_pk_valid"])
-            st["cq_pos"] = where(pop, st["cq_pos"] + 1, st["cq_pos"])
-            st["codel_bytes"] = where(pop, st["codel_bytes"] - size,
-                                      st["codel_bytes"])
-            # dequeue_raw's ok/first_above law: the hand kernel
-            # (replaces the Pallas make_codel_head at this site)
-            quiet, above, arm, cok, fa_new = codel_head(
-                pop, none, now, enq, st["codel_bytes"],
-                st["codel_first_above"])
-            st["codel_first_above"] = fa_new
-            st["codel_dropping"] = where(none, 0, st["codel_dropping"])
-            st["cd_chain"] = where(none, 0, st["cd_chain"])
-            st["cd_sniff"] = where(none, 0, st["cd_sniff"])
-
-            in_sniff = st["cd_sniff"] == 1
-            in_chain = (st["cd_chain"] == 1) & ~in_sniff
-            top = pop & ~in_sniff & ~in_chain
-
-            sg = pop & in_sniff
-            cnt_new = where(
-                now - st["codel_drop_next"] < 100_000_000,
-                where(st["codel_count"] > 2,
-                      st["codel_count"] - st["codel_last_count"], 1), 1)
-            st["codel_dropping"] = where(sg, 1, st["codel_dropping"])
-            st["codel_count"] = where(sg, cnt_new, st["codel_count"])
-            st["codel_last_count"] = where(sg, cnt_new,
-                                           st["codel_last_count"])
-            st["codel_drop_next"] = where(sg, control_time(now, cnt_new),
-                                          st["codel_drop_next"])
-            st["cd_sniff"] = where(sg, 0, st["cd_sniff"])
-
-            cg_ = pop & in_chain
-            cg_exit = cg_ & ~cok
-            st["codel_dropping"] = where(cg_exit, 0, st["codel_dropping"])
-            st["cd_chain"] = where(cg_exit, 0, st["cd_chain"])
-            cg_ok = cg_ & cok
-            dn2 = control_time(st["codel_drop_next"], st["codel_count"])
-            st["codel_drop_next"] = where(cg_ok, dn2,
-                                          st["codel_drop_next"])
-            cg_drop = cg_ok & (now >= st["codel_drop_next"])
-            cg_deliver = cg_ok & ~cg_drop
-            st["cd_chain"] = where(cg_deliver, 0, st["cd_chain"])
-
-            td = top & (st["codel_dropping"] == 1)
-            td_exit = td & ~cok
-            st["codel_dropping"] = where(td_exit, 0, st["codel_dropping"])
-            td_ok = td & cok
-            td_drop = td_ok & (now >= st["codel_drop_next"])
-            st["cd_chain"] = where(td_drop, 1, st["cd_chain"])
-
-            tl = top & ~td & cok & (
-                (now - st["codel_drop_next"] < 100_000_000)
-                | (now - st["codel_first_above"] >= 100_000_000))
-            st["cd_sniff"] = where(tl, 1, st["cd_sniff"])
-
-            codel_drop = cg_drop | td_drop | tl
-            st["codel_count"] = where(cg_drop | td_drop,
-                                      st["codel_count"] + 1,
-                                      st["codel_count"])
-            st["codel_dropped"] = where(codel_drop,
-                                        st["codel_dropped"] + 1,
-                                        st["codel_dropped"])
-            st["codel_drop_bytes"] = where(codel_drop,
-                                           st["codel_drop_bytes"] + size,
-                                           st["codel_drop_bytes"])
-            st["pkts_dropped"] = where(codel_drop, st["pkts_dropped"] + 1,
-                                       st["pkts_dropped"])
-            st["drop_causes"][:, TEL_CODEL] += codel_drop
+            # The lane-local tail in one launch (CoDel dequeue, head
+            # law, control-law ladder, drop counters, bucket, throttle
+            # stash, forward and eth counters), in place.
+            codel_drop, throttled, fwd, done, when, pk = relay2(st, mask)
             tr_append(st, codel_drop, now, TR_DRP, pk, RSN_CODEL)
-            pop = pop & ~codel_drop
-
-            has_pkt = use_pend | pop
-            ok, when = bucket_try(st, 2, now, has_pkt, size)
-            throttled = has_pkt & ~ok
-            st["r2_stalls"] = st["r2_stalls"] + throttled
-            st["r2_pending"] = where(throttled, 1, st["r2_pending"])
-            st["r2_pk_valid"] = where(throttled, 1, st["r2_pk_valid"])
-            for kk in PK_KEYS:
-                st[f"r2_pk_{kk}"] = where(throttled, pk[kk],
-                                          st[f"r2_pk_{kk}"])
             sq = draw_seq(st, throttled)
             th_push(st, throttled, when, sq, TK_RELAY, 2)
-
-            fwd = has_pkt & ok
-            st["r2_fwd_pkts"] = st["r2_fwd_pkts"] + fwd
-            st["r2_fwd_bytes"] = st["r2_fwd_bytes"] + where(fwd, size, 0)
-            # iface_receive: eth counters, then the association match
-            st["eth_precv"] = where(fwd, st["eth_precv"] + 1,
-                                    st["eth_precv"])
-            st["eth_brecv"] = where(fwd, st["eth_brecv"] + size,
-                                    st["eth_brecv"])
             mark_abort(st, (fwd & (pk["dip"] != st["eth_ip"])).any(),
                        AB_STRUCT, 5)
             # conn lookup: (dsthost, src-ip-host, sport) key
@@ -1143,7 +1024,6 @@ class TcpSpanRunner(SpanMeshMixin):
             st["cont"] = where(hit, C_TCPIN, st["cont"])
             # r2 drains only ever start from an event, so the return is
             # always idle — `then` stays r1's register.
-            done = none | throttled
             st["cont"] = where(done, C_IDLE, st["cont"])
 
         # -------- TCP state machine ----------------------------------
@@ -1784,42 +1664,63 @@ class TcpSpanRunner(SpanMeshMixin):
 
         # -------- per-iteration dispatcher ---------------------------
 
-        def micro_iter(st, window_end, iters):
+        def micro_iter(st, window_end, iters, n_due):
             """The fused schedule: ops consume the live continuation in
             dataflow order, so a delivered segment's whole chain runs in
             one iteration.  Each stage is guarded by an any-lane-active
-            check, like the reference's `lax.cond` guards."""
-            def stage(op, cont, *args):
-                mask = st["cont"] == cont
-                if active(mask):
-                    op(st, mask, *args)
+            check, like the reference's `lax.cond` guards, and counted
+            like the reference's kernel observatory (ks_count): a fire
+            per pass with active lanes, its lane count, and the host
+            wall from its guard's sync to the end of its issue."""
+            fires, lanes, wall = st["ks_fires"], st["ks_lanes"], \
+                st["ks_wall_s"]
 
-            stage(op_pop_event, C_IDLE, window_end)
+            def run_stage(op, code, mask, n, *args):
+                t0 = time.perf_counter()
+                op(st, mask, *args)
+                wall[code] += time.perf_counter() - t0
+                fires[code] += 1
+                lanes[code] += n
+
+            def stage(op, cont, code):
+                mask = st["cont"] == cont
+                n = int(mask.sum())  # the guard's one host sync
+                if n:
+                    run_stage(op, code, mask, n)
+
+            # The event pop fires on the idle lanes with a due event
+            # (ks_count_pop), counted by the loop condition's sync; with
+            # none due it is an identity and is skipped.
+            if n_due:
+                run_stage(op_pop_event, KS_POP, st["cont"] == C_IDLE,
+                          n_due, window_end)
             th_memo[0] = None
-            stage(op_tmr, C_TMR)
-            stage(op_app, C_APP)
-            stage(op_relay2, C_R2)
-            stage(op_tcpin, C_TCPIN)
+            stage(op_tmr, C_TMR, KS_TIMERS)
+            stage(op_app, C_APP, KS_STEP)
+            stage(op_relay2, C_R2, KS_CODEL)
+            stage(op_tcpin, C_TCPIN, KS_ON_PACKET)
             for _ in range(2):
-                stage(op_drain, C_DRAIN)
-            stage(op_ackdata, C_ACKDATA)
-            stage(op_push, C_PUSH)
-            stage(op_flush, C_FLUSH)
+                stage(op_drain, C_DRAIN, KS_REASM)
+            stage(op_ackdata, C_ACKDATA, KS_ACK)
+            stage(op_push, C_PUSH, KS_PUSH)
+            stage(op_flush, C_FLUSH, KS_FLUSH)
             for _ in range(2):
-                stage(op_relay1, C_R1)
-            stage(op_arm, C_ARM)
+                stage(op_relay1, C_R1, KS_INET_OUT)
+            stage(op_arm, C_ARM, KS_ARM)
             # Per-round runaway valve: a continuation-cycle bug must
             # abort, not spin.
             mark_abort(st, iters > (1 << 17), AB_STRUCT, 13)
 
-        def micro_busy(st, window_end) -> bool:
-            """The loop condition: the one host sync per iteration."""
+        def micro_busy(st, window_end):
+            """The loop condition, the one host sync per iteration:
+            (any lane busy or due and no abort, the idle lanes due)."""
             ib_t, _ = ib_head_time(st)
             th_memo[0] = th_min(st)
             due = torch.minimum(ib_t, th_memo[0][0]) < window_end
             busy = st["cont"] != C_IDLE
-            return bool(((busy | due).any()
-                         & (st["abort_code"] == 0)).item())
+            go = ((busy | due).any() & (st["abort_code"] == 0)).to(i64)
+            go, n_due = torch.stack([go, (due & ~busy).sum()]).tolist()
+            return bool(go), n_due
 
         # -------- round end: propagation + inbox merge ---------------
 
@@ -1964,6 +1865,13 @@ class TcpSpanRunner(SpanMeshMixin):
                           "tr_plen", "tr_reason", "tr_owner"):
                     st[k] = torch.zeros(TR + 1, dtype=i64, device=dev)
 
+            # Span-local stage counters (the reference's ks_fires /
+            # ks_lanes, plus host wall per stage): output only, never
+            # engine state.
+            st["ks_fires"] = np.zeros(KS_N, np.int64)
+            st["ks_lanes"] = np.zeros(KS_N, np.int64)
+            st["ks_wall_s"] = np.zeros(KS_N)
+
             rounds = busy_rounds = packets = iters = 0
             busy_end = start
             aborted = False
@@ -1971,8 +1879,11 @@ class TcpSpanRunner(SpanMeshMixin):
                    and not aborted):
                 window_end = min(start + runahead, stop)
                 it = 0
-                while micro_busy(st, window_end):
-                    micro_iter(st, window_end, it)
+                while True:
+                    go, n_due = micro_busy(st, window_end)
+                    if not go:
+                        break
+                    micro_iter(st, window_end, it, n_due)
                     it += 1
                 n_out, min_lat = propagate(st, window_end)
                 ib_t, th_t = next_event_time(st)
@@ -2110,6 +2021,9 @@ class TcpSpanRunner(SpanMeshMixin):
         self.spans += 1
         self.rounds += rounds
         self.micro_iters += span_iters
+        self.ks_fires += st_out["ks_fires"]
+        self.ks_lanes += st_out["ks_lanes"]
+        self.ks_wall_s += st_out["ks_wall_s"]
         ra_out = int(ra) if dynamic else int(runahead)
         return (rounds, busy_rounds, packets, int(next_start),
                 int(busy_end), ra_out)

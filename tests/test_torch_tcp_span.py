@@ -10,7 +10,8 @@
    the CPU with forced device spans — identical traces, events and
    drops, at least half the rounds stepped by the device loop.
 4. (slow) One span of the JAX runner and of the port from the same
-   exported state, output dicts compared exactly.
+   exported state, output dicts and per-stage fire/lane counters
+   compared exactly.
 """
 
 import numpy as np
@@ -236,6 +237,7 @@ def test_torch_one_span_equals_jax_runner():
     st_np = jr._to_arrays(d)
     n_conns = st_np.pop("_n_conns")
     args = (start, stop, limit, runahead, 8)
+    jr.kern = True  # build with the kernel observatory's stage counters
     fn = jr._build()
     out = fn(dict(st_np), jr._lat, jr._thr, jr._node, jr._ips_sorted,
              jr._ips_perm, np.uint32(jr._k[0]), np.uint32(jr._k[1]),
@@ -258,6 +260,11 @@ def test_torch_one_span_equals_jax_runner():
         pr._build()(st, *args)
     assert (pstart, pra, prounds, pbusy, ppk, pbend) == tuple(
         int(v) for v in (jstart, jra, jrounds, jbusy, jpk, jbend))
+    # The per-stage counters: the same fires and lanes per stage.
+    np.testing.assert_array_equal(pst["ks_fires"],
+                                  np.asarray(jst["ks_fires"]))
+    np.testing.assert_array_equal(pst["ks_lanes"],
+                                  np.asarray(jst["ks_lanes"]))
     p_np = state_to_numpy(pst, keys=[k for k in jst
                                      if k in pst["_np_dtypes"]])
     n = int(jst["tr_n"])
