@@ -1,16 +1,17 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--stop-time 1s]
+    python3 chip_smoke.py [--stop-time 1.25s]
 
-Three phases; any failed check raises, so the script exits non-zero:
+Four phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the two kernel libraries from this checkout
    (in parallel), hold each kernel against its plain PyTorch version on
    the card and time both:
    - the standalone law kernels (stt_bucket_step, stt_codel_head) on
-     adversarial integer inputs at H = 10,000, a ragged H = 10,001 and
-     a scalar `now`;
+     adversarial integer inputs at H = 10,000, a ragged H = 10,001, a
+     scalar `now`, and the PHOLD path's shape (H = 8,192, scalar
+     `size`), where they are timed for the kernels line;
    - the fused relay kernels (stt_relay1_law, stt_relay2_law) at
      H = 10,000 with the span's ring widths, on lanes built to reach
      every branch (tools/relay_cases.py) at mask densities of 0.1%, 10%
@@ -26,8 +27,20 @@ Three phases; any failed check raises, so the script exits non-zero:
    launched once per fire of its stage by the device run and the
    standalone law kernels never (their laws run inside the relay
    kernels); print the per-stage
-   fire/lane counters.  Then the same stream at 16 hosts, where at
-   least half the rounds must run on the card.
+   fire/lane counters and the wall of the router's one PHOLD probe.
+   Then the same stream at 16 hosts, where at least half the rounds
+   must run on the card.
+4. Run the PHOLD/udp-mesh family the same way, spans off and forced:
+   phold-8k (the reference ladder's 8,192-LP rung), mesh-24 (the
+   reference's 24-host paced udp-mesh) and mesh-codel-10 (the
+   reference's CoDel-active mesh), requiring identical traces, spans
+   with no abort, >= 50% of rounds on the card for phold-8k, family 1
+   and drops for the meshes (CoDel drops for mesh-codel-10), each
+   standalone law kernel launched once per call the runner made, never
+   more often than the stages that call it fire, and the TCP relay
+   kernels never.  Prints the per-stage
+   counters, ms per micro-iteration, the span codec's bytes and walls
+   and the peak device memory.
 
 It prints a `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`.  It imports nothing of JAX and
@@ -49,7 +62,10 @@ import torch
 H_MAIN = 10_000
 CONNS_MAIN = 32_768  # the 10,000-host stream's conn capacity CC
 BANDWIDTH = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+# Bytes each lane's operands take (each read once, each output written
+# once); a 0-d operand costs nothing per lane.
 BYTES_PER_LANE = {"bucket_step": 66, "codel_head": 46}
+H_PHOLD = 8_192  # the phold-8k cell's lanes: the law kernels' main path
 REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "codel_head": "shadow_tpu/ops/pallas_queues.py:119",
             "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
@@ -180,14 +196,14 @@ def graph_ms(fn, reps: int = 100) -> float:
 
 def check_kernels() -> dict:
     from shadow_tpu_torch.ops import queues
-    from shadow_tpu_torch.ops.tcp_span import BUCKET_STEP, CODEL_HEAD
-    bs, ch = BUCKET_STEP, CODEL_HEAD
+    bs, ch = queues.BUCKET_STEP, queues.CODEL_HEAD
     stats = {}
 
-    def calls(t, scalar_now):
+    def calls(t, scalar_now, scalar_size=False):
         now = t["now"][0] if scalar_now else t["now"]
+        size = t["size"][0] if scalar_size else t["size"]
         b_args = (t["bal"], t["nxt"], t["refill"], t["cap"],
-                  t["unlimited"], t["size"], now)
+                  t["unlimited"], size, now)
         c_args = (t["pop"], t["none"], now, t["enq"], t["bytes_after"],
                   t["first_above"])
         return {
@@ -199,20 +215,26 @@ def check_kernels() -> dict:
                                ch.target_ns, ch.mtu, *c_args)),
         }
 
-    def launch(name, reps):
+    def launch(name, reps, scalar_size):
         # `reps` back-to-back kernel launches from C (timing only;
         # counted nowhere).
         if name == "bucket_step":
             bs.launch(t["bal"], t["nxt"], t["refill"], t["cap"],
-                      t["unlimited"], t["size"], t["now"], reps=reps)
+                      t["unlimited"],
+                      t["size"][0] if scalar_size else t["size"],
+                      t["now"], reps=reps)
         else:
             ch.launch(t["pop"], t["none"], t["now"], t["enq"],
                       t["bytes_after"], t["first_above"], reps=reps)
 
-    for H in (H_MAIN, H_MAIN + 1):
+    # The TCP stream's width, ragged, and the PHOLD path's shape (a 0-d
+    # packet size, as PholdSpanRunner calls), the only one timed.
+    for H, scalar_size in ((H_MAIN, False), (H_MAIN + 1, False),
+                           (H_PHOLD, True)):
         t = adversarial(H)
         for scalar_now in (False, True):
-            for name, (kern, plain) in calls(t, scalar_now).items():
+            for name, (kern, plain) in calls(t, scalar_now,
+                                             scalar_size).items():
                 got = kern()
                 want = plain()
                 torch.cuda.synchronize()
@@ -227,24 +249,30 @@ def check_kernels() -> dict:
                 if err != 0:
                     raise AssertionError(f"{name} H={H} scalar_now="
                                          f"{scalar_now}: max |err| {err}")
-                if H == H_MAIN and not scalar_now:
+                if H == H_PHOLD and not scalar_now:
                     reps = 1000
-                    ms = events_ms(lambda: launch(name, reps), reps)
-                    gms = graph_ms(lambda: launch(name, 1), 200)
+                    ms = events_ms(lambda: launch(name, reps, scalar_size),
+                                   reps)
+                    gms = graph_ms(lambda: launch(name, 1, scalar_size),
+                                   200)
                     call_ms = events_ms(
                         lambda: [kern() for _ in range(reps)], reps)
                     pms = graph_ms(plain)
-                    bound = BYTES_PER_LANE[name] * H / BANDWIDTH * 1e3
-                    stats[name] = {"ms": ms, "graph_ms": gms,
-                                   "plain_ms": pms, "call_ms": call_ms,
-                                   "bound_ms": bound, "max_abs_err": err}
-                print(f"[kernel] {name} H={H} scalar_now={scalar_now}: "
-                      f"exact (max |err| {err})", flush=True)
+                    per_lane = BYTES_PER_LANE[name] - (
+                        8 if scalar_size and name == "bucket_step" else 0)
+                    bound = per_lane * H / BANDWIDTH * 1e3
+                    stats[name] = {
+                        "ms": ms, "graph_ms": gms, "plain_ms": pms,
+                        "call_ms": call_ms, "bound_ms": bound,
+                        "max_abs_err": err, "H": H}
+                print(f"[kernel] {name} H={H} scalar_now={scalar_now} "
+                      f"scalar_size={scalar_size}: exact (max |err| {err})",
+                      flush=True)
     for name, s in stats.items():
-        print(f"[kernel] {name} H={H_MAIN}: {s['ms'] * 1e3:.3f} us per "
+        print(f"[kernel] {name} H={s['H']}: {s['ms'] * 1e3:.3f} us per "
               f"launch on the card (back-to-back launches), "
               f"{s['graph_ms'] * 1e3:.3f} us in a CUDA graph, "
-              f"{s['call_ms'] * 1e3:.2f} us per wrapper call from Python; "
+              f"{s['call_ms'] * 1e3:.2f} us host per wrapper call; "
               f"plain PyTorch {s['plain_ms'] * 1e3:.3f} us (CUDA graph); "
               f"bound {s['bound_ms'] * 1e3:.3f} us by bytes", flush=True)
     return stats
@@ -378,7 +406,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
     once per fire of its stage and the standalone law kernels never.
     Returns the device run's kernel launch counts and its runner."""
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops import tcp_span
+    from shadow_tpu_torch.ops import queues, tcp_span
     from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
                                                         stream_config)
 
@@ -391,8 +419,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
                       device="cuda")
         if spans == "force":
             log_spans(mgr)
-        wrappers = {"bucket_step": tcp_span.BUCKET_STEP,
-                    "codel_head": tcp_span.CODEL_HEAD,
+        wrappers = {"bucket_step": queues.BUCKET_STEP,
+                    "codel_head": queues.CODEL_HEAD,
                     "relay1_law": tcp_span.RELAY1_LAW,
                     "relay2_law": tcp_span.RELAY2_LAW}
         # Counts cover this run only: zeroed just before it.
@@ -401,6 +429,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
         torch.cuda.reset_peak_memory_stats()
         run = run_stream(mgr)
         run["launches"] = {name: w.launches for name, w in wrappers.items()}
+        run["phold"] = mgr._dev_span
         runs[spans] = run
         summary, r, wall = run["summary"], run["runner"], run["wall"]
         dev_rounds = r.rounds if r is not None else 0
@@ -458,6 +487,13 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
         if launches[name] != 0:
             raise AssertionError(f"{tag} the span loop launched {name} "
                                  f"{launches[name]} times")
+    # The router tries the PHOLD family first: one structural refusal
+    # per run, then the TCP family serves every span.
+    ph = dev["phold"]
+    if ph is None or ph.ineligible != 1 or ph.spans != 0:
+        raise AssertionError(f"{tag} the PHOLD probe did not refuse once")
+    print(f"{tag} PHOLD probe: refused structurally once in "
+          f"{ph.export_wall_ns / 1e6:.3f} ms", flush=True)
     print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds "
           f"on the card, one relay launch per relay fire", flush=True)
     return launches, r
@@ -469,6 +505,8 @@ def print_stages(tag, r) -> None:
     end of the stage's issue (so the kernels' device time hides in the
     next sync)."""
     from shadow_tpu_torch.ops.tcp_span import KS_NAMES
+    if not r.ks_wall_s.sum():
+        return
     print(f"{tag} stages over {r.micro_iters} micro-iterations "
           f"(name: fires, lanes, lanes/fire, host s, ms/fire):", flush=True)
     for code, name in enumerate(KS_NAMES):
@@ -481,6 +519,165 @@ def print_stages(tag, r) -> None:
           f"{r.device_ms / 1e3:.3f}s loop", flush=True)
 
 
+def phold_cells() -> dict:
+    """Phase 4's cells: name -> (config for a `tpu_device_spans` value,
+    least device-round share, what the CoDel gate requires)."""
+    from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.tools.netgen import mesh_family_yaml, phold_yaml
+
+    def phold_8k(spans):
+        # the reference ladder's 8k rung (bench.py phold_rung)
+        return ConfigOptions.from_yaml_text(phold_yaml(
+            H_PHOLD, n_init=1, mean_delay_ns=50_000_000, stop_time="0.3s",
+            seed=13, scheduler="tpu", peers_per_host=64,
+            device_spans=spans))
+
+    def mesh_24(spans):
+        # the reference's bench[mesh-dev] shape (mesh_cfg(n=24))
+        return ConfigOptions.from_yaml_text(mesh_family_yaml(
+            24, scheduler="tpu", device_spans=spans))
+
+    def mesh_codel_10(spans):
+        # tests/test_phold_span.py's CoDel-active mesh: fast up, slow
+        # down, sustained overload
+        names = [f"m{i:02d}" for i in range(10)]
+        hosts = {}
+        for name in names:
+            peers = " ".join(p for p in names if p != name)
+            hosts[name] = {"network_node_id": 0, "processes": [{
+                "path": "udp-mesh", "args": f"9000 60 900 {peers}",
+                "start_time": "100ms", "expected_final_state": "any"}]}
+        return ConfigOptions.from_dict({
+            "general": {"stop_time": "60s", "seed": 41},
+            "network": {"graph": {"type": "gml", "inline": (
+                'graph [ node [ id 0 host_bandwidth_down "400 Kbit" '
+                'host_bandwidth_up "10 Mbit" ] edge [ source 0 target 0 '
+                'latency "10 ms" ] ]')}},
+            "experimental": {"scheduler": "tpu",
+                             "socket_send_buffer": "64 KiB",
+                             "tpu_device_spans": spans},
+            "hosts": hosts})
+
+    return {"phold-8k": (phold_8k, 0.5, None),
+            "mesh-24": (mesh_24, 0.5, None),
+            "mesh-codel-10": (mesh_codel_10, 0.5, "drops")}
+
+
+def phold_pair(name: str, make, min_share: float, codel) -> dict:
+    """One PHOLD/udp-mesh cell through the port's Manager on the card,
+    spans off and forced.  Requires identical traces and counters,
+    device spans with no abort, `min_share` of the rounds on the card,
+    family 1 with drops for the meshes (CoDel drops where `codel`), and
+    each law kernel launched exactly once per call the runner made
+    (none in the C++ run), its committed calls never more than the fires
+    of the stages that call it, and the TCP relay kernels never.
+    Returns the device run's launches of all four kernels."""
+    import hashlib
+
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops import phold_span as ps
+    from shadow_tpu_torch.ops import queues, tcp_span
+
+    tag = f"[{name}]"
+    wrappers = {"bucket_step": queues.BUCKET_STEP,
+                "codel_head": queues.CODEL_HEAD,
+                "relay1_law": tcp_span.RELAY1_LAW,
+                "relay2_law": tcp_span.RELAY2_LAW}
+    runs = {}
+    for spans in ("off", "force"):
+        t0 = time.perf_counter()
+        mgr = Manager(make(spans), device="cuda")
+        build_s = time.perf_counter() - t0
+        # Counts cover this run only: zeroed just before it.
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = mgr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        lines = mgr.trace_lines()
+        digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+        r = mgr._dev_span
+        codel_drops = sum(1 for ln in lines if ln.endswith("codel"))
+        runs[spans] = dict(summary=summary, r=r, launches=launches,
+                           digest=digest, codel=codel_drops,
+                           tcp=mgr._dev_span_tcp)
+        print(f"{tag} spans={spans}: {len(mgr.hosts)} hosts, rounds "
+              f"{summary.rounds} (device {r.rounds if r else 0}), events "
+              f"{summary.events}, packets {summary.packets_sent} sent / "
+              f"{summary.packets_dropped} dropped ({codel_drops} by "
+              f"CoDel), trace lines {len(lines)} sha256 {digest[:16]}, "
+              f"Manager build {build_s:.1f}s, run wall {wall:.2f}s, peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+              f"launches {launches}", flush=True)
+        if r is not None and r.spans:
+            per = r.device_ms / max(r.micro_iters, 1)
+            print(f"{tag} spans={spans}: device spans {r.spans}, "
+                  f"micro-iterations {r.micro_iters} "
+                  f"({r.micro_iters / max(r.rounds, 1):.2f} per round, "
+                  f"{per:.3f} ms each in the loop), loop "
+                  f"{r.device_ms / 1e3:.3f}s (CUDA events) of span wall "
+                  f"{r.device_wall_ns / 1e9:.3f}s, aborts {r.aborts} "
+                  f"{r.abort_kind_counts()}, over caps {r.over_caps}; "
+                  f"export {r.export_bytes / 2**20:.1f} MiB in "
+                  f"{r.export_wall_ns / 1e9:.3f}s, import "
+                  f"{r.import_bytes / 2**20:.1f} MiB in "
+                  f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); "
+                  f"law kernel calls {r.calls_all.tolist()} (committed "
+                  f"{r.ks_calls.tolist()})", flush=True)
+            print_stages(tag, r)
+        if not summary.ok:
+            raise AssertionError(f"{tag} plugin errors: "
+                                 f"{summary.plugin_errors[:3]}")
+    off, dev = runs["off"], runs["force"]
+    so, sd, r = off["summary"], dev["summary"], dev["r"]
+    if off["digest"] != dev["digest"]:
+        raise AssertionError(f"{tag} trace sha256 differs between the C++ "
+                             f"run and the device-span run")
+    counters = [(s.events, s.packets_sent, s.packets_recv,
+                 s.packets_dropped, s.syscalls) for s in (so, sd)]
+    if counters[0] != counters[1]:
+        raise AssertionError(f"{tag} counters differ: {counters}")
+    if r is None or r.spans == 0 or r.aborts:
+        raise AssertionError(f"{tag} device spans {r and r.spans}, aborts "
+                             f"{r and r.aborts}")
+    if dev["tcp"] is not None and dev["tcp"].spans:
+        raise AssertionError(f"{tag} the TCP runner served a span")
+    if r.rounds < min_share * sd.rounds:
+        raise AssertionError(f"{tag} only {r.rounds}/{sd.rounds} rounds "
+                             f"on the device (< {min_share:.0%})")
+    if name.startswith("mesh") and (r.family != 1
+                                    or sd.packets_dropped == 0):
+        raise AssertionError(f"{tag} family {r.family}, drops "
+                             f"{sd.packets_dropped}")
+    if codel and dev["codel"] == 0:
+        raise AssertionError(f"{tag} no CoDel drop")
+    if any(off["launches"].values()):
+        raise AssertionError(f"{tag} the C++ run launched {off['launches']}")
+    # The TCP relay kernels serve only the TCP family's relays.
+    for kname in ("relay1_law", "relay2_law"):
+        if dev["launches"][kname] != 0:
+            raise AssertionError(f"{tag} the PHOLD loop launched {kname} "
+                                 f"{dev['launches'][kname]} times")
+    fires = r.ks_fires
+    for i, (kname, most) in enumerate((
+            ("bucket_step", fires[ps.KS_INET_OUT] + fires[ps.KS_CODEL]),
+            ("codel_head", fires[ps.KS_CODEL]))):
+        n = dev["launches"][kname]
+        if n <= 0 or n != r.calls_all[i] or r.ks_calls[i] > most \
+                or (r.rolled_back_rounds == 0 and n != r.ks_calls[i]):
+            raise AssertionError(
+                f"{tag} {kname} launched {n} times for {r.calls_all[i]} "
+                f"calls ({r.ks_calls[i]} committed), stage fires {most}")
+    print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds on "
+          f"the card, law kernels launched once per call "
+          f"({dev['launches']})", flush=True)
+    return dev["launches"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.25s",
@@ -490,18 +687,24 @@ def main(argv=None) -> int:
     build_all()
     stats = check_kernels()
     relay_stats = check_relay_kernels()
-    # The main path: the 10,000-host stream.  Its fleet enters the TCP
-    # device-span domain only at 1.23 s simulated (every client's GET
-    # acked, every rtx/reassembly ring under half its cap), and the
-    # eager loop takes minutes per simulated 10 ms at this width, so
-    # the run ends a few rounds into the device stretch: the device
-    # share here is small by construction (PERF.md).
+    by_path: dict = {}
+    # The main path of the relay kernels: the 10,000-host stream.  Its
+    # fleet enters the TCP device-span domain only at 1.23 s simulated
+    # (every client's GET acked, every rtx/reassembly ring under half its
+    # cap), and the eager loop takes minutes per simulated 10 ms at this
+    # width, so the run ends a few rounds into the device stretch: the
+    # device share here is small by construction (PERF.md).
     print(f"[main] stop_time {args.stop_time}: cut from 1s upward to "
           f"reach the device-span domain (entered at 1.23 s) and kept "
           f"short for the time limit", flush=True)
-    launches, runner = stream_pair(H_MAIN, args.stop_time, min_share=0.0)
+    by_path["tcp-stream-10k"], runner = stream_pair(
+        H_MAIN, args.stop_time, min_share=0.0)
     # The device share at a width the eager loop finishes in time.
     stream_pair(16, "500ms", min_share=0.5)
+    # The main path of the standalone law kernels: the PHOLD/udp-mesh
+    # family, phold-8k first.
+    for name, (make, share, codel) in phold_cells().items():
+        by_path[name] = phold_pair(name, make, share, codel)
     # The relay kernels' row: the mask density nearest the main path's
     # mean lanes per fire of the relay stage.
     from shadow_tpu_torch.ops.tcp_span import KS_CODEL, KS_INET_OUT
@@ -519,12 +722,23 @@ def main(argv=None) -> int:
               f"the kernels line's row)", flush=True)
         stats[name] = dict(row, max_abs_err=max(
             relay_stats[(name, d)]["max_abs_err"] for d in DENSITIES))
+    # `launches`: the count on each kernel's main path (tcp-stream-10k
+    # for the relay kernels, phold-8k for the law kernels);
+    # `launches_by_path`: every path's count, each zeroed just before
+    # its run.
+    main_path = {"bucket_step": "phold-8k", "codel_head": "phold-8k",
+                 "relay1_law": "tcp-stream-10k",
+                 "relay2_law": "tcp-stream-10k"}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name],
+                "launches": by_path[main_path[name]][name],
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": "bytes", "library_ms": None,
-                "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"]}
+                "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"],
+                "main_path": main_path[name],
+                "launches_by_path": {p: n[name]
+                                     for p, n in by_path.items()}}
                for name, s in stats.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,10 +48,11 @@ def main(argv=None) -> int:
             print(f"[shadow-tpu-torch] plugin error: {err}",
                   file=sys.stderr)
         return 1
-    r = manager._dev_span_tcp
+    dev_rounds = sum(r.rounds for r in (manager._dev_span,
+                                        manager._dev_span_tcp) if r)
     print(f"[shadow-tpu-torch] done: simulated "
           f"{summary.end_time_ns / 1e9:.3f}s in {summary.rounds} rounds "
-          f"({r.rounds if r else 0} on the device); "
+          f"({dev_rounds} on the device); "
           f"{summary.packets_sent} packets, {summary.events} events",
           file=sys.stderr)
     return 0

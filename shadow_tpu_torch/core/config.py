@@ -6,10 +6,10 @@ this slice serves.  A key or value that needs a path the port has not
 ported yet raises NotImplementedError naming the ROADMAP item, instead
 of running some other path silently.
 
-The slice: engine-resident tgen hosts (tgen-server / tgen-client) under
-`experimental.scheduler: tpu`, with the C++ engine serving every round
-the device does not (C++ spans and the per-round loop), and TCP device
-spans on the card.
+The slice: engine-resident hosts (the tgen TCP apps and the UDP/PHOLD
+apps) under `experimental.scheduler: tpu`, with the C++ engine serving
+every round the device does not (C++ spans and the per-round loop), and
+the TCP and PHOLD/udp-mesh device spans on the card.
 """
 
 from __future__ import annotations
@@ -20,18 +20,17 @@ from typing import Any
 
 import yaml
 
+from shadow_tpu_torch.host.engine_app import ENGINE_ARGC, argv_fits
 from shadow_tpu_torch.net import graph as netgraph
 from shadow_tpu_torch.utils import units
 
 SCHEDULERS = ("thread_per_core", "thread_per_host", "serial", "tpu")
 QDISC_MODES = ("fifo", "round_robin")
-ENGINE_APPS = ("tgen-server", "tgen-client")
 
 # ROADMAP queue A items that the refusals below name.
 _RM_OVERLAP = "ROADMAP A1 (residency and speculative overlap)"
 _RM_OBJECT = ("ROADMAP A2 (per-round propagator with object-path "
               "hosts)")
-_RM_PHOLD = "ROADMAP A3 (PHOLD/udp-mesh family)"
 _RM_CLI = "ROADMAP A4 (port CLI and bench)"
 _RM_SHARDED = "ROADMAP A5 (sharded multi-GPU)"
 _RM_OBS = ("ROADMAP A7 (observatories, checkpoint and faults, managed "
@@ -355,16 +354,12 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
 
 
 def _check_engine_app(where: str, path: str, args: list[str]) -> None:
-    """Only engine-resident tgen apps are served: anything else runs on
-    the object path, under the shim, or in the PHOLD family."""
-    if path not in ENGINE_APPS:
-        if path in ("phold", "udp-mesh", "udp-flood", "udp-sink",
-                    "udp-echo-server", "udp-pinger"):
-            _refuse(f"{where}: {path} (engine UDP/PHOLD apps)", _RM_PHOLD)
+    """Only engine-resident apps are served: anything else runs on the
+    object path or under the shim."""
+    if path not in ENGINE_ARGC:
         _refuse(f"{where}: {path} (object-path or managed process)",
                 _RM_OBS if "/" in path else _RM_OBJECT)
-    if (path == "tgen-server" and len(args) != 1) or \
-            (path == "tgen-client" and len(args) not in (3, 4)):
+    if not argv_fits(path, args):
         _refuse(f"{where}: {path} with args {args} (object-path app)",
                 _RM_OBJECT)
 

@@ -7,9 +7,10 @@ engine-resident hosts only.  Every host lives on the C++ engine
 time and serves the rounds from it in one of three ways, exactly as
 the reference does under `scheduler: tpu`:
 
-- a device span (ops/tcp_span.py): whole conservative windows of
-  exported TCP state stepped in PyTorch on the card and imported back
-  transactionally;
+- a device span: whole conservative windows of exported state stepped
+  in PyTorch on the card and imported back transactionally, by the
+  PHOLD/udp-mesh family (ops/phold_span.py) or, when the sim is not
+  PHOLD-shaped, by the TCP steady-stream family (ops/tcp_span.py);
 - a C++ span (engine.run_span): whole windows inside one engine call;
 - one per-round iteration: hosts with Python-side work (spawn tasks)
   run through Host.execute, the rest in one engine batch, and the
@@ -86,7 +87,7 @@ ZERO_PROGRESS = object()
 
 
 class SpawnTask:
-    """One configured process spawn: an engine-resident tgen app."""
+    """One configured process spawn: an engine-resident app."""
 
     __slots__ = ("pcfg", "index", "spec", "bufs")
 
@@ -97,14 +98,15 @@ class SpawnTask:
         self.bufs = bufs  # (send_buf, recv_buf, send_at, recv_at)
 
     def __call__(self, h) -> None:
-        kind, a, b, c, d, e = self.spec
+        kind, a, b, c, d, e = self.spec[:6]
+        extra = self.spec[6:]  # the peer-IP buffer of udp-mesh / phold
         send_buf, recv_buf, send_at, recv_at = self.bufs
         process = EngineAppProcess(
             h, f"{self.pcfg.path}.{self.index}",
             expected_final_state=self.pcfg.expected_final_state)
         process.app_idx = h.plane.engine.app_spawn(
             h.id, kind, a, b, c, d, e, send_buf, recv_buf, int(send_at),
-            int(recv_at), h.now())
+            int(recv_at), h.now(), *extra)
 
 
 class Manager:
@@ -183,7 +185,8 @@ class Manager:
         self._mt_threads = config.general.parallelism or os.cpu_count() or 1
         self._nt = None
         self._py_work = None
-        self._dev_span_tcp = None
+        self._dev_span = None      # the PHOLD/udp-mesh family's runner
+        self._dev_span_tcp = None  # the TCP family's runner
 
     # ------------------------------------------------------------------
     # The round loop
@@ -406,33 +409,50 @@ class Manager:
     # Device spans
     # ------------------------------------------------------------------
 
+    def _span_runner_args(self) -> tuple:
+        return (self.plane.engine, self.latency_ns, self.loss_thresholds,
+                np.ascontiguousarray([h.node_index for h in self.hosts],
+                                     dtype=np.int32),
+                np.ascontiguousarray([h.ip for h in self.hosts],
+                                     dtype=np.uint32),
+                self.config.general.seed,
+                self.config.general.bootstrap_end_time_ns)
+
+    def make_dev_span_runner(self):
+        from shadow_tpu_torch.ops.phold_span import PholdSpanRunner
+        return PholdSpanRunner(*self._span_runner_args(), tracing=True,
+                               device=self.device)
+
     def make_tcp_span_runner(self):
         from shadow_tpu_torch.ops.tcp_span import TcpSpanRunner
-        runner = TcpSpanRunner(
-            self.plane.engine, self.latency_ns, self.loss_thresholds,
-            np.ascontiguousarray([h.node_index for h in self.hosts],
-                                 dtype=np.int32),
-            np.ascontiguousarray([h.ip for h in self.hosts],
-                                 dtype=np.uint32),
-            self.config.general.seed,
-            self.config.general.bootstrap_end_time_ns, tracing=True,
-            device=self.device)
+        runner = TcpSpanRunner(*self._span_runner_args(), tracing=True,
+                               device=self.device)
         runner.dctcp_k = (self.config.experimental.dctcp_k_pkts,
                           self.config.experimental.dctcp_k_bytes)
         return runner
 
     def _device_span(self, start: int, stop: int, limit: int,
                      max_rounds: int):
-        """One device-resident multi-round span of the TCP family.
-        Returns (result, runner); result None = ineligible / transient /
-        aborted (the engine state is untouched either way)."""
+        """One device-resident multi-round span, routed between the
+        PHOLD/udp-mesh family and the TCP steady-stream family.  Returns
+        (result, runner); result None = ineligible / transient / aborted
+        (the engine state is untouched either way)."""
+        args = (start, stop, limit, self.runahead.get(),
+                self.runahead.dynamic, max_rounds)
+        if self._dev_span is None:
+            self._dev_span = self.make_dev_span_runner()
+        phold = self._dev_span
+        if not phold.ineligible:
+            res = phold.try_span(*args)
+            if res is not None or not phold.ineligible:
+                return res, phold
+        # permanently not PHOLD-shaped: the TCP family
         if self._dev_span_tcp is None:
             self._dev_span_tcp = self.make_tcp_span_runner()
         tcp = self._dev_span_tcp
         if tcp.ineligible:
             return None, tcp
-        return tcp.try_span(start, stop, limit, self.runahead.get(),
-                            self.runahead.dynamic, max_rounds), tcp
+        return tcp.try_span(*args), tcp
 
     # ------------------------------------------------------------------
     # Outputs

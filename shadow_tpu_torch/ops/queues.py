@@ -11,9 +11,12 @@ below; the standalone kernels here serve one law per launch.
 - `bucket_step_ref` / `codel_head_ref` are the laws in plain PyTorch.
   A wrapper uses them only for tensors that lie on the CPU (the tier-1
   tests); `chip_smoke.py` holds the kernels against them on the card.
-- `bucket_step` / `codel_head` are the wrappers.  For CUDA tensors they
-  launch the kernel or raise: there is no fallback.  Each keeps a plain
-  integer launch counter, bumped only where it launches its kernel.
+- `BucketStep` / `CodelHead` are the wrappers, and `BUCKET_STEP` /
+  `CODEL_HEAD` the one instance of each that the span runners share
+  (the PHOLD/udp-mesh relays call them; the TCP relays run the laws
+  inside their fused kernels).  For CUDA tensors they launch the kernel
+  or raise: there is no fallback.  Each keeps a plain integer launch
+  counter, bumped only where it launches its kernel.
 
 The kernels build at first use with nvcc for sm_90a into the gitignored
 `shadow_tpu_torch/csrc/build/` and bind through a plain C interface
@@ -32,6 +35,10 @@ import torch
 # CoDel's control-law interval (netplane codel_pop twin): the
 # first_above arm horizon.
 CODEL_INTERVAL_NS = 100_000_000
+# The engine's refill interval, CoDel target and MTU (netplane.cpp).
+REFILL_NS = 1_000_000
+CODEL_TARGET_NS = 5_000_000
+MTU = 1500
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -264,3 +271,9 @@ class CodelHead:
             self.launches += 1
         LIBRARY.check(code, "codel_head")
         return (*outs, fa)
+
+
+# The one wrapper of each standalone kernel: chip_smoke.py zeroes their
+# launch counters before a main path and reads them after.
+BUCKET_STEP = BucketStep(REFILL_NS)
+CODEL_HEAD = CodelHead(CODEL_TARGET_NS, MTU)

@@ -1,17 +1,22 @@
-"""Dispatch bookkeeping shared by the device-span runners (the unsharded
-half of `shadow_tpu/ops/span_mesh.py`).
+"""Dispatch bookkeeping shared by the device-span runners, the TCP
+family's and the PHOLD/udp-mesh family's (the unsharded half of
+`shadow_tpu/ops/span_mesh.py`).
 
 What the port carries over: the canonical abort bits, the built-fn
-cache with its build credit, the abort-kind ledger, and `_span_call`'s
-attribution — here with CUDA-event walls, since PyTorch has no
-counterpart of XLA's cost analysis.  Residency, speculative overlap and
-the sharded exchange are not ported yet (ROADMAP A1 and A5).
+cache with its build credit (each runner keys it on its own shape: the
+PHOLD runner on its peer width P), the abort-kind ledger, and
+`_span_call`'s attribution — here with CUDA-event walls, since PyTorch
+has no counterpart of XLA's cost analysis — beside the codec's bytes
+and the host wall of the engine's export and import calls.  Residency,
+speculative overlap and the sharded exchange are not ported yet
+(ROADMAP A1 and A5).
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 # Abort reason bits: trace/outbox overflows are capacity problems the
@@ -25,7 +30,9 @@ AB_EXCH = 8
 
 
 class SpanMeshMixin:
-    """Runner bookkeeping: the concrete runner provides `device`."""
+    """Runner bookkeeping: the concrete runner provides `device`,
+    `MAX_ROUNDS` and the routing arrays (`_lat`, `_thr`, `_node`,
+    `_ips_sorted`, `_ips_perm`)."""
 
     fn_cache_hits = 0        # the fn cache served an already-built fn
     fn_cache_misses = 0      # a fresh build
@@ -36,6 +43,25 @@ class SpanMeshMixin:
     rolled_back_rounds = 0   # rounds stepped then discarded by aborts
     export_bytes = 0         # codec bytes engine -> host, cumulative
     import_bytes = 0         # codec bytes host -> engine, cumulative
+    export_wall_ns = 0       # host wall of the engine's export calls
+    #                          (an ineligible sim's is its probe)
+    import_wall_ns = 0       # host wall of codec + engine import calls
+
+    _statics = None  # the routing arrays as tensors on the device
+
+    def _statics_on_device(self) -> dict:
+        """Routing inputs of the loop, put on the device once."""
+        if self._statics is None:
+            def t(a):
+                return torch.tensor(a.astype(np.int64), device=self.device)
+            self._statics = {
+                "_lat": t(self._lat), "_thr": t(self._thr),
+                "_node": t(self._node), "_ips_sorted": t(self._ips_sorted),
+                "_ips_perm": t(self._ips_perm)}
+        return self._statics
+
+    def _clamp_mr(self, mr: int | None) -> int:
+        return self.MAX_ROUNDS if mr is None else min(mr, self.MAX_ROUNDS)
 
     def _cache_fn(self, cache: dict, key, build):
         """The built-fn cache with explicit hit/miss accounting; a miss's

@@ -61,12 +61,15 @@ import torch
 from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
                                        threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
-from shadow_tpu_torch.ops.queues import BucketStep, CodelHead
+# BUCKET_STEP / CODEL_HEAD are re-exported for tests/test_torch_queues.py,
+# which imports the wrappers from here (ROADMAP C).
+from shadow_tpu_torch.ops.queues import (BUCKET_STEP, CODEL_HEAD,  # noqa: F401
+                                         CODEL_TARGET_NS, MTU, REFILL_NS)
 from shadow_tpu_torch.ops.relay import RelayConsts, RelayLaw
+from shadow_tpu_torch.ops.span_common import I64_MAX, merge_inbox
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
 
-I64_MAX = 1 << 62
 SEQ_HALF = 1 << 31
 SEQ_MOD = 1 << 32
 M32 = 0xFFFFFFFF
@@ -127,10 +130,7 @@ DELACK_NS = 40_000_000
 WMEM_MAX = 4_194_304
 RMEM_MAX = 6_291_456
 
-MTU = 1500
-CODEL_TARGET_NS = 5_000_000
 CODEL_HARD_LIMIT = 1000
-REFILL_NS = 1_000_000
 
 TR_SND = 0
 TR_DRP = 1
@@ -226,11 +226,9 @@ RELAY_CONSTS = RelayConsts(PK_KEYS, TCP_TOTAL_HDR, REFILL_NS,
                            CODEL_TARGET_NS, MTU, TEL_CODEL, TEL_LINK_DOWN)
 RELAY1_LAW = RelayLaw(1, RELAY_CONSTS)
 RELAY2_LAW = RelayLaw(2, RELAY_CONSTS)
-# The standalone law kernels (csrc/queues.cu).  The span loop runs their
-# laws inside the relay kernels and never launches these; chip_smoke.py
-# holds them against their plain versions.
-BUCKET_STEP = BucketStep(REFILL_NS)
-CODEL_HEAD = CodelHead(CODEL_TARGET_NS, MTU)
+# The standalone law kernels (csrc/queues.cu, ops/queues.py BUCKET_STEP /
+# CODEL_HEAD, imported above): this loop runs their laws inside the
+# relay kernels and never launches them.
 
 # Conn-major keys: their first axis is the connection (CC rows plus the
 # trash row the port adds).
@@ -344,7 +342,6 @@ class TcpSpanRunner(SpanMeshMixin):
         self.dctcp_k = (DCTCP_K_PKTS, DCTCP_K_BYTES)
         self._fn = None
         self._fn_cache: dict = {}
-        self._statics = None  # routing tensors on the device
 
     def _caps(self):
         return (self.CAP_I, self.CAP_T, self.CAP_CQ, self.CAP_RT,
@@ -1725,18 +1722,8 @@ class TcpSpanRunner(SpanMeshMixin):
         # -------- round end: propagation + inbox merge ---------------
 
         ar_o = torch.arange(O, dtype=i64, device=dev)
-        ar_i = torch.arange(I, dtype=i64, device=dev)[None, :]
         k0 = torch.tensor(self._k[0], dtype=i64, device=dev)
         k1 = torch.tensor(self._k[1], dtype=i64, device=dev)
-
-        def lexsort3(primary, secondary, tertiary):
-            """Row-wise jnp.lexsort((tertiary, secondary, primary)) as
-            three stable argsorts, least significant key first."""
-            idx = torch.argsort(tertiary, dim=1, stable=True)
-            for key in (secondary, primary):
-                idx = idx.gather(1, torch.argsort(key.gather(1, idx),
-                                                  dim=1, stable=True))
-            return idx
 
         def propagate(st, window_end):
             n = st["out_n"]
@@ -1785,50 +1772,11 @@ class TcpSpanRunner(SpanMeshMixin):
                     st["tr_n"] = tot
                     mark_abort(st, tot > TR - O, AB_TRACE)
 
-            rem = st["ib_len"] - st["ib_pos"]
-            shift = (st["ib_pos"][:, None] + ar_i).clamp(max=I - 1)
-            live = ar_i < rem[:, None]
-
-            def compact(a, fill):
-                # (H + 1, I): row H is the scatter's trash row (JAX
-                # drops the masked packets at row OOB).
-                out = torch.empty((H + 1, I), dtype=a.dtype, device=dev)
-                out[:H] = where(live, a.gather(1, shift), fill)
-                out[H] = fill
-                return out
-
-            ib = {"time": compact(st["ib_time"], I64_MAX),
-                  "src": compact(st["ib_src"], 0),
-                  "seq": compact(st["ib_seq"], I64_MAX)}
+            new = {"time": deliver, "src": src, "seq": st["out_seq"][:O]}
             for kk in PK_KEYS:
-                ib[kk] = compact(st[f"ib_{kk}"], 0)
-            seg = where(keep, dst, H)
-            order = torch.argsort(seg * (O + 1) + ar_o, stable=True)
-            sseg = seg[order]
-            rank0 = ar_o - torch.searchsorted(sseg, sseg)
-            rank = torch.empty_like(rank0)
-            rank[order] = rank0
-            slot = rem[seg.clamp(max=H - 1)] + rank
-            ok_slot = keep & (slot < I - 1)
-            mark_abort(st, (keep & (slot >= I - 1)).any(), AB_STRUCT, 14)
-            rows = where(ok_slot, dst, H)
-            cols = where(ok_slot, slot, 0)
-            ib["time"][rows, cols] = deliver
-            ib["src"][rows, cols] = src
-            ib["seq"][rows, cols] = st["out_seq"][:O]
-            for kk in PK_KEYS:
-                ib[kk][rows, cols] = st[f"out_{kk}"][:O]
-            add = torch.zeros(H + 1, dtype=i64, device=dev).index_add_(
-                0, rows, torch.ones(O, dtype=i64, device=dev))[:H]
-            sort_idx = lexsort3(ib["time"][:H], ib["src"][:H],
-                                ib["seq"][:H])
-            st["ib_time"] = ib["time"][:H].gather(1, sort_idx)
-            st["ib_src"] = ib["src"][:H].gather(1, sort_idx)
-            st["ib_seq"] = ib["seq"][:H].gather(1, sort_idx)
-            for kk in PK_KEYS:
-                st[f"ib_{kk}"] = ib[kk][:H].gather(1, sort_idx)
-            st["ib_pos"] = torch.zeros(H, dtype=i64, device=dev)
-            st["ib_len"] = rem + add
+                new[kk] = st[f"out_{kk}"][:O]
+            over = merge_inbox(st, keep, dst, new)
+            mark_abort(st, over.any(), AB_STRUCT, 14)
             st["out_n"] = torch.zeros((), dtype=i64, device=dev)
             return n, min_lat
 
@@ -1909,24 +1857,13 @@ class TcpSpanRunner(SpanMeshMixin):
     # Dispatch: export -> loop -> import
     # ------------------------------------------------------------------
 
-    def _statics_on_device(self) -> dict:
-        """Routing inputs of the loop, put on the device once."""
-        if self._statics is None:
-            dev = self.device
-
-            def t(a):
-                return torch.tensor(a.astype(np.int64), device=dev)
-            self._statics = {
-                "_lat": t(self._lat), "_thr": t(self._thr),
-                "_node": t(self._node), "_ips_sorted": t(self._ips_sorted),
-                "_ips_perm": t(self._ips_perm)}
-        return self._statics
-
     def export_state(self):
         """Fresh engine export -> the port's device state, or the
         int/None eligibility verdict passed through from
         span_export_tcp."""
+        t0 = time.perf_counter_ns()
         d = self.engine.span_export_tcp(*self._caps())
+        self.export_wall_ns += time.perf_counter_ns() - t0
         if d is None or isinstance(d, int):
             return d
         self.export_bytes += sum(
@@ -1935,9 +1872,6 @@ class TcpSpanRunner(SpanMeshMixin):
         st = state_from_numpy(self._to_arrays(d), self.device)
         st.update(self._statics_on_device())
         return st
-
-    def _clamp_mr(self, mr: int | None) -> int:
-        return self.MAX_ROUNDS if mr is None else min(mr, self.MAX_ROUNDS)
 
     def try_span(self, start: int, stop: int, limit: int, runahead: int,
                  dynamic: bool, max_rounds: int | None = None):
@@ -2009,6 +1943,7 @@ class TcpSpanRunner(SpanMeshMixin):
                 "reason": tr["reason"].astype(np.uint8).tobytes(),
                 "owner": tr["owner"].astype(np.int32).tobytes(),
             }
+        t0 = time.perf_counter_ns()
         st_np = state_to_numpy(st_out, keys=list(st_out["_np_dtypes"]))
         st_np["_n_conns"] = n_conns
         back = self._from_arrays(st_np)
@@ -2016,6 +1951,7 @@ class TcpSpanRunner(SpanMeshMixin):
             len(v) for v in back.values()
             if isinstance(v, (bytes, bytearray, memoryview)))
         self.engine.span_import_tcp(back, *self._caps(), traces)
+        self.import_wall_ns += time.perf_counter_ns() - t0
         self.last_was_cold = not self.compiled
         self.compiled = True
         self.spans += 1

@@ -1,12 +1,35 @@
 """Deterministic workload config generation (the port's copy of the
-TCP stream generator in `shadow_tpu/tools/netgen.py`).
+TCP stream, UDP mesh and PHOLD generators in
+`shadow_tpu/tools/netgen.py`).
 
 Everything is derived from the arguments with pure integer arithmetic,
 so the port and the JAX package generate byte-identical YAML for the
-same call (tests/test_torch_tcp_span.py pins it).
+same call (tests/test_torch_tcp_span.py and
+tests/test_torch_phold_span.py pin it).
 """
 
 from __future__ import annotations
+
+
+def full_mesh_gml(n_nodes: int, bw: str = "100 Mbit",
+                  base_latency_us: int = 2000, step_us: int = 500,
+                  loss: float = 0.02) -> str:
+    """Fully-connected GML graph with varied latencies and a sprinkling
+    of lossy edges (every edge with (i+j) % 5 == 0), plus self-edges."""
+    lines = ["graph [ directed 0"]
+    for i in range(n_nodes):
+        lines.append(f'  node [ id {i} host_bandwidth_down "{bw}" '
+                     f'host_bandwidth_up "{bw}" ]')
+    for i in range(n_nodes):
+        lines.append(f'  edge [ source {i} target {i} latency "500 us" ]')
+    for i in range(n_nodes):
+        for j in range(i + 1, n_nodes):
+            lat = base_latency_us + ((i * 7 + j * 13) % 17) * step_us
+            lossy = f" packet_loss {loss}" if loss and (i + j) % 5 == 0 else ""
+            lines.append(f'  edge [ source {i} target {j} '
+                         f'latency "{lat} us"{lossy} ]')
+    lines.append("]")
+    return "\n".join(lines)
 
 
 def _indent(text: str, pad: str) -> str:
@@ -69,6 +92,139 @@ def tcp_stream_yaml(n_hosts: int, n_servers: int | None = None,
            "  socket_recv_autotune: false"]
     if device_spans is not None:
         exp.append(f"  tpu_device_spans: {device_spans}")
+    return (f"general: {{ stop_time: {stop_time}, seed: {seed} }}\n"
+            f"network:\n  graph:\n    type: gml\n    inline: |\n"
+            f"{_indent(gml, '      ')}\n"
+            f"experimental:\n" + "\n".join(exp) + "\n"
+            f"hosts:\n" + "\n".join(blocks) + "\n")
+
+
+def udp_mesh_yaml(n_hosts: int, n_nodes: int = 8, floods_per_host: int = 3,
+                  count: int = 6, size: int = 600, stop_time: str = "10s",
+                  seed: int = 1, scheduler: str = "serial",
+                  experimental_extra: dict | None = None,
+                  gml: str | None = None, pcap_hosts: int = 0,
+                  object_hosts: int = 0,
+                  data_directory: str | None = None) -> str:
+    """N-host UDP traffic mesh: every host runs one udp-sink (runs until
+    sim end) and `floods_per_host` udp-flood senders at staggered starts.
+    Final process states are loss-independent (floods always exit 0), so
+    the byte-diff gate is the packet trace alone."""
+    if gml is None:
+        gml = full_mesh_gml(n_nodes)
+    exp_lines = [f"  scheduler: {scheduler}"]
+    for k, v in (experimental_extra or {}).items():
+        exp_lines.append(f"  {k}: {v}")
+    names = [f"host{i:05d}" for i in range(n_hosts)]
+    base_offsets = (1, 5, 11, 23, 47, 95)
+    if floods_per_host > len(base_offsets):
+        raise ValueError(f"floods_per_host > {len(base_offsets)} "
+                         f"not supported (got {floods_per_host})")
+    offsets = base_offsets[:floods_per_host]
+    host_blocks = []
+    for i, name in enumerate(names):
+        procs = [f'      - {{ path: udp-sink, args: ["9000"], '
+                 f'expected_final_state: running }}']
+        for k, off in enumerate(offsets):
+            peer = names[(i + off) % n_hosts]
+            start_ms = 1000 + ((i * 31 + k * 157) % 1000)
+            procs.append(
+                f'      - {{ path: udp-flood, '
+                f'args: [{peer}, "9000", "{count}", "{size}"], '
+                f'start_time: {start_ms} ms }}')
+        extra_opts = ""
+        if i < pcap_hosts:
+            extra_opts += "    pcap_enabled: true\n"
+        if i < object_hosts:
+            extra_opts += "    native_dataplane: false\n"
+        host_blocks.append(
+            f"  {name}:\n    network_node_id: {i % n_nodes}\n"
+            + extra_opts + f"    processes:\n" + "\n".join(procs))
+    datadir = (f', data_directory: "{data_directory}"'
+               if data_directory else "")
+    return (f"general: {{ stop_time: {stop_time}, seed: {seed}{datadir} }}\n"
+            f"network:\n  graph:\n    type: gml\n    inline: |\n"
+            f"{_indent(gml, '      ')}\n"
+            f"experimental:\n" + "\n".join(exp_lines) + "\n"
+            f"hosts:\n" + "\n".join(host_blocks) + "\n")
+
+
+def phold_args(i: int, names: list[str], n_init: int,
+               mean_delay_ns: int,
+               peers_per_host: int | None = None) -> list[str]:
+    """One PHOLD LP's argv — the single source of the peer law
+    (next-k ring neighbors, full mesh by default) and the phold arg
+    layout, shared by phold_yaml and the bench dict builders."""
+    n = len(names)
+    if peers_per_host is not None:
+        k = min(peers_per_host, n - 1)
+        peers = [names[(i + 1 + j) % n] for j in range(k)]
+    else:
+        peers = [p for p in names if p != names[i]]
+    return ["7000", str(i), str(n_init), str(mean_delay_ns)] + peers
+
+
+def phold_yaml(n_hosts: int, n_init: int = 3,
+               mean_delay_ns: int = 20_000_000, stop_time: str = "2s",
+               seed: int = 13, scheduler: str = "serial",
+               device_spans: str | None = None,
+               bandwidth: str = "1 Gbit", latency: str = "5 ms",
+               peers_per_host: int | None = None) -> str:
+    """Classic PHOLD (ref: src/test/phold): every host one LP bouncing
+    messages to pseudo-random peers after pseudo-exponential holds.
+    peers_per_host bounds each LP's peer list to its next-k ring
+    neighbors (full mesh by default) — above ~10k LPs a full n^2 peer
+    matrix no longer fits anything."""
+    names = [f"lp{i:04d}" for i in range(n_hosts)]
+    blocks = []
+    for i, name in enumerate(names):
+        args = " ".join(phold_args(i, names, n_init, mean_delay_ns,
+                                   peers_per_host))
+        blocks.append(
+            f"  {name}:\n    network_node_id: 0\n    processes:\n"
+            f'      - {{ path: phold, args: "{args}", '
+            f"start_time: 100ms, "
+            f"expected_final_state: running }}")
+    exp = [f"  scheduler: {scheduler}"]
+    if device_spans is not None:
+        exp.append(f"  tpu_device_spans: {device_spans}")
+    gml = (f'graph [ node [ id 0 host_bandwidth_down "{bandwidth}" '
+           f'host_bandwidth_up "{bandwidth}" ] '
+           f'edge [ source 0 target 0 latency "{latency}" ] ]')
+    return (f"general: {{ stop_time: {stop_time}, seed: {seed} }}\n"
+            f"network:\n  graph:\n    type: gml\n    inline: |\n"
+            f"{_indent(gml, '      ')}\n"
+            f"experimental:\n" + "\n".join(exp) + "\n"
+            f"hosts:\n" + "\n".join(blocks) + "\n")
+
+
+def mesh_family_yaml(n_hosts: int, count: int = 30, size: int = 400,
+                     bw_down: str = "1 Mbit", bw_up: str = "1 Mbit",
+                     loss: float = 0.02, latency: str = "10 ms",
+                     sbuf: str = "8 KiB", seed: int = 29,
+                     stop_time: str = "30s", scheduler: str = "serial",
+                     device_spans: str | None = None) -> str:
+    """Paced udp-mesh: every host ONE udp-mesh process (main sink +
+    sender thread over a shared bound socket), bandwidth-paced so the
+    sim spans many windows — the device-span mesh-family workload
+    (tests/test_phold_span.py and the multichip dryrun share it)."""
+    names = [f"m{i:02d}" for i in range(n_hosts)]
+    blocks = []
+    for name in names:
+        peers = " ".join(p for p in names if p != name)
+        blocks.append(
+            f"  {name}:\n    network_node_id: 0\n    processes:\n"
+            f'      - {{ path: udp-mesh, args: "9000 {count} {size} '
+            f'{peers}", start_time: 100ms, '
+            f"expected_final_state: any }}")
+    exp = [f"  scheduler: {scheduler}",
+           f"  socket_send_buffer: {sbuf}"]
+    if device_spans is not None:
+        exp.append(f"  tpu_device_spans: {device_spans}")
+    loss_s = f" packet_loss {loss}" if loss else ""
+    gml = (f'graph [ node [ id 0 host_bandwidth_down "{bw_down}" '
+           f'host_bandwidth_up "{bw_up}" ] '
+           f'edge [ source 0 target 0 latency "{latency}"{loss_s} ] ]')
     return (f"general: {{ stop_time: {stop_time}, seed: {seed} }}\n"
             f"network:\n  graph:\n    type: gml\n    inline: |\n"
             f"{_indent(gml, '      ')}\n"

@@ -42,6 +42,7 @@ def test_torch_port_imports_no_jax(rel):
 def test_torch_port_file_list_is_complete():
     files = _port_files()
     for want in ("chip_smoke.py", "shadow_tpu_torch/ops/tcp_span.py",
+                 "shadow_tpu_torch/ops/phold_span.py",
                  "shadow_tpu_torch/ops/queues.py",
                  "shadow_tpu_torch/core/manager.py"):
         assert want in files
@@ -61,9 +62,29 @@ _TCP = ("C_IDLE C_R1 C_R2 C_TCPIN C_DRAIN C_ACKDATA C_PUSH C_FLUSH C_ARM "
         "TEL_UNREACHABLE TEL_HOST_DOWN TEL_LINK_DOWN TEL_REASM_FULL "
         "TEL_RECVWIN_TRUNC TEL_N AB_TRACE AB_OUT AB_STRUCT "
         "ROUTE_KEYS TCP_KEYS PK_KEYS").split()
+_PHOLD = ("I64_MAX C_IDLE C_R1 C_R2 C_M_STEP C_S_STEP C_M_RECV C_S_POST "
+          "TK_RELAY TK_APP TK_APP_TIMEOUT S_READABLE S_WRITABLE "
+          "ASYS_SENDTO ASYS_RECVFROM ASYS_NANOSLEEP ASYS_N "
+          "PAYLOAD_LEN MTU CODEL_TARGET_NS CODEL_HARD_LIMIT REFILL_NS "
+          "TR_SND TR_DRP TR_RCV RSN_NONE RSN_RCVBUF RSN_NOSOCK RSN_NOROUTE "
+          "RSN_LOSS RSN_UNREACH RSN_HOSTDOWN RSN_LINKDOWN TEL_CODEL "
+          "TEL_RTR_LIMIT TEL_LOSS_EDGE TEL_UNREACHABLE TEL_NO_ROUTE "
+          "TEL_NO_SOCKET TEL_RECVBUF_FULL TEL_HOST_DOWN TEL_LINK_DOWN "
+          "TEL_N KS_POP KS_STEP KS_CODEL KS_INET_OUT KS_ARM KS_TIMERS "
+          "KS_N PK_KEYS AB_TRACE AB_OUT AB_STRUCT").split()
 PINS = (
-    [("shadow_tpu_torch.ops.tcp_span", "shadow_tpu.ops.tcp_span", n, n)
-     for n in _TCP]
+    [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.phold_span", n, n)
+     for n in _PHOLD]
+    + [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.phold_span",
+        f"PholdSpanRunner.{n}", f"PholdSpanRunner.{n}")
+       for n in ("CAP_I", "CAP_T", "CAP_R", "CAP_S", "CAP_C", "CAP_P",
+                 "MAX_ROUNDS")]
+    + [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.pallas_queues",
+        "CODEL_INTERVAL_NS", "CODEL_INTERVAL_NS")]
+    + [("shadow_tpu_torch.ops.queues", "shadow_tpu.ops.phold_span", n, n)
+       for n in ("REFILL_NS", "CODEL_TARGET_NS", "MTU")]
+    + [("shadow_tpu_torch.ops.tcp_span", "shadow_tpu.ops.tcp_span", n, n)
+       for n in _TCP]
     + [("shadow_tpu_torch.ops.tcp_span", "shadow_tpu.ops.tcp_span",
         f"TcpSpanRunner.{n}", f"TcpSpanRunner.{n}")
        for n in ("CAP_I", "CAP_T", "CAP_CQ", "CAP_OP", "MAX_ROUNDS")]
@@ -79,7 +100,9 @@ PINS = (
                  "EMUTIME_SIMULATION_START", "TIME_NEVER",
                  "SIMTIME_INVALID")]
     + [("shadow_tpu_torch.host.engine_app", "shadow_tpu.host.engine_app",
-        n, n) for n in ("KIND_SERVER", "KIND_CLIENT")]
+        n, n) for n in ("KIND_SERVER", "KIND_CLIENT", "KIND_UDP_FLOOD",
+                        "KIND_UDP_SINK", "KIND_UDP_MESH", "KIND_PHOLD",
+                        "KIND_UDP_ECHO", "KIND_UDP_PING")]
     + [("shadow_tpu_torch.host.host", "shadow_tpu.core.event", n, n)
        for n in ("KIND_PACKET", "KIND_LOCAL")]
     + [("shadow_tpu_torch.core.config", "shadow_tpu.core.config", n, n)

@@ -93,7 +93,8 @@ def test_torch_routing_arrays_match_reference(gml):
     ("experimental:\n", "experimental:\n  sim_netstat: on\n"),
     ("experimental:\n", "experimental:\n  span_overlap: on\n"),
     ("experimental:\n", "experimental:\n  flight_recorder: wall\n"),
-    ("path: tgen-server", "path: udp-sink"),
+    # an engine app with an argv shape only the object path takes
+    ("path: tgen-server", "path: udp-pinger"),
     ("hosts:\n", "checkpoint: {at: [1s]}\nhosts:\n"),
 ])
 def test_torch_config_refuses_unported_paths(patch, needle):
