@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--stop-time 1.25s]
 
-Four phases; any failed check raises, so the script exits non-zero:
+Five phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the two kernel libraries from this checkout
@@ -10,8 +10,9 @@ Four phases; any failed check raises, so the script exits non-zero:
    the card and time both:
    - the standalone law kernels (stt_bucket_step, stt_codel_head) on
      adversarial integer inputs at H = 10,000, a ragged H = 10,001, a
-     scalar `now`, and the PHOLD path's shape (H = 8,192, scalar
-     `size`), where they are timed for the kernels line;
+     scalar `now`, and the PHOLD paths' shapes (scalar `size`):
+     H = 8,192 and H = 65,536, where they are timed (the kernels line
+     takes the 65,536-lane row);
    - the fused relay kernels (stt_relay1_law, stt_relay2_law) at
      H = 10,000 with the span's ring widths, on lanes built to reach
      every branch (tools/relay_cases.py) at mask densities of 0.1%, 10%
@@ -29,10 +30,11 @@ Four phases; any failed check raises, so the script exits non-zero:
    kernels); print the per-stage
    fire/lane counters and the wall of the router's one PHOLD probe.
    Then the same stream at 16 hosts, where at least half the rounds
-   must run on the card.
+   must run on the card, with the router's first window at 4 rounds
+   so that the device stretch takes several spans.
 4. Run the PHOLD/udp-mesh family the same way, spans off and forced:
    phold-8k (the reference ladder's 8,192-LP rung), mesh-24 (the
-   reference's 24-host paced udp-mesh) and mesh-codel-10 (the
+   reference's 24-host paced udp-mesh, to 1 s) and mesh-codel-10 (the
    reference's CoDel-active mesh), requiring identical traces, spans
    with no abort, >= 50% of rounds on the card for phold-8k, family 1
    and drops for the meshes (CoDel drops for mesh-codel-10), each
@@ -41,8 +43,25 @@ Four phases; any failed check raises, so the script exits non-zero:
    kernels never.  Prints the per-stage
    counters, ms per micro-iteration, the span codec's bytes and walls
    and the peak device memory.
+5. Run phold-64k-ring (the reference ladder's 65,536-LP ring-caps rung,
+   to 1.0 s so that the device stretch takes three spans) three times:
+   spans off, forced with `span_overlap: off` (residency alone) and
+   forced with `span_overlap: auto` (on, on the card).  Requires
+   identical traces, no abort, >= 50% of rounds on the card, resident
+   hits on every span after the first (less stale drops, each named by
+   the engine call that moved the epoch), the residency run's export
+   bytes under 1.5x one span's export, speculative windows dispatched
+   and landed with auto and none with off, and each law kernel
+   launched exactly once per call the runner made (never in the C++
+   run).  Prints ms per micro-iteration, the codec's bytes and walls,
+   the clone's bytes and time, the overlap block, the per-stage
+   counters and the peak device memory.  Then `python -m
+   shadow_tpu_torch` on a 512-LP PHOLD ring with `span_overlap: on`
+   must exit 0 with a speculative window landed.
 
-It prints a `kernels` JSON line before the last line, and as the last
+The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
+card) and print their residency and overlap counters too.  It prints a
+`kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`.  It imports nothing of JAX and
 nothing of the JAX package.
 """
@@ -50,6 +69,7 @@ nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -65,7 +85,12 @@ BANDWIDTH = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 # Bytes each lane's operands take (each read once, each output written
 # once); a 0-d operand costs nothing per lane.
 BYTES_PER_LANE = {"bucket_step": 66, "codel_head": 46}
-H_PHOLD = 8_192  # the phold-8k cell's lanes: the law kernels' main path
+H_PHOLD = 8_192  # the phold-8k cell's lanes
+H_RING = 65_536  # the phold-64k-ring cell's lanes: the law kernels' main path
+# The reference rung's ring caps (bench.py phold_rung): the defaults carry
+# a 2,048-deep CoDel ring per host, pure waste at PHOLD rates.
+RING_CAPS = dict(CAP_I=32, CAP_T=16, CAP_R=64, CAP_S=64, CAP_C=256,
+                 CAP_P=16)
 REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "codel_head": "shadow_tpu/ops/pallas_queues.py:119",
             "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
@@ -227,10 +252,10 @@ def check_kernels() -> dict:
             ch.launch(t["pop"], t["none"], t["now"], t["enq"],
                       t["bytes_after"], t["first_above"], reps=reps)
 
-    # The TCP stream's width, ragged, and the PHOLD path's shape (a 0-d
-    # packet size, as PholdSpanRunner calls), the only one timed.
+    # The TCP stream's width, ragged, and the PHOLD paths' shapes (a 0-d
+    # packet size, as PholdSpanRunner calls), the only ones timed.
     for H, scalar_size in ((H_MAIN, False), (H_MAIN + 1, False),
-                           (H_PHOLD, True)):
+                           (H_PHOLD, True), (H_RING, True)):
         t = adversarial(H)
         for scalar_now in (False, True):
             for name, (kern, plain) in calls(t, scalar_now,
@@ -249,7 +274,7 @@ def check_kernels() -> dict:
                 if err != 0:
                     raise AssertionError(f"{name} H={H} scalar_now="
                                          f"{scalar_now}: max |err| {err}")
-                if H == H_PHOLD and not scalar_now:
+                if H in (H_PHOLD, H_RING) and not scalar_now:
                     reps = 1000
                     ms = events_ms(lambda: launch(name, reps, scalar_size),
                                    reps)
@@ -261,14 +286,14 @@ def check_kernels() -> dict:
                     per_lane = BYTES_PER_LANE[name] - (
                         8 if scalar_size and name == "bucket_step" else 0)
                     bound = per_lane * H / BANDWIDTH * 1e3
-                    stats[name] = {
+                    stats[(name, H)] = {
                         "ms": ms, "graph_ms": gms, "plain_ms": pms,
                         "call_ms": call_ms, "bound_ms": bound,
                         "max_abs_err": err, "H": H}
                 print(f"[kernel] {name} H={H} scalar_now={scalar_now} "
                       f"scalar_size={scalar_size}: exact (max |err| {err})",
                       flush=True)
-    for name, s in stats.items():
+    for (name, _H), s in stats.items():
         print(f"[kernel] {name} H={s['H']}: {s['ms'] * 1e3:.3f} us per "
               f"launch on the card (back-to-back launches), "
               f"{s['graph_ms'] * 1e3:.3f} us in a CUDA graph, "
@@ -397,14 +422,18 @@ def log_spans(mgr) -> None:
     runner.try_span = logged
 
 
-def stream_pair(n_hosts: int, stop_time: str, min_share: float):
+def stream_pair(n_hosts: int, stop_time: str, min_share: float,
+                k_init: int | None = None):
     """The tgen TCP bulk stream (tools/span_loop_bench.stream_config)
     through the port's Manager on the card, once with the C++ engine
-    serving every round and once with forced device spans.  Requires
-    identical traces, packets and events, a device span, at least
-    `min_share` of the rounds on the card, each relay kernel launched
-    once per fire of its stage and the standalone law kernels never.
-    Returns the device run's kernel launch counts and its runner."""
+    serving every round and once with forced device spans (the router's
+    first window `k_init` rounds where given).  Requires identical
+    traces, packets and events, a device span, at least `min_share` of
+    the rounds on the card, a resident hit on every span after the
+    first (less stale drops), each relay kernel launched once per fire
+    of its stage and the standalone law kernels never.  Returns the
+    device run's kernel launch counts and lanes per fire of each relay
+    stage."""
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import queues, tcp_span
     from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
@@ -415,8 +444,10 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
           f"stop_time {stop_time}", flush=True)
     runs = {}
     for spans in ("off", "force"):
-        mgr = Manager(stream_config(n_hosts, stop_time, spans),
-                      device="cuda")
+        cfg = stream_config(n_hosts, stop_time, spans)
+        if k_init is not None:
+            cfg.experimental.dev_span_k_init = k_init
+        mgr = Manager(cfg, device="cuda")
         if spans == "force":
             log_spans(mgr)
         wrappers = {"bucket_step": queues.BUCKET_STEP,
@@ -426,6 +457,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
         # Counts cover this run only: zeroed just before it.
         for w in wrappers.values():
             w.launches = 0
+        # Earlier runs' span state (held in reference cycles) freed first.
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         run = run_stream(mgr)
         run["launches"] = {name: w.launches for name, w in wrappers.items()}
@@ -452,6 +485,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
                   f"export {r.export_bytes / 2**30:.2f} GiB / import "
                   f"{r.import_bytes / 2**30:.2f} GiB, launches "
                   f"{run['launches']}", flush=True)
+            print_residency(tag, r)
             print_stages(tag, r)
         if not summary.ok:
             raise AssertionError(f"plugin errors: "
@@ -470,17 +504,19 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
     if r.rounds < min_share * sd.rounds:
         raise AssertionError(f"{tag} only {r.rounds}/{sd.rounds} rounds "
                              f"on the device (< {min_share:.0%})")
+    if r.resident_hits < r.spans - 1 - r.stale_drops:
+        raise AssertionError(f"{tag} {r.resident_hits} resident hits over "
+                             f"{r.spans} spans ({r.stale_drops} stale)")
     launches = dev["launches"]
-    # One launch per fire of the relay stage: the fire counters cover
-    # committed spans, so an aborted span's launches only add.
+    # One launch per fire of the relay stage, over every dispatch
+    # (aborted spans and refused speculative windows launched too).
     for name, code in (("relay1_law", tcp_span.KS_INET_OUT),
                        ("relay2_law", tcp_span.KS_CODEL)):
-        fires = int(r.ks_fires[code])
-        if fires <= 0 or launches[name] < fires \
-                or (r.aborts == 0 and launches[name] != fires):
+        fires, fires_all = int(r.ks_fires[code]), int(r.fires_all[code])
+        if fires <= 0 or launches[name] != fires_all:
             raise AssertionError(f"{tag} {name} launched {launches[name]} "
-                                 f"times for {fires} fires of its stage "
-                                 f"({r.aborts} aborted spans)")
+                                 f"times for {fires_all} fires of its "
+                                 f"stage ({fires} committed)")
     # The laws run inside the relay kernels: the span loop launches no
     # standalone law kernel.
     for name in ("bucket_step", "codel_head"):
@@ -496,7 +532,17 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float):
           f"{ph.export_wall_ns / 1e6:.3f} ms", flush=True)
     print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds "
           f"on the card, one relay launch per relay fire", flush=True)
-    return launches, r
+    lanes = {code: r.ks_lanes[code] / max(r.ks_fires[code], 1)
+             for code in (tcp_span.KS_INET_OUT, tcp_span.KS_CODEL)}
+    return launches, lanes
+
+
+def print_residency(tag, r) -> None:
+    """The runner's residency and speculative-overlap counters."""
+    print(f"{tag} residency: resident hits {r.resident_hits}, stale drops "
+          f"{r.stale_drops}; clones {r.clone_bytes / 2**30:.3f} GiB in "
+          f"{r.clone_ms:.3f} ms; overlap {json.dumps(r.overlap_summary())}",
+          flush=True)
 
 
 def print_stages(tag, r) -> None:
@@ -519,23 +565,43 @@ def print_stages(tag, r) -> None:
           f"{r.device_ms / 1e3:.3f}s loop", flush=True)
 
 
+def parse_yaml(text: str) -> dict:
+    """A generated config parsed once (with PyYAML's C loader where it
+    has one); each run builds its ConfigOptions from a copy."""
+    import yaml
+    return yaml.load(text, Loader=getattr(yaml, "CSafeLoader",
+                                          yaml.SafeLoader))
+
+
+def config_with(base: dict, **experimental):
+    import copy
+
+    from shadow_tpu_torch.core.config import ConfigOptions
+    d = copy.deepcopy(base)
+    d["experimental"].update(experimental)
+    return ConfigOptions.from_dict(d)
+
+
 def phold_cells() -> dict:
     """Phase 4's cells: name -> (config for a `tpu_device_spans` value,
     least device-round share, what the CoDel gate requires)."""
     from shadow_tpu_torch.core.config import ConfigOptions
     from shadow_tpu_torch.tools.netgen import mesh_family_yaml, phold_yaml
 
+    # the reference ladder's 8k rung (bench.py phold_rung)
+    phold_8k_base = parse_yaml(phold_yaml(
+        H_PHOLD, n_init=1, mean_delay_ns=50_000_000, stop_time="0.3s",
+        seed=13, scheduler="tpu", peers_per_host=64))
+
     def phold_8k(spans):
-        # the reference ladder's 8k rung (bench.py phold_rung)
-        return ConfigOptions.from_yaml_text(phold_yaml(
-            H_PHOLD, n_init=1, mean_delay_ns=50_000_000, stop_time="0.3s",
-            seed=13, scheduler="tpu", peers_per_host=64,
-            device_spans=spans))
+        return config_with(phold_8k_base, tpu_device_spans=spans)
 
     def mesh_24(spans):
-        # the reference's bench[mesh-dev] shape (mesh_cfg(n=24))
+        # the reference's bench[mesh-dev] shape (mesh_cfg(n=24)), cut
+        # from 30 s to 1 s simulated for the script's time limit: 89 of
+        # its 242 device rounds, two spans
         return ConfigOptions.from_yaml_text(mesh_family_yaml(
-            24, scheduler="tpu", device_spans=spans))
+            24, scheduler="tpu", device_spans=spans, stop_time="1s"))
 
     def mesh_codel_10(spans):
         # tests/test_phold_span.py's CoDel-active mesh: fast up, slow
@@ -591,6 +657,8 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
         # Counts cover this run only: zeroed just before it.
         for w in wrappers.values():
             w.launches = 0
+        # Earlier runs' span state (held in reference cycles) freed first.
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         summary = mgr.run()
@@ -628,6 +696,7 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
                   f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); "
                   f"law kernel calls {r.calls_all.tolist()} (committed "
                   f"{r.ks_calls.tolist()})", flush=True)
+            print_residency(tag, r)
             print_stages(tag, r)
         if not summary.ok:
             raise AssertionError(f"{tag} plugin errors: "
@@ -649,6 +718,9 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
     if r.rounds < min_share * sd.rounds:
         raise AssertionError(f"{tag} only {r.rounds}/{sd.rounds} rounds "
                              f"on the device (< {min_share:.0%})")
+    if r.resident_hits < r.spans - 1 - r.stale_drops:
+        raise AssertionError(f"{tag} {r.resident_hits} resident hits over "
+                             f"{r.spans} spans ({r.stale_drops} stale)")
     if name.startswith("mesh") and (r.family != 1
                                     or sd.packets_dropped == 0):
         raise AssertionError(f"{tag} family {r.family}, drops "
@@ -668,7 +740,8 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
             ("codel_head", fires[ps.KS_CODEL]))):
         n = dev["launches"][kname]
         if n <= 0 or n != r.calls_all[i] or r.ks_calls[i] > most \
-                or (r.rolled_back_rounds == 0 and n != r.ks_calls[i]):
+                or (r.rolled_back_rounds == 0 and r.overlap_refusals == 0
+                    and n != r.ks_calls[i]):
             raise AssertionError(
                 f"{tag} {kname} launched {n} times for {r.calls_all[i]} "
                 f"calls ({r.ks_calls[i]} committed), stage fires {most}")
@@ -678,6 +751,229 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
     return dev["launches"]
 
 
+class EpochWatch:
+    """Engine proxy that notes each call moving the engine's state_epoch
+    since the last span import: what a stale resident carry is named
+    by."""
+
+    def __init__(self, eng):
+        self._eng = eng
+        self.moved = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._eng, name)
+        if not callable(fn) or name == "state_epoch":
+            return fn
+
+        def call(*a, **k):
+            e0 = self._eng.state_epoch()
+            out = fn(*a, **k)
+            if name.startswith("span_import"):
+                self.moved = []
+            elif self._eng.state_epoch() != e0:
+                self.moved.append(name)
+            return out
+        return call
+
+
+def ring_runs() -> dict:
+    """Phase 5: phold-64k-ring (bench.py phold_rung's 64k rung: 65,536
+    LPs, ring peers 16, the ring caps; 1 Gbit, 5 ms, LPs start at
+    100 ms) run to 1.0 s instead of the rung's 0.15 s, the one change,
+    so that the device stretch takes three spans.  Three runs: spans off,
+    forced with `span_overlap: off` and forced with `auto`.  Returns each
+    run's launches of all four kernels, by path."""
+    import hashlib
+
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops import phold_span as ps
+    from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.tools.netgen import phold_yaml
+
+    tag = "[phold-64k-ring]"
+    t0 = time.perf_counter()
+    text = phold_yaml(H_RING, n_init=1, mean_delay_ns=20_000_000,
+                      stop_time="1.0s", seed=13, scheduler="tpu",
+                      peers_per_host=16)
+    base = parse_yaml(text)
+    print(f"{tag} {H_RING} LPs, stop_time 1.0s, caps {RING_CAPS}; YAML "
+          f"{len(text) / 2**20:.1f} MiB parsed in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    wrappers = {"bucket_step": queues.BUCKET_STEP,
+                "codel_head": queues.CODEL_HEAD,
+                "relay1_law": tcp_span.RELAY1_LAW,
+                "relay2_law": tcp_span.RELAY2_LAW}
+    runs = {}
+    for name, spans, overlap in (("off", "off", "off"),
+                                 ("residency", "force", "off"),
+                                 ("overlap", "force", "auto")):
+        t0 = time.perf_counter()
+        mgr = Manager(config_with(base, tpu_device_spans=spans,
+                                  span_overlap=overlap), device="cuda")
+        watch = mgr.plane.engine = EpochWatch(mgr.plane.engine)
+        r = None
+        exports, stale_by = [], []
+        if spans == "force":
+            r = mgr._dev_span = mgr.make_dev_span_runner()
+            for k, v in RING_CAPS.items():
+                setattr(r, k, v)
+            export_state, try_span = r.export_state, r.try_span
+
+            def counted_export(r=r, export_state=export_state,
+                               exports=exports):
+                b0 = r.export_bytes
+                st = export_state()
+                exports.append(r.export_bytes - b0)
+                return st
+
+            def named_try(*a, r=r, try_span=try_span, stale_by=stale_by,
+                          **k):
+                moved, stale0 = list(watch.moved), r.stale_drops
+                res = try_span(*a, **k)
+                if r.stale_drops > stale0:
+                    stale_by.append(moved or ["(not seen)"])
+                return res
+            r.export_state, r.try_span = counted_export, named_try
+        build_s = time.perf_counter() - t0
+        # Counts cover this run only: zeroed just before it.
+        for w in wrappers.values():
+            w.launches = 0
+        # Earlier runs' span state (held in reference cycles) freed first.
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = mgr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        lines = mgr.trace_lines()
+        digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[name] = dict(summary=summary, r=r, launches=launches,
+                          digest=digest, exports=exports,
+                          stale_by=stale_by, wall=wall)
+        print(f"{tag} {name}: spans={spans} span_overlap={overlap} "
+              f"(resolved {mgr._span_overlap_on()}): rounds "
+              f"{summary.rounds} (device {r.rounds if r else 0}), events "
+              f"{summary.events}, packets {summary.packets_sent} sent, "
+              f"trace lines {len(lines)} sha256 {digest[:16]}, Manager "
+              f"build {build_s:.1f}s, run wall {wall:.2f}s, "
+              f"{summary.end_time_ns / 1e9 / wall:.4f} sim-s/wall-s, peak "
+              f"device memory {peak:.3f} GiB, launches {launches}",
+              flush=True)
+        if r is not None:
+            print(f"{tag} {name}: device spans {r.spans}, micro-iterations "
+                  f"{r.micro_iters} ({r.micro_iters / max(r.rounds, 1):.2f}"
+                  f" per round, {r.device_ms / max(r.micro_iters, 1):.3f} "
+                  f"ms each in the loop), loop {r.device_ms / 1e3:.3f}s "
+                  f"(CUDA events) of span wall {r.device_wall_ns / 1e9:.3f}s"
+                  f", aborts {r.aborts} {r.abort_kind_counts()}, over caps "
+                  f"{r.over_caps}; exports {len(exports)}: "
+                  f"{r.export_bytes / 2**20:.1f} MiB in "
+                  f"{r.export_wall_ns / 1e9:.3f}s (per export "
+                  f"{[round(b / 2**20, 1) for b in exports]} MiB), import "
+                  f"{r.import_bytes / 2**20:.1f} MiB in "
+                  f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); "
+                  f"law kernel calls {r.calls_all.tolist()} (committed "
+                  f"{r.ks_calls.tolist()}); stale drops named by "
+                  f"{stale_by}", flush=True)
+            print_residency(f"{tag} {name}:", r)
+            print_stages(f"{tag} {name}:", r)
+        if not summary.ok:
+            raise AssertionError(f"{tag} plugin errors: "
+                                 f"{summary.plugin_errors[:3]}")
+    off = runs["off"]
+    so = off["summary"]
+    if any(off["launches"].values()):
+        raise AssertionError(f"{tag} the C++ run launched {off['launches']}")
+    for name in ("residency", "overlap"):
+        run = runs[name]
+        sd, r = run["summary"], run["r"]
+        if run["digest"] != off["digest"]:
+            raise AssertionError(f"{tag} {name}: trace sha256 differs from "
+                                 f"the C++ run's")
+        counters = [(s.events, s.packets_sent, s.packets_recv,
+                     s.packets_dropped, s.syscalls) for s in (so, sd)]
+        if counters[0] != counters[1]:
+            raise AssertionError(f"{tag} {name}: counters differ: "
+                                 f"{counters}")
+        if r.spans == 0 or r.aborts:
+            raise AssertionError(f"{tag} {name}: device spans {r.spans}, "
+                                 f"aborts {r.aborts}")
+        if r.rounds < 0.5 * sd.rounds:
+            raise AssertionError(f"{tag} {name}: only {r.rounds}/"
+                                 f"{sd.rounds} rounds on the device")
+        if r.resident_hits < r.spans - 1 - r.stale_drops:
+            raise AssertionError(f"{tag} {name}: {r.resident_hits} resident "
+                                 f"hits over {r.spans} spans, "
+                                 f"{r.stale_drops} stale drops")
+        if not run["exports"] \
+                or r.export_bytes >= 1.5 * max(run["exports"]):
+            raise AssertionError(f"{tag} {name}: exports {run['exports']}")
+        for kname in ("relay1_law", "relay2_law"):
+            if run["launches"][kname]:
+                raise AssertionError(f"{tag} {name}: the PHOLD loop "
+                                     f"launched {kname}")
+        for i, kname in enumerate(("bucket_step", "codel_head")):
+            n = run["launches"][kname]
+            if n <= 0 or n != r.calls_all[i]:
+                raise AssertionError(
+                    f"{tag} {name}: {kname} launched {n} times for "
+                    f"{r.calls_all[i]} calls ({r.ks_calls[i]} committed)")
+    ro, rr = runs["overlap"]["r"], runs["residency"]["r"]
+    if ro.overlap_windows < 1 or ro.overlap_hits < 1:
+        raise AssertionError(f"{tag} overlap: {ro.overlap_summary()}")
+    if rr.overlap_windows:
+        raise AssertionError(f"{tag} residency: {rr.overlap_windows} "
+                             f"speculative windows with span_overlap off")
+    print(f"{tag} PASS: identical traces in all three runs, "
+          f"{rr.rounds}/{runs['residency']['summary'].rounds} rounds on "
+          f"the card, resident hits {rr.resident_hits} / "
+          f"{ro.resident_hits} over {rr.spans} / {ro.spans} spans, overlap "
+          f"windows {ro.overlap_windows} (hits {ro.overlap_hits}); run "
+          f"walls off {off['wall']:.2f}s, residency "
+          f"{runs['residency']['wall']:.2f}s, overlap "
+          f"{runs['overlap']['wall']:.2f}s", flush=True)
+    return {f"phold-64k-ring/{name}": run["launches"]
+            for name, run in runs.items()}
+
+
+def cli_overlap() -> None:
+    """`python -m shadow_tpu_torch` on the card with `span_overlap: on`:
+    a 512-LP PHOLD ring (the rung's generator) with forced device spans
+    must exit 0 with a speculative window landed."""
+    import os
+    import tempfile
+
+    from shadow_tpu_torch.tools.netgen import phold_yaml
+    text = phold_yaml(512, n_init=1, mean_delay_ns=20_000_000,
+                      stop_time="0.3s", seed=13, scheduler="tpu",
+                      device_spans="force", peers_per_host=16).replace(
+        "experimental:\n", "experimental:\n  span_overlap: on\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "phold-512.yaml")
+        with open(path, "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "shadow_tpu_torch", path],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+    tag = "[cli]"
+    line = [ln for ln in p.stderr.splitlines()
+            if ln.startswith("[shadow-tpu-torch] dispatch: ")]
+    if p.returncode != 0 or not line:
+        raise AssertionError(f"{tag} exit {p.returncode}: "
+                             f"{p.stderr[-2000:]}")
+    d = json.loads(line[-1].split(": ", 1)[1])
+    ov = d["device_span_phold"]["overlap"]
+    print(f"{tag} python -m shadow_tpu_torch (512 LPs, span_overlap: on) "
+          f"in {time.perf_counter() - t0:.1f}s: {json.dumps(d)}",
+          flush=True)
+    if not d["span_overlap_on"] or ov["windows"] < 1 or ov["hits"] < 1:
+        raise AssertionError(f"{tag} no speculative window landed: {d}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.25s",
@@ -685,7 +981,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     kind = card()
     build_all()
-    stats = check_kernels()
+    law_stats = check_kernels()
+    stats = {name: law_stats[(name, H_RING)]
+             for name in ("bucket_step", "codel_head")}
     relay_stats = check_relay_kernels()
     by_path: dict = {}
     # The main path of the relay kernels: the 10,000-host stream.  Its
@@ -697,20 +995,26 @@ def main(argv=None) -> int:
     print(f"[main] stop_time {args.stop_time}: cut from 1s upward to "
           f"reach the device-span domain (entered at 1.23 s) and kept "
           f"short for the time limit", flush=True)
-    by_path["tcp-stream-10k"], runner = stream_pair(
+    by_path["tcp-stream-10k"], occupancy = stream_pair(
         H_MAIN, args.stop_time, min_share=0.0)
-    # The device share at a width the eager loop finishes in time.
-    stream_pair(16, "500ms", min_share=0.5)
+    # The device share at a width the eager loop finishes in time; the
+    # router's first window is 4 rounds, so the device stretch takes
+    # several spans and TCP residency and the overlap show on the card.
+    stream_pair(16, "500ms", min_share=0.5, k_init=4)
     # The main path of the standalone law kernels: the PHOLD/udp-mesh
     # family, phold-8k first.
     for name, (make, share, codel) in phold_cells().items():
         by_path[name] = phold_pair(name, make, share, codel)
+    # The law kernels' main path: phold-64k-ring with residency and the
+    # speculative overlap; then the overlap through the CLI.
+    by_path.update(ring_runs())
+    cli_overlap()
     # The relay kernels' row: the mask density nearest the main path's
     # mean lanes per fire of the relay stage.
     from shadow_tpu_torch.ops.tcp_span import KS_CODEL, KS_INET_OUT
     for name, code in (("relay1_law", KS_INET_OUT),
                        ("relay2_law", KS_CODEL)):
-        occ = runner.ks_lanes[code] / max(runner.ks_fires[code], 1)
+        occ = occupancy[code]
         dens = min(DENSITIES, key=lambda d: abs(np.log(d * H_MAIN)
                                                  - np.log(max(occ, 1))))
         row = relay_stats[(name, dens)]
@@ -723,10 +1027,11 @@ def main(argv=None) -> int:
         stats[name] = dict(row, max_abs_err=max(
             relay_stats[(name, d)]["max_abs_err"] for d in DENSITIES))
     # `launches`: the count on each kernel's main path (tcp-stream-10k
-    # for the relay kernels, phold-8k for the law kernels);
-    # `launches_by_path`: every path's count, each zeroed just before
-    # its run.
-    main_path = {"bucket_step": "phold-8k", "codel_head": "phold-8k",
+    # for the relay kernels, phold-64k-ring with the overlap for the law
+    # kernels); `launches_by_path`: every path's count, each zeroed just
+    # before its run.
+    ring = "phold-64k-ring/overlap"
+    main_path = {"bucket_step": ring, "codel_head": ring,
                  "relay1_law": "tcp-stream-10k",
                  "relay2_law": "tcp-stream-10k"}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],

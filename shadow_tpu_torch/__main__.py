@@ -9,6 +9,7 @@ not ported yet (ROADMAP A4).
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -55,6 +56,8 @@ def main(argv=None) -> int:
           f"({dev_rounds} on the device); "
           f"{summary.packets_sent} packets, {summary.events} events",
           file=sys.stderr)
+    print(f"[shadow-tpu-torch] dispatch: "
+          f"{json.dumps(manager.dispatch_summary())}", file=sys.stderr)
     return 0
 
 

@@ -28,7 +28,6 @@ SCHEDULERS = ("thread_per_core", "thread_per_host", "serial", "tpu")
 QDISC_MODES = ("fifo", "round_robin")
 
 # ROADMAP queue A items that the refusals below name.
-_RM_OVERLAP = "ROADMAP A1 (residency and speculative overlap)"
 _RM_OBJECT = ("ROADMAP A2 (per-round propagator with object-path "
               "hosts)")
 _RM_CLI = "ROADMAP A4 (port CLI and bench)"
@@ -249,8 +248,6 @@ def _experimental(e: dict) -> ExperimentalConfig:
                          f"{out.tpu_device_spans!r}")
     if out.span_overlap not in ("off", "on", "auto"):
         raise ValueError(f"unknown span_overlap {out.span_overlap!r}")
-    if out.span_overlap == "on":
-        _refuse("span_overlap: on", _RM_OVERLAP)
     if out.pallas_queue_kernels not in ("off", "on"):
         raise ValueError(f"unknown pallas_queue_kernels "
                          f"{out.pallas_queue_kernels!r}")

@@ -10,7 +10,10 @@ the reference does under `scheduler: tpu`:
 - a device span: whole conservative windows of exported state stepped
   in PyTorch on the card and imported back transactionally, by the
   PHOLD/udp-mesh family (ops/phold_span.py) or, when the sim is not
-  PHOLD-shaped, by the TCP steady-stream family (ops/tcp_span.py);
+  PHOLD-shaped, by the TCP steady-stream family (ops/tcp_span.py); a
+  span that follows a clean one reuses its output on the card, and
+  with `span_overlap` on the next window runs while the host imports
+  this one (ops/span_mesh.py);
 - a C++ span (engine.run_span): whole windows inside one engine call;
 - one per-round iteration: hosts with Python-side work (spawn tasks)
   run through Host.execute, the rest in one engine batch, and the
@@ -28,6 +31,7 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from shadow_tpu_torch.core.config import ConfigOptions
 from shadow_tpu_torch.core.rng import STREAM_PACKET_LOSS, mix_key
@@ -84,6 +88,19 @@ class Runahead:
 # A device span that legitimately made no progress (window boundary),
 # distinct from a failed/aborted one.
 ZERO_PROGRESS = object()
+
+
+def span_overlap_on(mode: str, device) -> bool:
+    """Resolve `experimental.span_overlap` for a Manager on `device`.
+
+    `auto` speculates only on the card, where window K+1 runs on the
+    device while the host imports window K.  On the CPU the "device" is
+    the same cores the host work needs, so a speculative window cannot
+    hide behind it and only adds work.  Results are identical either
+    way; this decides wall-side routing only."""
+    if mode == "auto":
+        return torch.device(device).type == "cuda"
+    return mode == "on"
 
 
 class SpawnTask:
@@ -269,6 +286,11 @@ class Manager:
         dev_k_floor = exp.dev_span_k_floor
         dev_k_shrink = exp.dev_span_k_shrink
         max_rounds = 1024
+        # The overlapped pipeline: every device dispatch also carries the
+        # next window's max rounds (the doubling after a clean commit,
+        # computed up front so the in-flight window's params match the
+        # next dispatch).
+        overlap_on = self._span_overlap_on()
 
         def account_span(res) -> int | None:
             rounds, busy_rounds, pkts, next_start, busy_end, ra = res
@@ -310,7 +332,9 @@ class Manager:
                 if use_dev:
                     t0 = time.perf_counter_ns()
                     res, runner = self._device_span(
-                        start, stop, limit, min(max_rounds, dev_span_K))
+                        start, stop, limit, min(max_rounds, dev_span_K),
+                        spec_mr=(min(dev_span_K * 2, max_rounds)
+                                 if overlap_on else 0))
                     if res is not None and res[0] == 0:
                         res = ZERO_PROGRESS  # e.g. a boundary due now
                     if res is not None and res is not ZERO_PROGRESS:
@@ -378,6 +402,11 @@ class Manager:
             start = nxt
         summary.end_time_ns = min(start, stop) if start is not None \
             else stop
+        if overlap_on:
+            # A window the run ended before landing: join and discard.
+            for r in (self._dev_span, self._dev_span_tcp):
+                if r is not None:
+                    r.drop_inflight()
 
         for h in self.hosts:
             h.merge_native_counters()
@@ -418,10 +447,16 @@ class Manager:
                 self.config.general.seed,
                 self.config.general.bootstrap_end_time_ns)
 
+    def _span_overlap_on(self) -> bool:
+        return span_overlap_on(self.config.experimental.span_overlap,
+                               self.device)
+
     def make_dev_span_runner(self):
         from shadow_tpu_torch.ops.phold_span import PholdSpanRunner
-        return PholdSpanRunner(*self._span_runner_args(), tracing=True,
-                               device=self.device)
+        runner = PholdSpanRunner(*self._span_runner_args(), tracing=True,
+                                 device=self.device)
+        runner.overlap = self._span_overlap_on()
+        return runner
 
     def make_tcp_span_runner(self):
         from shadow_tpu_torch.ops.tcp_span import TcpSpanRunner
@@ -429,10 +464,11 @@ class Manager:
                                device=self.device)
         runner.dctcp_k = (self.config.experimental.dctcp_k_pkts,
                           self.config.experimental.dctcp_k_bytes)
+        runner.overlap = self._span_overlap_on()
         return runner
 
     def _device_span(self, start: int, stop: int, limit: int,
-                     max_rounds: int):
+                     max_rounds: int, spec_mr: int = 0):
         """One device-resident multi-round span, routed between the
         PHOLD/udp-mesh family and the TCP steady-stream family.  Returns
         (result, runner); result None = ineligible / transient / aborted
@@ -443,7 +479,7 @@ class Manager:
             self._dev_span = self.make_dev_span_runner()
         phold = self._dev_span
         if not phold.ineligible:
-            res = phold.try_span(*args)
+            res = phold.try_span(*args, spec_mr=spec_mr)
             if res is not None or not phold.ineligible:
                 return res, phold
         # permanently not PHOLD-shaped: the TCP family
@@ -452,7 +488,30 @@ class Manager:
         tcp = self._dev_span_tcp
         if tcp.ineligible:
             return None, tcp
-        return tcp.try_span(*args), tcp
+        return tcp.try_span(*args, spec_mr=spec_mr), tcp
+
+    def dispatch_summary(self) -> dict:
+        """The run summary's dispatch section (the reference's
+        `metrics.wall.dispatch` entries the port has): the overlap mode
+        and, per device-span family that was tried, its span counts,
+        residency and the `overlap` block."""
+        out = {"span_overlap": self.config.experimental.span_overlap,
+               "span_overlap_on": self._span_overlap_on()}
+        for family, r in (("phold", self._dev_span),
+                          ("tcp", self._dev_span_tcp)):
+            if r is not None:
+                out[f"device_span_{family}"] = {
+                    "spans": r.spans,
+                    "rounds": r.rounds,
+                    "micro_iters": r.micro_iters,
+                    "aborts": r.aborts,
+                    "ineligible": r.ineligible,
+                    "transient_or_over_caps": r.over_caps,
+                    "resident_hits": r.resident_hits,
+                    "stale_drops": r.stale_drops,
+                    "overlap": r.overlap_summary(),
+                }
+        return out
 
     # ------------------------------------------------------------------
     # Outputs

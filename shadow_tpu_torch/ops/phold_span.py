@@ -137,6 +137,45 @@ TR_DTYPES = {"t": np.int64, "kind": np.uint8, "srchost": np.int32,
              "owner": np.int32}
 OUT_KEYS = ("src", "dst", "seq", "t") + PK_KEYS[1:]  # srchost is src
 
+# Residency classes (the reference's tables): every codec column falls
+# in exactly one.  STATIC: build-time config, cached on the card at the
+# export and shared read-only by every later dispatch.  DERIVED:
+# re-derived at span entry by the law `_to_arrays` applies to a fresh
+# export.  CARRIED: a clean span's output is the next span's input
+# while the engine's state_epoch is unchanged (a speculative window
+# runs on a clone of these).
+RESIDENT_STATIC = frozenset({
+    "peers", "n_peers", "m_port", "m_mean", "s_count", "eth_ip",
+    "recv_max", "send_max", "r1_refill", "r1_cap", "r1_unlimited",
+    "r2_refill", "r2_cap", "r2_unlimited",
+})
+RESIDENT_DERIVED = frozenset({
+    "cont", "then", "park_ctr", "out_first", "cd_chain", "cd_sniff",
+})
+RESIDENT_CARRIED = frozenset(
+    {
+     "app_pkts_dropped", "app_pkts_recv", "app_pkts_sent",
+     "app_sys", "codel_bytes", "drop_causes", "codel_count", "codel_drop_next",
+     "codel_dropped", "codel_dropping", "codel_first_above",
+     "codel_enq_pkts", "codel_enq_bytes", "codel_drop_bytes",
+     "codel_peak", "codel_marked", "r1_stalls", "r2_stalls",
+     "r1_fwd_pkts", "r1_fwd_bytes", "r2_fwd_pkts", "r2_fwd_bytes",
+     "codel_last_count", "cq_enq", "cq_len", "cq_pos",
+     "eth_brecv", "eth_bsent", "eth_precv", "eth_psent",
+     "event_seq", "events_run", "ib_len", "ib_pos", "ib_seq",
+     "ib_src", "ib_time", "m_exit_time", "m_exited", "m_gotn",
+     "m_lcg", "m_partdone", "m_state", "m_target", "m_waitmask",
+     "m_waitseq", "m_wakep", "now", "packet_seq", "queued",
+     "r1_bal", "r1_next", "r1_pending", "r1_pk_valid", "r2_bal",
+     "r2_next", "r2_pending", "r2_pk_valid", "recv_bytes",
+     "rq_len", "rq_pos", "s_exit_time", "s_exited", "s_partdone",
+     "s_senti", "s_state", "s_target", "s_waitmask", "s_waitseq",
+     "s_wakep", "send_bytes", "sock_closed", "sq_len", "sq_pos",
+     "status", "th_kind", "th_seq", "th_tgt", "th_time",
+     "th_valid", "h_fault"}
+    | {f"{p}_{kk}" for p in ('rq', 'sq', 'cq', 'ib', 'r1_pk', 'r2_pk')
+       for kk in PK_KEYS})
+
 
 def state_from_numpy(d: dict, device) -> dict:
     """The numpy span state that `_to_arrays` builds from
@@ -178,9 +217,8 @@ class PholdSpanRunner(SpanMeshMixin):
     CAP_P = 4096  # peers
     MAX_ROUNDS = 256
 
-    # Over-caps exports are retried like aborts (the Manager backs off);
-    # this family has no transient domain of its own.
-    last_transient = False
+    RESIDENT_STATIC = RESIDENT_STATIC
+    RESIDENT_CARRIED = RESIDENT_CARRIED
 
     def __init__(self, engine, latency_ns, thresholds, host_node,
                  host_ips, seed, bootstrap_end, tracing: bool,
@@ -229,6 +267,8 @@ class PholdSpanRunner(SpanMeshMixin):
         # committed spans, and of every dispatch (aborted ones too).
         self.ks_calls = np.zeros(2, np.int64)
         self.calls_all = np.zeros(2, np.int64)
+        # Stage fires of every dispatch (aborted and refused ones too).
+        self.fires_all = np.zeros(KS_N, np.int64)
         self._fn = None
         self._fn_cache: dict = {}
 
@@ -1343,59 +1383,26 @@ class PholdSpanRunner(SpanMeshMixin):
             if isinstance(v, (bytes, bytearray, memoryview)))
         st = state_from_numpy(self._to_arrays(d), self.device)
         st.update(self._statics_on_device())
+        self._cache_statics(st)
         return st
 
-    def try_span(self, start: int, stop: int, limit: int, runahead: int,
-                 dynamic: bool, max_rounds: int | None = None):
-        """Export -> device span -> import.  Returns (rounds,
-        busy_rounds, packets, next_start, busy_end, runahead) or None
-        when ineligible / over the ring caps / aborted."""
-        mr = self._clamp_mr(max_rounds)
-        for _grow in range(4):
-            # The loop updates its state in place, so every dispatch
-            # starts from a fresh export; the engine stays authoritative
-            # until the import.
-            st = self.export_state()
-            if st is None:
-                # structurally not a PHOLD/mesh sim: permanent
-                self.ineligible += 1
-                return None
-            if isinstance(st, int):
-                # transiently beyond the ring caps (a burst): retry later
-                self.over_caps += 1
-                return None
-            self._fn = self._cached_build(st["peers"].shape[1])
-            fresh_fn = not self.compiled
-            out, dt = self._span_call(self._fn, st, self._pay, int(start),
-                                      int(stop), int(limit),
-                                      int(runahead), mr)
-            (st_out, next_start, ra, rounds, busy_rounds, packets,
-             busy_end, span_iters) = out
-            self.calls_all += st_out["ks_calls"]
-            code = int(st_out["abort_code"])
-            if fresh_fn:
-                self._credit_build(self._fn, dt)
-            if code == 0:
-                break
-            self.rollback_wall_ns += dt
-            self.rolled_back_rounds += rounds
-            self._note_abort_kind(code)
-            if code & AB_STRUCT:
-                self.last_abort_code = code
-                self.aborts += 1
-                return None
-            # Trace/outbox overflow: a capacity problem, not a domain
-            # problem: grow the buffer and re-run the span.
-            if code & AB_TRACE:
-                self.cap_tr *= 4
-            if code & AB_OUT:
-                self.cap_out *= 4
-        else:
-            self.last_abort_code = code
-            self.aborts += 1
-            return None
-        if rounds == 0:
-            return (0, 0, 0, int(start), int(start), int(runahead))
+    def _derive(self, st: dict) -> None:
+        """The DERIVED columns, as `_to_arrays` sets them on a fresh
+        export: every continuation idle, no drain chain, and the
+        park-order counter one past the larger wait seq."""
+        z = torch.zeros(self._H, dtype=torch.int64, device=self.device)
+        for k in ("cont", "then", "out_first", "cd_chain", "cd_sniff"):
+            st[k] = z.clone()
+        st["park_ctr"] = torch.maximum(st["m_waitseq"], st["s_waitseq"]) + 1
+
+    def _fn_for(self, st: dict):
+        return self._cached_build(st["peers"].shape[1])
+
+    def _fn_args(self, start, stop, limit, runahead, mr) -> tuple:
+        return (self._pay, start, stop, limit, runahead, mr)
+
+    def _host_copy(self, st_out: dict):
+        """Every codec column and the span's trace, on the host."""
         traces = None
         if self.tracing:
             n = int(st_out["tr_n"])
@@ -1404,22 +1411,11 @@ class PholdSpanRunner(SpanMeshMixin):
                 traces[k] = st_out[f"tr_{k}"][:n].cpu().numpy().astype(
                     TR_DTYPES[k]).tobytes()
             traces["size"] = np.full(n, self._pay, np.int64).tobytes()
-        t0 = time.perf_counter_ns()
-        back = self._from_arrays(state_to_numpy(st_out))
+        return state_to_numpy(st_out), traces
+
+    def _engine_import(self, st_np: dict, traces) -> None:
+        back = self._from_arrays(st_np)
         self.import_bytes += sum(
             len(v) for v in back.values()
             if isinstance(v, (bytes, bytearray, memoryview)))
         self.engine.span_import_phold(back, *self._caps(), traces)
-        self.import_wall_ns += time.perf_counter_ns() - t0
-        self.last_was_cold = not self.compiled
-        self.compiled = True
-        self.spans += 1
-        self.rounds += rounds
-        self.micro_iters += span_iters
-        self.ks_fires += st_out["ks_fires"]
-        self.ks_lanes += st_out["ks_lanes"]
-        self.ks_wall_s += st_out["ks_wall_s"]
-        self.ks_calls += st_out["ks_calls"]
-        ra_out = int(ra) if dynamic else int(runahead)
-        return (rounds, busy_rounds, packets, int(next_start),
-                int(busy_end), ra_out)

@@ -230,6 +230,61 @@ RELAY2_LAW = RelayLaw(2, RELAY_CONSTS)
 # CODEL_HEAD, imported above): this loop runs their laws inside the
 # relay kernels and never launches them.
 
+# Residency classes (the reference's tables): every codec column falls
+# in exactly one.  STATIC: per-sim constants (connection identity,
+# negotiated options, buckets), cached on the card at the export and
+# shared read-only by every later dispatch.  DERIVED: device-local
+# chain registers every fresh export re-initializes (`_derive`).
+# CARRIED: a clean span's output is the next span's input while the
+# engine's state_epoch is unchanged (a speculative window runs on a
+# clone of these).
+RESIDENT_STATIC = frozenset({
+    "bw_up", "bw_down", "eth_ip",
+    "r1_refill", "r1_cap", "r1_unlimited",
+    "r2_refill", "r2_cap", "r2_unlimited",
+    "c_host", "c_role", "c_lip", "c_lport", "c_pip", "c_pport",
+    "c_iss", "c_irs", "c_wsoff", "c_ourws", "c_peerws", "c_effmss",
+    "c_nodelay", "c_congmss", "c_sat", "c_rat", "c_atotal",
+    "c_ecnact", "c_cc",
+})
+RESIDENT_DERIVED = frozenset(
+    {"cont", "then", "ret", "cur", "eflag", "parkp", "had_holes",
+     "park_ctr", "cd_chain", "cd_sniff", "_n_conns"}
+    | {f"ar_{kk}" for kk in PK_KEYS})
+RESIDENT_CARRIED = frozenset(
+    {
+     "app_sys", "c_agot", "c_atcopied", "c_atlast", "c_atspace",
+     "c_await", "c_awaitseq", "c_cwnd", "c_delackdl", "c_dupacks",
+     "c_fastrec", "c_persistdl", "c_persistiv", "c_queued",
+     "c_rblen", "c_rbmax", "c_rcvnxt", "c_recover", "c_rto",
+     "c_rtobackoff", "c_rtodl", "c_rttvar", "c_rtxcount",
+     "c_sackskip", "c_sblen", "c_sbmax", "c_segsrecv",
+     "c_segssent", "c_sndnxt", "c_snduna", "c_sndwnd", "c_srtt",
+     "c_ssa", "c_ssthresh", "c_status", "c_tmrdl", "c_tsrecent",
+     "c_wakep", "c_fbyte", "c_lbyte", "c_bin", "c_bout",
+     "c_ece", "c_cwrp", "c_cwrend", "c_alpha", "c_ceack",
+     "c_totack", "c_dwend", "c_ceseen",
+     "codel_bytes", "codel_count", "codel_drop_next",
+     "codel_dropped", "codel_dropping", "codel_first_above",
+     "codel_enq_pkts", "codel_enq_bytes", "codel_drop_bytes",
+     "codel_peak", "codel_marked", "drop_causes", "mark_causes",
+     "codel_last_count", "cq_enq", "cq_len", "cq_pos",
+     "eth_brecv", "eth_bsent", "eth_precv", "eth_psent",
+     "event_seq", "events_run", "ib_len", "ib_pos", "ib_seq",
+     "ib_src", "ib_time", "now", "op_len", "op_pos", "packet_seq",
+     "pkts_dropped", "pkts_recv", "pkts_sent", "r1_bal",
+     "r1_next", "r1_pending", "r1_pk_valid", "r1_stalls",
+     "r1_fwd_pkts", "r1_fwd_bytes",
+     "r2_bal", "r2_next",
+     "r2_pending", "r2_pk_valid", "r2_stalls",
+     "r2_fwd_pkts", "r2_fwd_bytes",
+     "ra_plen", "ra_seq", "ra_valid",
+     "rtx_len", "rtx_plen", "rtx_pos", "rtx_rtxed", "rtx_sacked",
+     "rtx_sent", "rtx_seq", "th_kind", "th_seq", "th_tgt",
+     "th_time", "th_valid", "h_fault"}
+    | {f"{p}_{kk}" for p in ('cq', 'ib', 'op', 'r1_pk', 'r2_pk')
+       for kk in PK_KEYS})
+
 # Conn-major keys: their first axis is the connection (CC rows plus the
 # trash row the port adds).
 _CONN_PREFIXES = ("c_", "rtx_", "ra_", "op_")
@@ -302,6 +357,11 @@ class TcpSpanRunner(SpanMeshMixin):
     CAP_RA = 512   # reassembly
     CAP_OP = 256   # socket egress ring
     MAX_ROUNDS = 256
+    RESIDENT_STATIC = RESIDENT_STATIC
+    RESIDENT_CARRIED = RESIDENT_CARRIED
+    # Out of the steady-stream domain for now (handshake, close,
+    # over caps): the router re-probes within a few windows.
+    OVER_CAPS_TRANSIENT = True
 
     def __init__(self, engine, latency_ns, thresholds, host_node,
                  host_ips, seed, bootstrap_end, tracing: bool,
@@ -335,9 +395,12 @@ class TcpSpanRunner(SpanMeshMixin):
         self.ks_fires = np.zeros(KS_N, np.int64)
         self.ks_lanes = np.zeros(KS_N, np.int64)
         self.ks_wall_s = np.zeros(KS_N)
+        # Stage fires of every dispatch (aborted and refused ones too):
+        # one relay-kernel launch per fire of a relay stage.
+        self.fires_all = np.zeros(KS_N, np.int64)
+        self._n_conns = 0     # live connections (set from export)
         self.last_abort_code = 0
         self.last_was_cold = False
-        self.last_transient = False
         self.compiled = False
         self.dctcp_k = (DCTCP_K_PKTS, DCTCP_K_BYTES)
         self._fn = None
@@ -1870,59 +1933,37 @@ class TcpSpanRunner(SpanMeshMixin):
             len(v) for v in d.values()
             if isinstance(v, (bytes, bytearray, memoryview)))
         st = state_from_numpy(self._to_arrays(d), self.device)
+        self._n_conns = st.pop("_n_conns")
         st.update(self._statics_on_device())
+        self._cache_statics(st)
         return st
 
-    def try_span(self, start: int, stop: int, limit: int, runahead: int,
-                 dynamic: bool, max_rounds: int | None = None):
-        """Export -> device span -> import.  Returns (rounds,
-        busy_rounds, packets, next_start, busy_end, runahead) or None
-        when ineligible / transiently out of domain / aborted."""
-        self.last_transient = False
-        mr = self._clamp_mr(max_rounds)
-        for _grow in range(4):
-            # The loop updates its state in place (the reference's
-            # donation path), so every dispatch starts from a fresh
-            # export; the engine stays authoritative until the import.
-            st = self.export_state()
-            if st is None:
-                self.ineligible += 1
-                return None
-            if isinstance(st, int):
-                # transiently outside the steady-stream domain
-                # (handshake, close, over-caps): the router retries soon
-                self.over_caps += 1
-                self.last_transient = True
-                return None
-            n_conns = st.pop("_n_conns")
-            self._fn = self._cached_build()
-            fresh_fn = not self.compiled
-            out, dt = self._span_call(self._fn, st, int(start), int(stop),
-                                      int(limit), int(runahead), mr)
-            (st_out, next_start, ra, rounds, busy_rounds, packets,
-             busy_end, span_iters) = out
-            code = int(st_out["abort_code"])
-            if fresh_fn:
-                self._credit_build(self._fn, dt)
-            if code == 0:
-                break
-            self.rollback_wall_ns += dt
-            self.rolled_back_rounds += rounds
-            self._note_abort_kind(code)
-            if code & AB_STRUCT:
-                self.last_abort_code = code
-                self.aborts += 1
-                return None
-            if code & AB_TRACE:
-                self.cap_tr *= 4
-            if code & AB_OUT:
-                self.cap_out *= 4
-        else:
-            self.last_abort_code = code
-            self.aborts += 1
-            return None
-        if rounds == 0:
-            return (0, 0, 0, int(start), int(start), int(runahead))
+    def _derive(self, st: dict) -> None:
+        """The DERIVED chain registers, as every fresh export initializes
+        them; the park-order counter is the scatter-max of each conn's
+        await seq + 1 over its host, done on the card (a host round trip
+        would be a sync per resident dispatch)."""
+        H, n = self._H, self._n_conns
+        dev = self.device
+        i64 = torch.int64
+        for k in ("cont", "then", "ret"):
+            st[k] = torch.full((H,), C_IDLE, dtype=i64, device=dev)
+        st["cur"] = torch.full((H,), -1, dtype=i64, device=dev)
+        for k in ("eflag", "parkp", "had_holes"):
+            st[k] = torch.zeros(H, dtype=i64, device=dev)
+        for kk in PK_KEYS:
+            st[f"ar_{kk}"] = torch.zeros(H, dtype=i64, device=dev)
+        st["park_ctr"] = torch.zeros(H, dtype=i64, device=dev).scatter_reduce(
+            0, st["c_host"][:n], st["c_awaitseq"][:n] + 1, "amax")
+
+    def _fn_for(self, st: dict):
+        return self._cached_build()
+
+    def _fn_args(self, start, stop, limit, runahead, mr) -> tuple:
+        return (start, stop, limit, runahead, mr)
+
+    def _host_copy(self, st_out: dict):
+        """Every codec column and the span's trace, on the host."""
         traces = None
         if self.tracing:
             n = int(st_out["tr_n"])
@@ -1943,23 +1984,13 @@ class TcpSpanRunner(SpanMeshMixin):
                 "reason": tr["reason"].astype(np.uint8).tobytes(),
                 "owner": tr["owner"].astype(np.int32).tobytes(),
             }
-        t0 = time.perf_counter_ns()
         st_np = state_to_numpy(st_out, keys=list(st_out["_np_dtypes"]))
-        st_np["_n_conns"] = n_conns
+        st_np["_n_conns"] = self._n_conns
+        return st_np, traces
+
+    def _engine_import(self, st_np: dict, traces) -> None:
         back = self._from_arrays(st_np)
         self.import_bytes += sum(
             len(v) for v in back.values()
             if isinstance(v, (bytes, bytearray, memoryview)))
         self.engine.span_import_tcp(back, *self._caps(), traces)
-        self.import_wall_ns += time.perf_counter_ns() - t0
-        self.last_was_cold = not self.compiled
-        self.compiled = True
-        self.spans += 1
-        self.rounds += rounds
-        self.micro_iters += span_iters
-        self.ks_fires += st_out["ks_fires"]
-        self.ks_lanes += st_out["ks_lanes"]
-        self.ks_wall_s += st_out["ks_wall_s"]
-        ra_out = int(ra) if dynamic else int(runahead)
-        return (rounds, busy_rounds, packets, int(next_start),
-                int(busy_end), ra_out)

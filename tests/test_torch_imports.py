@@ -90,6 +90,10 @@ PINS = (
        for n in ("CAP_I", "CAP_T", "CAP_CQ", "CAP_OP", "MAX_ROUNDS")]
     + [("shadow_tpu_torch.ops.span_mesh", "shadow_tpu.ops.span_mesh", n, n)
        for n in ("AB_TRACE", "AB_OUT", "AB_STRUCT", "AB_EXCH")]
+    # The residency classes of both families' codec columns.
+    + [(f"shadow_tpu_torch.ops.{m}", f"shadow_tpu.ops.{m}", n, n)
+       for m in ("phold_span", "tcp_span")
+       for n in ("RESIDENT_STATIC", "RESIDENT_DERIVED", "RESIDENT_CARRIED")]
     + [("shadow_tpu_torch.ops.queues", "shadow_tpu.ops.pallas_queues",
         "CODEL_INTERVAL_NS", "CODEL_INTERVAL_NS")]
     + [("shadow_tpu_torch.core.rng", "shadow_tpu.core.rng", n, n)

@@ -241,7 +241,8 @@ class _CodecRoundTrip:
         self.runner = runner
         self.trips = 0
 
-    def try_span(self, start, stop, limit, runahead, dynamic, max_rounds):
+    def try_span(self, start, stop, limit, runahead, dynamic, max_rounds,
+                 spec_mr=0):
         d = self.eng.span_export_phold(*CAPS)
         if d is None or isinstance(d, int):
             return None

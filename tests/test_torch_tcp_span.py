@@ -91,7 +91,7 @@ def test_torch_routing_arrays_match_reference(gml):
     ("  scheduler: tpu", "  scheduler: serial"),
     ("experimental:\n", "experimental:\n  tpu_shards: 2\n"),
     ("experimental:\n", "experimental:\n  sim_netstat: on\n"),
-    ("experimental:\n", "experimental:\n  span_overlap: on\n"),
+    ("experimental:\n", "experimental:\n  kernel_observatory: on\n"),
     ("experimental:\n", "experimental:\n  flight_recorder: wall\n"),
     # an engine app with an argv shape only the object path takes
     ("path: tgen-server", "path: udp-pinger"),
@@ -128,7 +128,8 @@ class _CodecRoundTrip:
         self.runner = runner
         self.trips = 0
 
-    def try_span(self, start, stop, limit, runahead, dynamic, max_rounds):
+    def try_span(self, start, stop, limit, runahead, dynamic, max_rounds,
+                 spec_mr=0):
         d = self.eng.span_export_tcp(*CAPS)
         if d is None or isinstance(d, int):
             self.last_transient = isinstance(d, int)
