@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py [--stop-time 1.25s]
 
-Five phases; any failed check raises, so the script exits non-zero:
+Six phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
-2. Build the engine and the two kernel libraries from this checkout
+2. Build the engine and the three kernel libraries from this checkout
    (in parallel), hold each kernel against its plain PyTorch version on
    the card and time both:
    - the standalone law kernels (stt_bucket_step, stt_codel_head) on
@@ -20,7 +20,15 @@ Five phases; any failed check raises, so the script exits non-zero:
      the lanes that carried one and the refill instant on the throttled
      lanes, exactly equal; card time with every launch on a fresh copy
      of the checked state, and the bound from the bytes each lane's
-     branch needs.
+     branch needs;
+   - the per-round propagation kernel (stt_propagate) at n = 1, 1,000,
+     65,536, 1,048,576 and a ragged 1,000,003 packets, with the 3-tier
+     graph's matrices (V = 3) and random V = 64 ones (unreachable pairs,
+     zero and full loss thresholds, control lanes, send times on both
+     sides of bootstrap_end): every output exactly equal; card time in a
+     CUDA graph (back to back on the card, the minima's fill included),
+     host time per wrapper call, the plain version, and the bound from
+     the bytes per packet and the matrices.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
    port's Manager on the card, once with the C++ engine serving every
    round (`tpu_device_spans: off`) and once with forced device spans,
@@ -58,6 +66,20 @@ Five phases; any failed check raises, so the script exits non-zero:
    counters and the peak device memory.  Then `python -m
    shadow_tpu_torch` on a 512-LP PHOLD ring with `span_overlap: on`
    must exit 0 with a speculative window landed.
+6. Per-round device propagation.  tier10k (bench.py config_10k: 10,000
+   hosts on the 3-tier graph, seed 7, 10 s, nothing cut) three times:
+   host-only (the C++ twin serves every per-round round), auto (the
+   route model with async probes) and forced (`tpu_min_device_batch:
+   0`, no span, every round through stt_propagate); then mesh-100
+   (bench.py mesh_config) host-only and forced.  Requires one trace
+   sha256 and equal counters across each cell's runs, forced launches
+   = device rounds = dispatched rounds with no span and no host
+   measurement, auto launches + probe launches = device rounds +
+   probes, none in host-only runs, and inet-loss drops at mesh-100.
+   Prints the route split, packets per round and the per-phase walls
+   per dispatch (export, upload, launch, kernel, download, scatter);
+   the kernels line's stt_propagate row is timed at the forced run's
+   median round.
 
 The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
@@ -94,12 +116,25 @@ RING_CAPS = dict(CAP_I=32, CAP_T=16, CAP_R=64, CAP_S=64, CAP_C=256,
 REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "codel_head": "shadow_tpu/ops/pallas_queues.py:119",
             "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
-            "relay2_law": "shadow_tpu/ops/pallas_queues.py:119"}
+            "relay2_law": "shadow_tpu/ops/pallas_queues.py:119",
+            "propagate": "shadow_tpu/ops/propagate.py:391"}
 SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "codel_head": "shadow_tpu_torch/csrc/queues.cu",
           "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
-          "relay2_law": "shadow_tpu_torch/csrc/relay.cu"}
+          "relay2_law": "shadow_tpu_torch/csrc/relay.cu",
+          "propagate": "shadow_tpu_torch/csrc/propagate.cu"}
 DENSITIES = (0.001, 0.1, 1.0)
+# stt_propagate: bytes per packet (in: src_node, dst_node i32, src_host,
+# t_send i64, pkt_seq u32, is_ctl u8; out: deliver i64, three flags) and
+# integer operations per packet (threefry2x32's 20 rounds of add, rotate,
+# xor and 5 key injections, 77; the gathers' index arithmetic, clamps,
+# compares, the clamp to window_end and the two minima, ~15).
+PROPAGATE_IN_B, PROPAGATE_OUT_B, PROPAGATE_OPS = 29, 11, 92
+# The card's rate for them: the only published H100 rate outside the
+# tensor cores (float32, 67 TFLOP/s, H100 SXM data sheet),
+# an upper bound of its int32 rate, so the operations bound is low.
+OPS_RATE = 67e12
+PROPAGATE_N = (1, 1_000, 65_536, 1_048_576, 1_000_003)
 
 
 def card() -> str:
@@ -122,7 +157,7 @@ def build_all():
     """The engine (make) and the kernel libraries (one nvcc per source),
     started together."""
     from shadow_tpu_torch.native import plane
-    from shadow_tpu_torch.ops import queues, relay
+    from shadow_tpu_torch.ops import propagate, queues, relay
     errs = []
     walls = {}
 
@@ -141,7 +176,8 @@ def build_all():
     threads = [threading.Thread(target=run, args=a)
                for a in (("engine", engine),
                          ("queues.cu", queues.LIBRARY.build),
-                         ("relay.cu", relay.LIBRARY.build))]
+                         ("relay.cu", relay.LIBRARY.build),
+                         ("propagate.cu", propagate.LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -152,7 +188,9 @@ def build_all():
           f"{plane.build_seconds():.1f}s), queues.cu "
           f"{walls['queues.cu']:.1f}s (nvcc {queues.LIBRARY.build_s:.1f}s), "
           f"relay.cu {walls['relay.cu']:.1f}s (nvcc "
-          f"{relay.LIBRARY.build_s:.1f}s)", flush=True)
+          f"{relay.LIBRARY.build_s:.1f}s), propagate.cu "
+          f"{walls['propagate.cu']:.1f}s (nvcc "
+          f"{propagate.LIBRARY.build_s:.1f}s)", flush=True)
 
 
 def adversarial(H: int, seed: int = 7):
@@ -405,6 +443,103 @@ def check_relay_kernels() -> dict:
     return stats
 
 
+def propagate_inputs(n: int, v: int, seed: int):
+    """Seeded columns of one round on the card (as export_round gives
+    them) and the (V, V) matrices: V = 3 the 3-tier graph's; V = 64
+    random, with unreachable (TIME_NEVER) pairs and zero and full loss
+    thresholds.  ~20% control packets, source hosts past 2**32, every
+    pkt_seq bit pattern, send times on both sides of bootstrap_end."""
+    from shadow_tpu_torch.core.simtime import TIME_NEVER
+    from shadow_tpu_torch.net.graph import NetworkGraph, routing_arrays
+    from shadow_tpu_torch.tools.netgen import THREE_TIER_GML
+    rng = np.random.default_rng(seed)
+    if v == 3:
+        lat, thr = routing_arrays(NetworkGraph.from_gml(THREE_TIER_GML))
+    else:
+        lat = rng.integers(1, 80_000_000, (v, v), dtype=np.int64)
+        lat[rng.random((v, v)) < 0.15] = TIME_NEVER
+        thr = rng.integers(0, 1 << 32, (v, v), dtype=np.int64)
+        thr[rng.random((v, v)) < 0.2] = 0
+        thr[rng.random((v, v)) < 0.1] = 1 << 32
+    cols = (rng.integers(0, v, n).astype(np.int32),
+            rng.integers(0, v, n).astype(np.int32),
+            rng.integers(0, 1 << 34, n, dtype=np.int64),
+            rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+                np.uint32).view(np.int32),
+            rng.integers(0, 10_000_000_000, n, dtype=np.int64),
+            rng.random(n) < 0.2)
+    mats = tuple(torch.tensor(m, device="cuda") for m in (lat, thr))
+    return mats, tuple(torch.tensor(c, device="cuda") for c in cols)
+
+
+def propagate_bound_ms(n: int, v: int):
+    """The least time of one stt_propagate call: every input read once
+    (the columns and both matrices), every output written once (the
+    columns and the two minima), over the memory rate; the integer
+    operations over the card's rate.  Returns (ms, "bytes"|"operations")."""
+    nbytes = (PROPAGATE_IN_B + PROPAGATE_OUT_B) * n + 2 * 8 * v * v + 16
+    by_bytes = nbytes / BANDWIDTH * 1e3
+    by_ops = PROPAGATE_OPS * n / OPS_RATE * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def time_propagate(n: int, v: int = 3, seed: int = 5) -> dict:
+    """stt_propagate against propagate_ref on the card at one shape:
+    every output exactly equal; card time in a CUDA graph (200 launches
+    back to back on the card, each with the minima's fill), host time per
+    wrapper call, the plain version in a CUDA graph, and the bound."""
+    from shadow_tpu_torch.ops.propagate import PROPAGATE, propagate_ref
+    mats, cols = propagate_inputs(n, v, seed)
+    we, be = 5_000_000_000, 5_000_000_000
+    args = (*mats, 0x9E3779B9, 0x7F4A7C15, *cols, we, be)
+    got = PROPAGATE(*args)
+    want = propagate_ref(*args)
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    bad = [name for name, g, w in zip(
+        ("deliver", "keep", "reachable", "lossy", "mins"), got, want)
+        if g.dtype != w.dtype or not torch.equal(g, w)]
+    if bad:
+        raise AssertionError(f"propagate n={n} V={v}: {bad} differ "
+                             f"(max |err| {err})")
+    keep = got[1]
+    ms = graph_ms(lambda: PROPAGATE.launch(*args, out=got), 200)
+    pms = graph_ms(lambda: propagate_ref(*args), 20)
+    reps = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        PROPAGATE.launch(*args, out=got)
+    call_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    bound, by = propagate_bound_ms(n, v)
+    row = {"ms": ms, "graph_ms": ms, "plain_ms": pms, "call_ms": call_ms,
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err, "n": n,
+           "V": v}
+    print(f"[propagate] n={n} V={v}: exact ({int(keep.sum())} kept, "
+          f"{int((~got[2]).sum())} unreachable, {int(got[3].sum())} lost, "
+          f"mins {got[4].tolist()}); {ms * 1e3:.3f} us per launch on the "
+          f"card (CUDA graph, back to back, with the minima's fill), "
+          f"{call_ms * 1e3:.2f} us host per wrapper "
+          f"call; plain PyTorch {pms * 1e3:.3f} us (CUDA graph); bound "
+          f"{bound * 1e3:.3f} us by {by}", flush=True)
+    return row
+
+
+def check_propagate() -> dict:
+    """Phase 2's stt_propagate leg: exact and timed at every shape
+    with both matrices (the 3-tier graph's, staged in shared memory, and
+    a random V = 64, read through the read-only cache)."""
+    stats = {}
+    for v in (3, 64):
+        for n in PROPAGATE_N:
+            stats[(n, v)] = time_propagate(n, v, seed=n % 9973 + v)
+        torch.cuda.empty_cache()
+    return stats
+
+
 def log_spans(mgr) -> None:
     """Print one line per device-span attempt (progress for a long run)."""
     runner = mgr._dev_span_tcp = mgr.make_tcp_span_runner()
@@ -435,7 +570,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     device run's kernel launch counts and lanes per fire of each relay
     stage."""
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.ops import tcp_span
     from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
                                                         stream_config)
 
@@ -450,10 +585,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
         mgr = Manager(cfg, device="cuda")
         if spans == "force":
             log_spans(mgr)
-        wrappers = {"bucket_step": queues.BUCKET_STEP,
-                    "codel_head": queues.CODEL_HEAD,
-                    "relay1_law": tcp_span.RELAY1_LAW,
-                    "relay2_law": tcp_span.RELAY2_LAW}
+        wrappers = kernel_wrappers()
         # Counts cover this run only: zeroed just before it.
         for w in wrappers.values():
             w.launches = 0
@@ -584,8 +716,11 @@ def config_with(base: dict, **experimental):
 
 def phold_cells() -> dict:
     """Phase 4's cells: name -> (config for a `tpu_device_spans` value,
-    least device-round share, what the CoDel gate requires)."""
+    least device-round share, what the CoDel gate requires).  Every
+    per-round round runs on the C++ twin (HOST_ONLY), so the spans
+    alone are measured, as before the per-round kernel."""
     from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
     from shadow_tpu_torch.tools.netgen import mesh_family_yaml, phold_yaml
 
     # the reference ladder's 8k rung (bench.py phold_rung)
@@ -594,14 +729,17 @@ def phold_cells() -> dict:
         seed=13, scheduler="tpu", peers_per_host=64))
 
     def phold_8k(spans):
-        return config_with(phold_8k_base, tpu_device_spans=spans)
+        return config_with(phold_8k_base, tpu_device_spans=spans,
+                           tpu_min_device_batch=HOST_ONLY)
 
     def mesh_24(spans):
         # the reference's bench[mesh-dev] shape (mesh_cfg(n=24)), cut
         # from 30 s to 1 s simulated for the script's time limit: 89 of
         # its 242 device rounds, two spans
-        return ConfigOptions.from_yaml_text(mesh_family_yaml(
+        cfg = ConfigOptions.from_yaml_text(mesh_family_yaml(
             24, scheduler="tpu", device_spans=spans, stop_time="1s"))
+        cfg.experimental.tpu_min_device_batch = HOST_ONLY
+        return cfg
 
     def mesh_codel_10(spans):
         # tests/test_phold_span.py's CoDel-active mesh: fast up, slow
@@ -621,7 +759,8 @@ def phold_cells() -> dict:
                 'latency "10 ms" ] ]')}},
             "experimental": {"scheduler": "tpu",
                              "socket_send_buffer": "64 KiB",
-                             "tpu_device_spans": spans},
+                             "tpu_device_spans": spans,
+                             "tpu_min_device_batch": HOST_ONLY},
             "hosts": hosts})
 
     return {"phold-8k": (phold_8k, 0.5, None),
@@ -642,13 +781,9 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
 
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import phold_span as ps
-    from shadow_tpu_torch.ops import queues, tcp_span
 
     tag = f"[{name}]"
-    wrappers = {"bucket_step": queues.BUCKET_STEP,
-                "codel_head": queues.CODEL_HEAD,
-                "relay1_law": tcp_span.RELAY1_LAW,
-                "relay2_law": tcp_span.RELAY2_LAW}
+    wrappers = kernel_wrappers()
     runs = {}
     for spans in ("off", "force"):
         t0 = time.perf_counter()
@@ -786,8 +921,7 @@ def ring_runs() -> dict:
     import hashlib
 
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops import phold_span as ps
-    from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
     from shadow_tpu_torch.tools.netgen import phold_yaml
 
     tag = "[phold-64k-ring]"
@@ -799,17 +933,16 @@ def ring_runs() -> dict:
     print(f"{tag} {H_RING} LPs, stop_time 1.0s, caps {RING_CAPS}; YAML "
           f"{len(text) / 2**20:.1f} MiB parsed in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    wrappers = {"bucket_step": queues.BUCKET_STEP,
-                "codel_head": queues.CODEL_HEAD,
-                "relay1_law": tcp_span.RELAY1_LAW,
-                "relay2_law": tcp_span.RELAY2_LAW}
+    wrappers = kernel_wrappers()
     runs = {}
     for name, spans, overlap in (("off", "off", "off"),
                                  ("residency", "force", "off"),
                                  ("overlap", "force", "auto")):
         t0 = time.perf_counter()
         mgr = Manager(config_with(base, tpu_device_spans=spans,
-                                  span_overlap=overlap), device="cuda")
+                                  span_overlap=overlap,
+                                  tpu_min_device_batch=HOST_ONLY),
+                      device="cuda")
         watch = mgr.plane.engine = EpochWatch(mgr.plane.engine)
         r = None
         exports, stale_by = [], []
@@ -974,10 +1107,187 @@ def cli_overlap() -> None:
         raise AssertionError(f"{tag} no speculative window landed: {d}")
 
 
+def trace_digest(mgr) -> tuple[str, int, int]:
+    """sha256 of the trace lines (joined by newlines), their count and
+    the inet-loss drops among them."""
+    import hashlib
+    h = hashlib.sha256()
+    n = losses = 0
+    for ln in mgr.trace_lines():
+        h.update(ln.encode() if not n else b"\n" + ln.encode())
+        n += 1
+        losses += "inet-loss" in ln
+    return h.hexdigest(), n, losses
+
+
+def propagate_run(tag: str, name: str, cfg) -> dict:
+    """One run of a per-round propagation cell through the port's
+    Manager on the card, every kernel's launch counters zeroed just
+    before it.  Prints the run, the route split in bench.py's words, the
+    packets per round and each device-route phase's wall per dispatch."""
+    from shadow_tpu_torch.core.manager import Manager
+    t0 = time.perf_counter()
+    mgr = Manager(cfg, device="cuda")
+    build_s = time.perf_counter() - t0
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    wrappers["propagate"].probe_launches = 0
+    gc.collect()
+    t0 = time.perf_counter()
+    summary = mgr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    probe_launches = wrappers["propagate"].probe_launches
+    digest, nlines, losses = trace_digest(mgr)
+    block = mgr.dispatch_summary()["propagate"]
+    dev_span_rounds = sum(r.rounds for r in (mgr._dev_span,
+                                             mgr._dev_span_tcp) if r)
+    rd, tot_r = block["rounds_device"], block["rounds_dispatched"]
+    pd, tot_p = block["packets_device"], block["packets_batched"]
+    print(f"{tag} {name}: tpu_min_device_batch "
+          f"{cfg.experimental.tpu_min_device_batch}: {len(mgr.hosts)} "
+          f"hosts, rounds {summary.rounds} (span rounds "
+          f"{summary.span_rounds}, of which device {dev_span_rounds}), "
+          f"events {summary.events}, packets {summary.packets_sent} sent / "
+          f"{summary.packets_recv} received / {summary.packets_dropped} "
+          f"dropped ({losses} inet-loss), busy_end {summary.busy_end_ns}, "
+          f"trace lines {nlines} sha256 {digest[:16]}, Manager build "
+          f"{build_s:.1f}s, run wall {wall:.2f}s, "
+          f"{summary.end_time_ns / 1e9 / wall:.4f} sim-s/wall-s", flush=True)
+    print(f"{tag} {name}: dispatch split: {rd}/{tot_r} rounds on device, "
+          f"{pd}/{tot_p} packets on device "
+          f"({100.0 * pd / tot_p if tot_p else 0.0:.1f}%); probes "
+          f"{block['probes_async']}; stt_propagate launches {launches['propagate']} "
+          f"(probes {probe_launches}); packets per round "
+          f"{block['packets_per_round']}; host route "
+          f"{block['walls_ms']['host_route']:.1f} ms; device route per "
+          f"dispatch (us): "
+          f"{ {k: round(v, 2) for k, v in block['per_device_round_us'].items()} }",
+          flush=True)
+    if not summary.ok:
+        raise AssertionError(f"{tag} {name}: plugin errors "
+                             f"{summary.plugin_errors[:3]}")
+    return dict(summary=summary, digest=digest, losses=losses, block=block,
+                launches=launches, probe_launches=probe_launches,
+                dev_span_rounds=dev_span_rounds, wall=wall,
+                host_ns_per_pkt=mgr.propagator.route.host_ns_per_pkt)
+
+
+def kernel_wrappers() -> dict:
+    from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.ops.propagate import PROPAGATE
+    return {"bucket_step": queues.BUCKET_STEP,
+            "codel_head": queues.CODEL_HEAD,
+            "relay1_law": tcp_span.RELAY1_LAW,
+            "relay2_law": tcp_span.RELAY2_LAW,
+            "propagate": PROPAGATE}
+
+
+def check_forced(tag: str, run: dict) -> None:
+    """Every round's propagation went through stt_propagate: launches =
+    device rounds = dispatched rounds, no probe, no host measurement, no
+    span of either kind, no other kernel."""
+    b, n = run["block"], run["launches"]["propagate"]
+    if not (b["rounds_device"] == b["rounds_dispatched"] == n > 0) \
+            or run["probe_launches"] or b["probes_async"] \
+            or run["host_ns_per_pkt"] is not None \
+            or run["summary"].span_rounds \
+            or any(v for k, v in run["launches"].items()
+                   if k != "propagate"):
+        raise AssertionError(f"{tag} forced: {b}, launches "
+                             f"{run['launches']} (probes "
+                             f"{run['probe_launches']}), span rounds "
+                             f"{run['summary'].span_rounds}")
+
+
+def same_results(tag: str, runs: dict) -> None:
+    names = list(runs)
+    first = runs[names[0]]
+    for name in names[1:]:
+        a, b = first["summary"], runs[name]["summary"]
+        if runs[name]["digest"] != first["digest"]:
+            raise AssertionError(f"{tag} trace sha256 differs between "
+                                 f"{names[0]} and {name}")
+        ca = (a.packets_sent, a.packets_recv, a.packets_dropped,
+              a.busy_end_ns, a.events)
+        cb = (b.packets_sent, b.packets_recv, b.packets_dropped,
+              b.busy_end_ns, b.events)
+        if ca != cb:
+            raise AssertionError(f"{tag} {names[0]} vs {name}: {ca} != {cb}")
+
+
+def tier10k_runs() -> dict:
+    """Phase 6, tier10k: bench.py config_10k (BASELINE config 4, the
+    reference's headline: 10,000 hosts, the 3-tier graph, seed 7) run
+    host-only (every per-round round on the C++ twin), auto (the route
+    model with async probes) and forced (every round through
+    stt_propagate, no span)."""
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
+    from shadow_tpu_torch.tools.netgen import SIM_SECONDS_10K, tier10k_yaml
+    tag = "[tier10k]"
+    t0 = time.perf_counter()
+    text = tier10k_yaml("tpu")
+    base = parse_yaml(text)
+    print(f"{tag} 10,000 hosts (500 relays, 9,500 clients x 3 x 25,000 B), "
+          f"stop_time {SIM_SECONDS_10K}s; YAML {len(text) / 2**20:.1f} MiB parsed "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    runs = {name: propagate_run(tag, name, config_with(
+                base, tpu_min_device_batch=mdb))
+            for name, mdb in (("host-only", HOST_ONLY), ("auto", 2048),
+                              ("forced", 0))}
+    same_results(tag, runs)
+    check_forced(tag, runs["forced"])
+    auto, host = runs["auto"], runs["host-only"]
+    b = auto["block"]
+    if auto["launches"]["propagate"] != b["rounds_device"] \
+            or auto["probe_launches"] != b["probes_async"]:
+        raise AssertionError(f"{tag} auto: launches "
+                             f"{auto['launches']['propagate']} + probes "
+                             f"{auto['probe_launches']} vs rounds_device "
+                             f"{b['rounds_device']} + probes_async "
+                             f"{b['probes_async']}")
+    if host["launches"]["propagate"] or host["probe_launches"] \
+            or host["block"]["rounds_device"]:
+        raise AssertionError(f"{tag} host-only: {host['block']}")
+    print(f"{tag} PASS: one trace in all three runs; forced "
+          f"{runs['forced']['block']['rounds_device']} rounds, each one "
+          f"stt_propagate launch; auto {b['rounds_device']} device rounds "
+          f"+ {b['probes_async']} probes = "
+          f"{auto['launches']['propagate'] + auto['probe_launches']} "
+          f"launches; walls host-only {host['wall']:.2f}s, auto "
+          f"{auto['wall']:.2f}s, forced {runs['forced']['wall']:.2f}s",
+          flush=True)
+    return runs
+
+
+def mesh100_runs() -> dict:
+    """Phase 6, mesh-100: bench.py mesh_config (BASELINE config 2: 100
+    hosts, udp-mesh 30 x 200 B to each of 99 peers, 10 ms, 1% loss,
+    seed 3, 30 s), host-only and forced."""
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
+    from shadow_tpu_torch.tools.netgen import mesh100_yaml
+    tag = "[mesh-100]"
+    base = parse_yaml(mesh100_yaml("tpu"))
+    runs = {name: propagate_run(tag, name, config_with(
+                base, tpu_min_device_batch=mdb))
+            for name, mdb in (("host-only", HOST_ONLY), ("forced", 0))}
+    same_results(tag, runs)
+    check_forced(tag, runs["forced"])
+    if runs["forced"]["losses"] == 0:
+        raise AssertionError(f"{tag} no inet-loss drop")
+    print(f"{tag} PASS: identical traces, "
+          f"{runs['forced']['losses']} inet-loss drops, forced "
+          f"{runs['forced']['block']['rounds_device']} rounds each one "
+          f"stt_propagate launch", flush=True)
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.25s",
-                    help="simulated time of the 10,000-host runs")
+                    help="simulated time of the 10,000-host TCP stream")
     args = ap.parse_args(argv)
     kind = card()
     build_all()
@@ -985,6 +1295,7 @@ def main(argv=None) -> int:
     stats = {name: law_stats[(name, H_RING)]
              for name in ("bucket_step", "codel_head")}
     relay_stats = check_relay_kernels()
+    check_propagate()
     by_path: dict = {}
     # The main path of the relay kernels: the 10,000-host stream.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
@@ -1009,6 +1320,20 @@ def main(argv=None) -> int:
     # speculative overlap; then the overlap through the CLI.
     by_path.update(ring_runs())
     cli_overlap()
+    # Phase 6: per-round device propagation.  The main path of
+    # stt_propagate: tier10k forced, every round through the kernel.
+    for cell, runs in (("tier10k", tier10k_runs()),
+                       ("mesh-100", mesh100_runs())):
+        for name, run in runs.items():
+            by_path[f"{cell}/{name}"] = dict(
+                run["launches"], propagate_probes=run["probe_launches"])
+            if cell == "tier10k" and name == "forced":
+                per_round = run["block"]["packets_per_round"]
+    # The kernel's row: timed at the main path's median round.
+    print(f"[main] propagate: the forced tier10k run's packets per round "
+          f"{per_round}; the kernels line's row is timed at the median",
+          flush=True)
+    stats["propagate"] = time_propagate(per_round["median"])
     # The relay kernels' row: the mask density nearest the main path's
     # mean lanes per fire of the relay stage.
     from shadow_tpu_torch.ops.tcp_span import KS_CODEL, KS_INET_OUT
@@ -1033,13 +1358,15 @@ def main(argv=None) -> int:
     ring = "phold-64k-ring/overlap"
     main_path = {"bucket_step": ring, "codel_head": ring,
                  "relay1_law": "tcp-stream-10k",
-                 "relay2_law": "tcp-stream-10k"}
+                 "relay2_law": "tcp-stream-10k",
+                 "propagate": "tier10k/forced"}
+    # library_ms: no single PyTorch call computes any of these laws.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
                 "launches": by_path[main_path[name]][name],
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": "bytes", "library_ms": None,
+                "bound_by": s.get("bound_by", "bytes"), "library_ms": None,
                 "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"],
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]

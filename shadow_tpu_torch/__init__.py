@@ -1,9 +1,9 @@
 """shadow_tpu_torch: the PyTorch/CUDA port of the shadow-tpu simulator.
 
 The JAX package (`shadow_tpu/`) stays the reference; this package runs
-the same simulations with its device work in PyTorch on an NVIDIA card
-and its Pallas queue-scan kernels as hand-written CUDA
-(`csrc/queues.cu`).  It imports nothing of `shadow_tpu` and nothing of
+the same simulations with its device work in PyTorch on an NVIDIA card,
+its Pallas queue-scan kernels and its per-round propagation program as
+hand-written CUDA (`csrc/`).  It imports nothing of `shadow_tpu` and nothing of
 JAX: the constants and framework-free layers it needs are its own
 copies, pinned to the reference values by the tier-1 tests.
 
@@ -12,7 +12,8 @@ Layering (the JAX package's layout, cut to the ported slice):
   net/     GML graph + routing matrices, DNS
   native/  loader for the shared C++ engine (native/netplane.cpp)
   host/    engine-resident hosts and their tgen app proxies
-  ops/     device code: queue-scan kernels, the TCP device-span loop
+  ops/     device code: queue-scan and relay kernels, the TCP and
+           PHOLD/udp-mesh device-span loops, per-round propagation
   tools/   config generators
   utils/   device resolution, unit parsing
 

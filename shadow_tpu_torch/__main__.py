@@ -53,7 +53,9 @@ def main(argv=None) -> int:
                                         manager._dev_span_tcp) if r)
     print(f"[shadow-tpu-torch] done: simulated "
           f"{summary.end_time_ns / 1e9:.3f}s in {summary.rounds} rounds "
-          f"({dev_rounds} on the device); "
+          f"({dev_rounds} in device spans, "
+          f"{manager.propagator.rounds_device} propagated on the device "
+          f"one by one); "
           f"{summary.packets_sent} packets, {summary.events} events",
           file=sys.stderr)
     print(f"[shadow-tpu-torch] dispatch: "

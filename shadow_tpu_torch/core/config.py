@@ -7,9 +7,11 @@ ported yet raises NotImplementedError naming the ROADMAP item, instead
 of running some other path silently.
 
 The slice: engine-resident hosts (the tgen TCP apps and the UDP/PHOLD
-apps) under `experimental.scheduler: tpu`, with the C++ engine serving
-every round the device does not (C++ spans and the per-round loop), and
-the TCP and PHOLD/udp-mesh device spans on the card.
+apps) under `experimental.scheduler: tpu`: the TCP and PHOLD/udp-mesh
+device spans and the per-round propagation kernel on the card, the C++
+engine serving every round the device does not (C++ spans, and the
+per-round rounds the route model gives its twin).
+`tpu_min_device_batch <= 0` forces every round through the kernel.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ SCHEDULERS = ("thread_per_core", "thread_per_host", "serial", "tpu")
 QDISC_MODES = ("fifo", "round_robin")
 
 # ROADMAP queue A items that the refusals below name.
-_RM_OBJECT = ("ROADMAP A2 (per-round propagator with object-path "
-              "hosts)")
+_RM_OBJECT = ("ROADMAP A2b (object-path hosts and the propagator's "
+              "object leg)")
 _RM_CLI = "ROADMAP A4 (port CLI and bench)"
 _RM_SHARDED = "ROADMAP A5 (sharded multi-GPU)"
 _RM_OBS = ("ROADMAP A7 (observatories, checkpoint and faults, managed "
@@ -121,7 +123,8 @@ _EXP_KEYS = {
 }
 
 # Reference keys that change nothing on the engine-resident path
-# (managed-process timing, route-model sizing, wall-side knobs).
+# (managed-process timing, sharded sizing, wall-side knobs;
+# tpu_max_packets_per_round chunks only the object path's sends, A2b).
 _EXP_INERT = frozenset({
     "max_unapplied_cpu_latency", "unblocked_syscall_latency",
     "unblocked_vdso_latency", "native_preemption_enabled",
@@ -240,9 +243,6 @@ def _experimental(e: dict) -> ExperimentalConfig:
     if out.interface_qdisc not in QDISC_MODES:
         raise ValueError(f"unknown interface_qdisc "
                          f"{out.interface_qdisc!r}")
-    if out.tpu_min_device_batch <= 0:
-        _refuse("tpu_min_device_batch <= 0 (forced per-round device "
-                "propagation)", _RM_OBJECT)
     if out.tpu_device_spans not in ("auto", "force", "on", "off"):
         raise ValueError(f"unknown tpu_device_spans "
                          f"{out.tpu_device_spans!r}")

@@ -17,11 +17,12 @@ the reference does under `scheduler: tpu`:
 - a C++ span (engine.run_span): whole windows inside one engine call;
 - one per-round iteration: hosts with Python-side work (spawn tasks)
   run through Host.execute, the rest in one engine batch, and the
-  engine's scalar twin propagates the round's packets.
+  propagator (ops/propagate.py) propagates the round's packets, on the
+  card (`stt_propagate`) or through the engine's bit-identical C++
+  twin, as its route model decides.
 
-The per-round device propagation kernel is not ported yet (ROADMAP),
-so per-round propagation always runs the engine's C++ twin — the
-reference's host route, bit-identical to its device route.
+`tpu_min_device_batch <= 0` forces every round through the kernel:
+no span of either kind runs, and no round goes to the twin.
 """
 
 from __future__ import annotations
@@ -175,7 +176,7 @@ class Manager:
                         f"shadow_tpu_torch does not serve host "
                         f"{host.name!r} process {pcfg.path} "
                         f"{pcfg.args} yet: it needs the object path "
-                        f"(ROADMAP A2)")
+                        f"(ROADMAP A2b)")
                 host.schedule_task_at(pcfg.start_time_ns,
                                       SpawnTask(pcfg, i, spec, bufs))
 
@@ -198,6 +199,12 @@ class Manager:
                                  dtype=np.uint32),
             lat, thr, lat.shape[0], k0, k1,
             config.general.bootstrap_end_time_ns, TIME_NEVER)
+        from shadow_tpu_torch.ops.propagate import TpuPropagator
+        self.propagator = TpuPropagator(
+            lat, thr, seed,
+            config.general.bootstrap_end_time_ns, runahead=self.runahead,
+            min_device_batch=exp.tpu_min_device_batch, device=self.device)
+        self.propagator.engine = eng
         # OS-thread width for the engine's run_hosts_mt sections.
         self._mt_threads = config.general.parallelism or os.cpu_count() or 1
         self._nt = None
@@ -248,21 +255,6 @@ class Manager:
         for hid in slow.tolist():
             self.hosts[hid].execute(until)
 
-    def _finish_round(self, window_end: int):
-        """The round's propagation through the engine's scalar twin;
-        returns the earliest delivery (or None)."""
-        eng = self.plane.engine
-        n = eng.round_size()
-        if not n:
-            return None
-        _nf, md, ml, exports = eng.finish_round(window_end)
-        if exports:
-            raise RuntimeError("engine exported packets to an object-path "
-                               "host, which this slice never builds")
-        if ml < (1 << 63) - 1:
-            self.runahead.update_lowest_used_latency(ml)
-        return md if md < TIME_NEVER else None
-
     def run(self) -> SimSummary:
         exp = self.config.experimental
         stop = self.config.general.stop_time_ns
@@ -270,7 +262,11 @@ class Manager:
         summary = SimSummary()
         self._init_next_times()
         start = self._min_next_event()
-        span_ok = True
+        prop = self.propagator
+        # Forced-device mode (min_device_batch <= 0) is the parity/audit
+        # path: every round must go through the kernel, so spans (whose
+        # propagation runs the C++ twin or a span loop) stay out.
+        span_ok = prop.route.min_device_batch > 0
         # Device-resident spans: "auto" measures device vs C++ span
         # throughput per round and routes, "force"/"on" always take the
         # device, "off" disables.
@@ -301,7 +297,8 @@ class Manager:
             return None if next_start >= TIME_NEVER else next_start
 
         while start is not None and start < stop:
-            span_now = span_ok
+            # A device measured winning per round keeps the rounds.
+            span_now = span_ok and prop.span_gate()
             py_limit = None
             if span_now and self._py_work.any():
                 # Python-side work pending (spawn tasks): spans may still
@@ -391,8 +388,9 @@ class Manager:
                         start = account_span(res)
                         continue
             window_end = min(start + self.runahead.get(), stop)
+            prop.begin_round(start, window_end)
             self._run_hosts(window_end)
-            inflight_min = self._finish_round(window_end)
+            inflight_min = prop.finish_round()
             summary.rounds += 1
             summary.busy_end_ns = window_end
             nxt = self._min_next_event()
@@ -407,6 +405,7 @@ class Manager:
             for r in (self._dev_span, self._dev_span_tcp):
                 if r is not None:
                     r.drop_inflight()
+        prop.close()  # joins a probe in flight; re-raises its failure
 
         for h in self.hosts:
             h.merge_native_counters()
@@ -492,11 +491,13 @@ class Manager:
 
     def dispatch_summary(self) -> dict:
         """The run summary's dispatch section (the reference's
-        `metrics.wall.dispatch` entries the port has): the overlap mode
-        and, per device-span family that was tried, its span counts,
-        residency and the `overlap` block."""
+        `metrics.wall.dispatch` entries the port has): the overlap mode,
+        the per-round propagator's `propagate` block, and, per
+        device-span family that was tried, its span counts, residency
+        and the `overlap` block."""
         out = {"span_overlap": self.config.experimental.span_overlap,
-               "span_overlap_on": self._span_overlap_on()}
+               "span_overlap_on": self._span_overlap_on(),
+               "propagate": self.propagator.summary()}
         for family, r in (("phold", self._dev_span),
                           ("tcp", self._dev_span_tcp)):
             if r is not None:

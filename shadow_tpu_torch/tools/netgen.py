@@ -230,3 +230,111 @@ def mesh_family_yaml(n_hosts: int, count: int = 30, size: int = 400,
             f"{_indent(gml, '      ')}\n"
             f"experimental:\n" + "\n".join(exp) + "\n"
             f"hosts:\n" + "\n".join(blocks) + "\n")
+
+
+# ---------------------------------------------------------------------
+# The reference benchmark's ladder (bench.py), copied: the 3-tier graph,
+# its constants and three of its configs as YAML.  tests/test_torch_
+# propagate.py pins each against bench.py's dict.
+# ---------------------------------------------------------------------
+
+HOSTS_10K = 10_000
+SIM_SECONDS_10K = 10
+HOSTS_1K = 1000
+SERVERS_1K = HOSTS_1K // 10
+NBYTES_1K = 50_000
+COUNT_1K = 5           # transfers per client
+SIM_SECONDS_1K = 30
+MESH_HOSTS = 100
+MESH_COUNT = 30
+MESH_SIZE = 200
+
+THREE_TIER_GML = """
+graph [ directed 0
+  node [ id 0 host_bandwidth_down "10 Gbit" host_bandwidth_up "10 Gbit" ]
+  node [ id 1 host_bandwidth_down "1 Gbit" host_bandwidth_up "1 Gbit" ]
+  node [ id 2 host_bandwidth_down "100 Mbit" host_bandwidth_up "50 Mbit" ]
+  edge [ source 0 target 0 latency "1 ms" ]
+  edge [ source 0 target 1 latency "10 ms" packet_loss 0.002 ]
+  edge [ source 1 target 1 latency "5 ms" packet_loss 0.001 ]
+  edge [ source 1 target 2 latency "25 ms" packet_loss 0.005 ]
+  edge [ source 2 target 2 latency "40 ms" packet_loss 0.01 ]
+  edge [ source 0 target 2 latency "35 ms" packet_loss 0.008 ]
+]"""
+
+MESH_GML = """
+graph [ node [ id 0 host_bandwidth_down "1 Gbit" host_bandwidth_up "1 Gbit" ]
+  edge [ source 0 target 0 latency "10 ms" packet_loss 0.01 ] ]"""
+
+
+def _q(v) -> str:
+    """A YAML scalar: JSON's double-quoted strings and numbers are YAML."""
+    import json
+    return json.dumps(v)
+
+
+def _proc(path: str, args: list[str], final: str,
+          start: str | None = None) -> str:
+    start_s = f", start_time: {_q(start)}" if start is not None else ""
+    return (f"{{path: {path}, args: [{', '.join(_q(a) for a in args)}]"
+            f"{start_s}, expected_final_state: {final}}}")
+
+
+def _bench_yaml(stop_time: str, seed: int, gml: str, scheduler: str,
+                experimental_extra: dict | None, hosts: list[str]) -> str:
+    exp = {"scheduler": scheduler, **(experimental_extra or {})}
+    return (f"general: {{stop_time: {stop_time}, seed: {seed}}}\n"
+            f"network: {{graph: {{type: gml, inline: {_q(gml)}}}}}\n"
+            f"experimental: {{"
+            + ", ".join(f"{k}: {_q(v)}" for k, v in exp.items()) + "}\n"
+            "hosts:\n" + "\n".join(hosts) + "\n")
+
+
+def tier10k_yaml(scheduler: str = "tpu", stop_s: int = SIM_SECONDS_10K,
+                 n_hosts: int = HOSTS_10K,
+                 experimental_extra: dict | None = None) -> str:
+    """bench.py config_10k, BASELINE config 4: 10k hosts over the 3-tier
+    graph, 500 tgen-server relays on node 0, 9,500 tgen-clients on nodes
+    1-2 each doing 3 x 25,000 B, starts staggered 100-933 ms, seed 7.
+    `n_hosts` shrinks the fleet (relays stay 1 in 20) for tests."""
+    relays = n_hosts // 20
+    hosts = [f"  relay{i:04d}: {{network_node_id: 0, processes: ["
+             + _proc("tgen-server", ["80"], "running") + "]}"
+             for i in range(relays)]
+    hosts += [f"  cli{i:05d}: {{network_node_id: {1 + (i % 2)}, "
+              "processes: ["
+              + _proc("tgen-client", [f"relay{i % relays:04d}", "80",
+                                      "25000", "3"], "any",
+                      f"{100 + (i % 50) * 17}ms") + "]}"
+              for i in range(n_hosts - relays)]
+    return _bench_yaml(f"{stop_s}s", 7, THREE_TIER_GML, scheduler,
+                       experimental_extra, hosts)
+
+
+def tier1k_yaml(scheduler: str = "tpu") -> str:
+    """bench.py config3, BASELINE config 3: 1k hosts over the 3-tier
+    graph, 100 tgen servers on node 0, 900 clients on nodes 1-2 each
+    doing 5 x 50,000 B, starts staggered 100-803 ms, 30 s, seed 7."""
+    hosts = [f"  srv{i:03d}: {{network_node_id: 0, processes: ["
+             + _proc("tgen-server", ["80"], "running") + "]}"
+             for i in range(SERVERS_1K)]
+    hosts += [f"  cli{i:04d}: {{network_node_id: {1 + (i % 2)}, "
+              "processes: ["
+              + _proc("tgen-client", [f"srv{i % SERVERS_1K:03d}", "80",
+                                      str(NBYTES_1K), str(COUNT_1K)],
+                      "any", f"{100 + (i % 20) * 37}ms") + "]}"
+              for i in range(HOSTS_1K - SERVERS_1K)]
+    return _bench_yaml(f"{SIM_SECONDS_1K}s", 7, THREE_TIER_GML, scheduler,
+                       None, hosts)
+
+
+def mesh100_yaml(scheduler: str = "tpu") -> str:
+    """bench.py mesh_config, BASELINE config 2: 100 hosts, each one
+    udp-mesh sending 30 x 200 B to each of its 99 peers from 1 s, over
+    one 10 ms node with 1% loss, 30 s, seed 3."""
+    names = [f"h{i:03d}" for i in range(MESH_HOSTS)]
+    hosts = [f"  {name}: {{network_node_id: 0, processes: ["
+             + _proc("udp-mesh", ["9000", str(MESH_COUNT), str(MESH_SIZE)]
+                     + [p for p in names if p != name], "any", "1s") + "]}"
+             for name in names]
+    return _bench_yaml("30s", 3, MESH_GML, scheduler, None, hosts)

@@ -13,7 +13,7 @@ micro-iterations and the loop's CUDA-event time per micro-iteration,
 the codec's walls, the clone's time, the overlap block and the trace's
 sha256 (which must be the same in every run).  The cells are
 `chip_smoke.py` phase 5's phold-64k-ring (65,536 LPs, the reference
-rung's ring caps, 1.0 s) and phase 4's mesh-24 (24 hosts, 1 s).
+rung's ring caps, 1.0 s) and phase 4's mesh-24 (24 hosts, here to 1 s).
 """
 
 from __future__ import annotations
@@ -48,8 +48,11 @@ def run_once(cell: str, base: dict, overlap: str) -> dict:
 
     from shadow_tpu_torch.core.config import ConfigOptions
     from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
     d = copy.deepcopy(base)
     d["experimental"]["span_overlap"] = overlap
+    # Every per-round round on the C++ twin: spans alone are compared.
+    d["experimental"]["tpu_min_device_batch"] = HOST_ONLY
     mgr = Manager(ConfigOptions.from_dict(d), device="cuda")
     r = mgr._dev_span = mgr.make_dev_span_runner()
     if cell == "phold-64k-ring":

@@ -28,14 +28,19 @@ import time
 
 def stream_config(n_hosts: int, stop_time: str, device_spans: str):
     """The bulk stream at `n_hosts` hosts, `stop_time` simulated, with
-    `tpu_device_spans` set to `device_spans` ("off" or "force")."""
+    `tpu_device_spans` set to `device_spans` ("off" or "force") and
+    every per-round round on the C++ twin (so that no per-round device
+    dispatch measured winning takes rounds from the spans)."""
     from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
     from shadow_tpu_torch.tools.netgen import tcp_stream_yaml
-    return ConfigOptions.from_yaml_text(tcp_stream_yaml(
+    cfg = ConfigOptions.from_yaml_text(tcp_stream_yaml(
         n_hosts, n_servers=max(1, n_hosts // 8), nbytes=50_000_000,
         loss=0.005, latency="10 ms", bw_down="50 Mbit", bw_up="50 Mbit",
         stop_time=stop_time, seed=11, scheduler="tpu",
         device_spans=device_spans))
+    cfg.experimental.tpu_min_device_batch = HOST_ONLY
+    return cfg
 
 
 def run_stream(mgr) -> dict:

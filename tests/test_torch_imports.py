@@ -44,6 +44,8 @@ def test_torch_port_file_list_is_complete():
     for want in ("chip_smoke.py", "shadow_tpu_torch/ops/tcp_span.py",
                  "shadow_tpu_torch/ops/phold_span.py",
                  "shadow_tpu_torch/ops/queues.py",
+                 "shadow_tpu_torch/ops/propagate.py",
+                 "shadow_tpu_torch/tools/netgen.py",
                  "shadow_tpu_torch/core/manager.py"):
         assert want in files
 
@@ -111,6 +113,14 @@ PINS = (
        for n in ("KIND_PACKET", "KIND_LOCAL")]
     + [("shadow_tpu_torch.core.config", "shadow_tpu.core.config", n, n)
        for n in ("SCHEDULERS", "QDISC_MODES")]
+    # The per-round propagator's route law.
+    + [("shadow_tpu_torch.ops.propagate", "shadow_tpu.ops.propagate", n, n)
+       for n in ("_MIN_BUCKET", "ROUTE_HOST", "ROUTE_DEVICE", "ROUTE_PROBE",
+                 "DeviceRouteModel.REPROBE_EVERY",
+                 "DeviceRouteModel.REPROBE_CAP",
+                 "DeviceRouteModel.PROBE_BUDGET_FRAC")]
+    + [("shadow_tpu_torch.ops.propagate", "shadow_tpu.ops.propagate",
+        "I64_MAX", "_I64_MAX")]
 )
 
 
