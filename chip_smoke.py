@@ -29,6 +29,19 @@ Six phases; any failed check raises, so the script exits non-zero:
      CUDA graph (back to back on the card, the minima's fill included),
      host time per wrapper call, the plain version, and the bound from
      the bytes per packet and the matrices.
+   - the PHOLD/udp-mesh window kernel (stt_phold_window) on exported
+     span states of phold-8k, mesh-codel-10 (inside its CoDel stretch)
+     and phold-64k-ring: one window, then four rounds with their round
+     ends, through the kernel and through its plain version (the
+     runner's eager window) on copies of the same state: every state
+     column, the outbox and trace in canonical order, the stage fires
+     and lanes, the micro-iterations and the abort bits exactly equal;
+     the outbox cut to H + 2 slots gives AB_OUT both ways; card time per
+     launch (ten launches back to back in a CUDA graph, each on its own
+     fresh copy of the export), host time per wrapper call, the plain
+     window's time, the bound from the bytes the window must move (its
+     lanes' last busy/due test, the slots it dequeues and copies, the
+     words it changes), and nvcc's register and spill report.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
    port's Manager on the card, once with the C++ engine serving every
    round (`tpu_device_spans: off`) and once with forced device spans,
@@ -40,30 +53,36 @@ Six phases; any failed check raises, so the script exits non-zero:
    Then the same stream at 16 hosts, where at least half the rounds
    must run on the card, with the router's first window at 4 rounds
    so that the device stretch takes several spans.
-4. Run the PHOLD/udp-mesh family the same way, spans off and forced:
-   phold-8k (the reference ladder's 8,192-LP rung), mesh-24 (the
-   reference's 24-host paced udp-mesh, to 1 s) and mesh-codel-10 (the
-   reference's CoDel-active mesh), requiring identical traces, spans
-   with no abort, >= 50% of rounds on the card for phold-8k, family 1
-   and drops for the meshes (CoDel drops for mesh-codel-10), each
-   standalone law kernel launched once per call the runner made, never
-   more often than the stages that call it fire, and the TCP relay
-   kernels never.  Prints the per-stage
-   counters, ms per micro-iteration, the span codec's bytes and walls
-   and the peak device memory.
+4. Run the PHOLD/udp-mesh family the same way, spans off and forced
+   (every window one stt_phold_window launch): phold-8k (the reference
+   ladder's 8,192-LP rung), mesh-24 (the reference's 24-host paced
+   udp-mesh, to the reference's own 30 s) and mesh-codel-10 (the
+   reference's CoDel-active mesh, 60 s); phold-8k also forced through
+   the plain window.  Requires one trace per cell, the one it had
+   before the window kernel (DIGESTS; for mesh-24 also the lines
+   before 1 s, the earlier cut's trace: PREFIX_DIGESTS), spans with no
+   abort, >= 50% of rounds on the card, family 1 and drops for the
+   meshes (all 3,350 CoDel drops for mesh-codel-10); through the
+   kernel, one launch per window stepped in every dispatch and none of
+   the standalone law kernels; through the plain window, each law
+   kernel launched once per call the runner made, never more often
+   than the stages that call it fire, and no window kernel; the TCP
+   relay kernels never.  Prints the per-stage counters,
+   micro-iterations, the loop's wall, the windows' launch-to-end time,
+   the span codec's bytes and walls and the peak device memory.
 5. Run phold-64k-ring (the reference ladder's 65,536-LP ring-caps rung,
    to 1.0 s so that the device stretch takes three spans) three times:
-   spans off, forced with `span_overlap: off` (residency alone) and
-   forced with `span_overlap: auto` (on, on the card).  Requires
-   identical traces, no abort, >= 50% of rounds on the card, resident
-   hits on every span after the first (less stale drops, each named by
-   the engine call that moved the epoch), the residency run's export
-   bytes under 1.5x one span's export, speculative windows dispatched
-   and landed with auto and none with off, and each law kernel
-   launched exactly once per call the runner made (never in the C++
-   run).  Prints ms per micro-iteration, the codec's bytes and walls,
-   the clone's bytes and time, the overlap block, the per-stage
-   counters and the peak device memory.  Then `python -m
+   spans off, forced with `span_overlap: off` (residency alone, through
+   the plain window) and forced with `span_overlap: auto` (on, on the
+   card, through the window kernel).  Requires the cell's trace in all
+   three runs, no abort, >= 50% of rounds on the card, resident hits on
+   every span after the first (less stale drops, each named by the
+   engine call that moved the epoch), the residency run's export bytes
+   under 1.5x one span's export, speculative windows dispatched and
+   landed with auto and none with off, and phase 4's launch gates for
+   each (never a kernel in the C++ run).  Prints the loop as phase 4
+   does, the codec's bytes and walls, the clone's bytes and time, the
+   overlap block and the peak device memory.  Then `python -m
    shadow_tpu_torch` on a 512-LP PHOLD ring with `span_overlap: on`
    must exit 0 with a speculative window landed.
 6. Per-round device propagation.  tier10k (bench.py config_10k: 10,000
@@ -117,12 +136,25 @@ REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "codel_head": "shadow_tpu/ops/pallas_queues.py:119",
             "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
             "relay2_law": "shadow_tpu/ops/pallas_queues.py:119",
-            "propagate": "shadow_tpu/ops/propagate.py:391"}
+            "propagate": "shadow_tpu/ops/propagate.py:391",
+            "phold_window": "shadow_tpu/ops/phold_span.py:1675"}
 SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "codel_head": "shadow_tpu_torch/csrc/queues.cu",
           "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
           "relay2_law": "shadow_tpu_torch/csrc/relay.cu",
-          "propagate": "shadow_tpu_torch/csrc/propagate.cu"}
+          "propagate": "shadow_tpu_torch/csrc/propagate.cu",
+          "phold_window": "shadow_tpu_torch/csrc/phold_window.cu"}
+# Each PHOLD-family cell's trace sha256 (its first 16 hex digits) as the
+# C++-only run and the device runs gave it before the window kernel: a
+# device run through the kernel must give the same trace.  mesh-24 runs
+# to the reference's 30 s; the lines of its trace before 1 s are the
+# trace of a run stopped at 1 s (tests/test_torch_phold_window.py), the
+# cut the earlier digest was taken at (PREFIX_DIGESTS: cut ns, digest).
+DIGESTS = {"phold-8k": "193df0b724ca82af", "mesh-24": "418a93e5434d900a",
+           "mesh-codel-10": "465140a4129e63e7",
+           "phold-64k-ring": "8a7e37bc1464a71e"}
+PREFIX_DIGESTS = {"mesh-24": (1_000_000_000, "7e888cfb90af5447")}
+MESH_CODEL_DROPS = 3350  # every CoDel drop of mesh-codel-10's 60 s
 DENSITIES = (0.001, 0.1, 1.0)
 # stt_propagate: bytes per packet (in: src_node, dst_node i32, src_host,
 # t_send i64, pkt_seq u32, is_ctl u8; out: deliver i64, three flags) and
@@ -134,6 +166,10 @@ PROPAGATE_IN_B, PROPAGATE_OUT_B, PROPAGATE_OPS = 29, 11, 92
 # tensor cores (float32, 67 TFLOP/s, H100 SXM data sheet),
 # an upper bound of its int32 rate, so the operations bound is low.
 OPS_RATE = 67e12
+# Cycles the card sleeps before a timed CUDA graph's start event (about
+# 2 ms at the H100's 1.98 GHz boost clock): the host records the event
+# and launches the graph meanwhile.
+SLEEP_CYCLES = 4_000_000
 PROPAGATE_N = (1, 1_000, 65_536, 1_048_576, 1_000_003)
 
 
@@ -157,7 +193,7 @@ def build_all():
     """The engine (make) and the kernel libraries (one nvcc per source),
     started together."""
     from shadow_tpu_torch.native import plane
-    from shadow_tpu_torch.ops import propagate, queues, relay
+    from shadow_tpu_torch.ops import phold_window, propagate, queues, relay
     errs = []
     walls = {}
 
@@ -177,7 +213,8 @@ def build_all():
                for a in (("engine", engine),
                          ("queues.cu", queues.LIBRARY.build),
                          ("relay.cu", relay.LIBRARY.build),
-                         ("propagate.cu", propagate.LIBRARY.build))]
+                         ("propagate.cu", propagate.LIBRARY.build),
+                         ("phold_window.cu", phold_window.LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -190,7 +227,13 @@ def build_all():
           f"relay.cu {walls['relay.cu']:.1f}s (nvcc "
           f"{relay.LIBRARY.build_s:.1f}s), propagate.cu "
           f"{walls['propagate.cu']:.1f}s (nvcc "
-          f"{propagate.LIBRARY.build_s:.1f}s)", flush=True)
+          f"{propagate.LIBRARY.build_s:.1f}s), phold_window.cu "
+          f"{walls['phold_window.cu']:.1f}s (nvcc "
+          f"{phold_window.LIBRARY.build_s:.1f}s)", flush=True)
+    # nvcc -Xptxas=-v: the window kernel's registers, stack and spills.
+    for ln in phold_window.LIBRARY.log.splitlines():
+        if ln.strip():
+            print(f"[build] phold_window.cu: {ln.strip()}", flush=True)
 
 
 def adversarial(H: int, seed: int = 7):
@@ -540,6 +583,220 @@ def check_propagate() -> dict:
     return stats
 
 
+def ring_config(spans: str, overlap: str):
+    """phold-64k-ring (bench.py phold_rung's 64k rung: 65,536 LPs, ring
+    peers 16; 1 Gbit, 5 ms, LPs start at 100 ms) to 1.0 s instead of the
+    rung's 0.15 s, every per-round round on the C++ twin.  The YAML is
+    generated and parsed once."""
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
+    from shadow_tpu_torch.tools.netgen import phold_yaml
+    if not hasattr(ring_config, "base"):
+        t0 = time.perf_counter()
+        text = phold_yaml(H_RING, n_init=1, mean_delay_ns=20_000_000,
+                          stop_time="1.0s", seed=13, scheduler="tpu",
+                          peers_per_host=16)
+        ring_config.base = parse_yaml(text)
+        print(f"[phold-64k-ring] {H_RING} LPs, stop_time 1.0s, caps "
+              f"{RING_CAPS}; YAML {len(text) / 2**20:.1f} MiB parsed in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return config_with(ring_config.base, tpu_device_spans=spans,
+                       span_overlap=overlap, tpu_min_device_batch=HOST_ONLY)
+
+
+def window_cells() -> dict:
+    """Phase 2's window exports: name -> (config, which in-domain export,
+    runner caps).  mesh-codel-10's sixth export lies inside its CoDel
+    stretch (its traffic ends at 3.9 s)."""
+    cells = phold_cells()
+    return {"phold-8k": (cells["phold-8k"][0]("force"), 2, None),
+            "mesh-codel-10": (cells["mesh-codel-10"][0]("force"), 6, None),
+            "phold-64k-ring": (ring_config("force", "off"), 2, RING_CAPS)}
+
+
+def window_graph_ms(fn, base: dict, pay: int, window_end: int,
+                    n: int) -> list:
+    """Card time per window of the built loop `fn`'s kernel step, once
+    per replay of three: `n` launches back to back in one CUDA graph,
+    each on its own copy of `base` (the written operands cloned, the
+    rest shared), restored before each replay.  The card sleeps while
+    the host records the start event and launches the graph, so neither
+    the host's issue nor the graph's launch is in the time."""
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    ref = clone_state(base)
+    fn.prepare(ref, pay)
+    fn.step.begin(ref, pay)
+    written = [o.key for o in fn.step.table.ops
+               if o.written and o.key in ref]
+    copies = [dict(ref, **{k: ref[k].clone() for k in written})
+              for _ in range(n)]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for c in copies:
+            fn.step.launch(c, window_end)
+    out = []
+    for _ in range(3):
+        for c in copies:
+            for k in written:
+                c[k].copy_(ref[k])
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        g.replay()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1) / n)
+    del g, copies
+    return out
+
+
+def check_phold_window() -> dict:
+    """Phase 2's stt_phold_window leg.  For each cell's export on the
+    card: one window through the kernel and through its plain version
+    (the runner's eager window) on copies of the same state, then four
+    rounds of each, round ends included; every state column, the outbox
+    and the trace in canonical order, ks_fires, ks_lanes, the
+    micro-iterations and the abort bits exactly equal.  phold-8k also
+    runs with the outbox cut to H + 2 slots: both abort with AB_OUT
+    alone.  Card time per launch (window_graph_ms), host time per
+    wrapper call, the plain window's time, and the bound from the bytes
+    one window must move (ops/phold_window.py window_need_bytes)."""
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops import phold_window as pw
+    from shadow_tpu_torch.ops.span_mesh import AB_OUT
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    from shadow_tpu_torch.tools.window_cases import (capture_export,
+                                                     device_state,
+                                                     window_mismatch)
+    stats = {}
+    for name, (cfg, nth, caps) in window_cells().items():
+        tag = f"[window {name}]"
+        t0 = time.perf_counter()
+        runner, st_np, (start, stop, limit, runahead) = capture_export(
+            Manager(cfg, device="cuda"), nth, caps)
+        pay, H = runner._pay, runner._H
+        base = device_state(runner, st_np)
+        del st_np
+        we = min(start + runahead, stop)
+
+        def build(kernel: bool):
+            runner.window_factory = None if kernel else pw.eager_window
+            return runner._build()
+
+        plain, kern = build(False), build(True)
+        print(f"{tag} export {nth} at {start / 1e9:.4f}s ({H} lanes, "
+              f"window {runahead / 1e6:.3f} ms) in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        # One window each way.
+        a = clone_state(base)
+        plain.prepare(a, pay)
+        it = plain.window_plain(a, we)
+        b = clone_state(base)
+        kern.prepare(b, pay)
+        before = clone_state(b)
+        kern.step.begin(b, pay)
+        kern.step(b, we)
+        got = kern.step.end()
+        torch.cuda.synchronize()
+        bad = window_mismatch(a, b) + [
+            what for what, x, y in (
+                ("iterations", it, got["iters"]),
+                ("ks_fires", a["ks_fires"], got["fires"]),
+                ("ks_lanes", a["ks_lanes"], got["lanes"]),
+                ("abort", int(a["abort_code"]), int(b["abort_code"])))
+            if not np.array_equal(x, y)]
+        if bad or it == 0:
+            raise AssertionError(f"{tag} one window: {bad} differ "
+                                 f"({it} iterations)")
+        n_out, n_tr = int(b["out_n"]), int(b["tr_n"])
+        lanes = got["lanes"]
+        need = pw.window_need_bytes(kern.step.table.ops, before, b)
+        del a, b, before
+        # Four rounds each way, the round ends between the windows.
+        outs = []
+        for fn in (plain, kern):
+            outs.append(fn(clone_state(base), pay, start, stop, limit,
+                           runahead, 4))
+        (ra, *rest_a), (rb, *rest_b) = outs
+        bad = window_mismatch(ra, rb) + [
+            k for k in ("ks_fires", "ks_lanes")
+            if not np.array_equal(ra[k], rb[k])]
+        if bad or rest_a != rest_b or rest_a[2] < 2 \
+                or int(ra["abort_code"]) or rb["ks_windows"] != rest_a[2]:
+            raise AssertionError(f"{tag} four rounds: {bad} differ, "
+                                 f"{rest_a} vs {rest_b}, windows "
+                                 f"{rb['ks_windows']}")
+        codel = int((rb["codel_dropped"] - base["codel_dropped"]).sum())
+        if name == "mesh-codel-10" and codel == 0:
+            raise AssertionError(f"{tag} no CoDel drop in four rounds")
+        del outs, ra, rb
+        if name == "phold-8k":
+            # One forced overflow: the outbox cut to H + 2 slots.
+            cap = runner.cap_out
+            runner.cap_out = H + 2
+            codes = [int(fn(clone_state(base), pay, start, stop, limit,
+                            runahead, 4)[0]["abort_code"])
+                     for fn in (build(False), build(True))]
+            runner.cap_out = cap
+            if codes != [AB_OUT, AB_OUT]:
+                raise AssertionError(f"{tag} outbox overflow: abort bits "
+                                     f"{codes} (plain, kernel)")
+            print(f"{tag} outbox cut to H + 2: both abort with bits "
+                  f"{codes[0]}", flush=True)
+        ms = window_graph_ms(kern, base, pay, we, 10)
+        call, ms_call = [], []
+        for _ in range(5):
+            c = clone_state(base)
+            kern.prepare(c, pay)
+            kern.step.begin(c, pay)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kern.step(c, we)
+            call.append(time.perf_counter() - t1)
+            ms_call.append(kern.step.end()["window_ms"])
+            del c
+        pms = []
+        for _ in range(2):
+            c = clone_state(base)
+            plain.prepare(c, pay)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            plain.window_plain(c, we)
+            e1.record()
+            e1.synchronize()
+            pms.append(e0.elapsed_time(e1))
+            del c
+        nbytes = need["total"]
+        row = {"ms": float(np.median(ms)), "graph_ms": float(np.median(ms)),
+               "ms_min": min(ms), "ms_max": max(ms),
+               "call_ms": float(np.median(call)) * 1e3,
+               "plain_ms": float(np.median(pms)),
+               "bound_ms": nbytes / BANDWIDTH * 1e3, "bytes": nbytes,
+               "max_abs_err": 0, "iters": it, "H": H, "lanes": lanes}
+        stats[name] = row
+        print(f"{tag} exact: one window ({it} micro-iterations; fires "
+              f"{got['fires'].tolist()}, lanes {lanes.tolist()}, law "
+              f"calls {got['calls'].tolist()}; outbox {n_out}, trace "
+              f"{n_tr}) and four rounds ({rest_a[2]} windows, "
+              f"{rest_a[-1]} micro-iterations, {codel} CoDel drops); "
+              f"{row['ms'] * 1e3:.3f} us per launch on the card (CUDA "
+              f"graph of 10, fresh state each; median of 3 replays, "
+              f"{row['ms_min'] * 1e3:.3f}-{row['ms_max'] * 1e3:.3f}), "
+              f"{row['call_ms'] * 1e3:.1f} us host per wrapper call "
+              f"(launch to end {np.median(ms_call) * 1e3:.1f} us); plain "
+              f"window {row['plain_ms']:.3f} ms; bound "
+              f"{row['bound_ms'] * 1e3:.3f} us by bytes ({nbytes} B: "
+              + ", ".join(f"{k} {v}" for k, v in need.items()
+                          if k != "total") + ")",
+              flush=True)
+        del base, plain, kern, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stats
+
+
 def log_spans(mgr) -> None:
     """Print one line per device-span attempt (progress for a long run)."""
     runner = mgr._dev_span_tcp = mgr.make_tcp_span_runner()
@@ -650,8 +907,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                                  f"times for {fires_all} fires of its "
                                  f"stage ({fires} committed)")
     # The laws run inside the relay kernels: the span loop launches no
-    # standalone law kernel.
-    for name in ("bucket_step", "codel_head"):
+    # standalone law kernel (nor the PHOLD window kernel).
+    for name in ("bucket_step", "codel_head", "phold_window"):
         if launches[name] != 0:
             raise AssertionError(f"{tag} the span loop launched {name} "
                                  f"{launches[name]} times")
@@ -681,9 +938,12 @@ def print_stages(tag, r) -> None:
     """The runner's per-stage counters over its committed spans: fires,
     lanes, lanes per fire, and host wall from each guard's sync to the
     end of the stage's issue (so the kernels' device time hides in the
-    next sync)."""
+    next sync).  Through the PHOLD window kernel the stages have no
+    host wall of their own: the windows' launch-to-end time stands for
+    them."""
     from shadow_tpu_torch.ops.tcp_span import KS_NAMES
-    if not r.ks_wall_s.sum():
+    windows = getattr(r, "ks_windows", 0)
+    if not r.ks_wall_s.sum() and not windows:
         return
     print(f"{tag} stages over {r.micro_iters} micro-iterations "
           f"(name: fires, lanes, lanes/fire, host s, ms/fire):", flush=True)
@@ -693,8 +953,13 @@ def print_stages(tag, r) -> None:
         if f:
             print(f"{tag}   {name}: {f}, {n}, {n / f:.1f}, {w:.3f}, "
                   f"{w / f * 1e3:.3f}", flush=True)
-    print(f"{tag} stage host wall total {r.ks_wall_s.sum():.3f}s of "
-          f"{r.device_ms / 1e3:.3f}s loop", flush=True)
+    if windows:
+        print(f"{tag} window kernel launch-to-end {r.ks_window_ms / 1e3:.3f}s"
+              f" over {windows} windows of {r.device_ms / 1e3:.3f}s loop",
+              flush=True)
+    else:
+        print(f"{tag} stage host wall total {r.ks_wall_s.sum():.3f}s of "
+              f"{r.device_ms / 1e3:.3f}s loop", flush=True)
 
 
 def parse_yaml(text: str) -> dict:
@@ -733,11 +998,10 @@ def phold_cells() -> dict:
                            tpu_min_device_batch=HOST_ONLY)
 
     def mesh_24(spans):
-        # the reference's bench[mesh-dev] shape (mesh_cfg(n=24)), cut
-        # from 30 s to 1 s simulated for the script's time limit: 89 of
-        # its 242 device rounds, two spans
+        # the reference's bench[mesh-dev] shape (mesh_cfg(n=24)) at its
+        # own 30 s, nothing cut
         cfg = ConfigOptions.from_yaml_text(mesh_family_yaml(
-            24, scheduler="tpu", device_spans=spans, stop_time="1s"))
+            24, scheduler="tpu", device_spans=spans, stop_time="30s"))
         cfg.experimental.tpu_min_device_batch = HOST_ONLY
         return cfg
 
@@ -768,26 +1032,104 @@ def phold_cells() -> dict:
             "mesh-codel-10": (mesh_codel_10, 0.5, "drops")}
 
 
-def phold_pair(name: str, make, min_share: float, codel) -> dict:
-    """One PHOLD/udp-mesh cell through the port's Manager on the card,
-    spans off and forced.  Requires identical traces and counters,
-    device spans with no abort, `min_share` of the rounds on the card,
-    family 1 with drops for the meshes (CoDel drops where `codel`), and
-    each law kernel launched exactly once per call the runner made
-    (none in the C++ run), its committed calls never more than the fires
-    of the stages that call it, and the TCP relay kernels never.
-    Returns the device run's launches of all four kernels."""
+def check_window_launches(tag: str, r, launches: dict, kernel: bool):
+    """A forced PHOLD-family run's launch gates.  Through the window
+    kernel: one stt_phold_window launch per window stepped in every
+    dispatch (aborted and refused ones too), one per round in the
+    committed spans, and no standalone law kernel.  Through the plain
+    window: each law kernel launched exactly once per call the runner
+    made, and no window kernel.  Never a TCP relay kernel."""
+    for kname in ("relay1_law", "relay2_law"):
+        if launches[kname]:
+            raise AssertionError(f"{tag} the PHOLD loop launched {kname} "
+                                 f"{launches[kname]} times")
+    if kernel:
+        n = launches["phold_window"]
+        if n <= 0 or n != r.windows_all or r.ks_windows != r.rounds:
+            raise AssertionError(f"{tag} phold_window launched {n} times "
+                                 f"for {r.windows_all} windows "
+                                 f"({r.ks_windows} committed, {r.rounds} "
+                                 f"rounds)")
+        for kname in ("bucket_step", "codel_head"):
+            if launches[kname]:
+                raise AssertionError(f"{tag} {kname} launched "
+                                     f"{launches[kname]} times beside the "
+                                     f"window kernel")
+        return
+    if launches["phold_window"]:
+        raise AssertionError(f"{tag} the plain window launched "
+                             f"phold_window {launches['phold_window']} "
+                             f"times")
+    from shadow_tpu_torch.ops import phold_span as ps
+    fires = r.ks_fires
+    for i, (kname, most) in enumerate((
+            ("bucket_step", fires[ps.KS_INET_OUT] + fires[ps.KS_CODEL]),
+            ("codel_head", fires[ps.KS_CODEL]))):
+        n = launches[kname]
+        if n <= 0 or n != r.calls_all[i] or r.ks_calls[i] > most \
+                or (r.rolled_back_rounds == 0 and r.overlap_refusals == 0
+                    and n != r.ks_calls[i]):
+            raise AssertionError(
+                f"{tag} {kname} launched {n} times for {r.calls_all[i]} "
+                f"calls ({r.ks_calls[i]} committed), stage fires {most}")
+
+
+def print_run(tag, r) -> None:
+    """A forced PHOLD-family run's loop: dispatches, micro-iterations,
+    the loop's wall (CUDA events around each dispatch) and, through the
+    window kernel, the windows' launch-to-end time (CUDA events just
+    before each launch call and after it: card time plus the launch's
+    host issue) and the rest (round ends and the span's set-up), the
+    codec's bytes and walls, law calls."""
+    per = r.device_ms / max(r.micro_iters, 1)
+    kern = ""
+    if r.ks_windows:
+        kern = (f"; window kernel {r.ks_windows} launches, "
+                f"{r.ks_window_ms / 1e3:.3f}s launch to end "
+                f"({r.ks_window_ms / r.ks_windows * 1e3:.1f} us each), "
+                f"round ends and set-up "
+                f"{(r.device_ms - r.ks_window_ms) / 1e3:.3f}s")
+    print(f"{tag} device spans {r.spans}, micro-iterations "
+          f"{r.micro_iters} ({r.micro_iters / max(r.rounds, 1):.2f} per "
+          f"round, {per:.3f} ms each in the loop), loop "
+          f"{r.device_ms / 1e3:.3f}s (CUDA events) of span wall "
+          f"{r.device_wall_ns / 1e9:.3f}s{kern}, aborts {r.aborts} "
+          f"{r.abort_kind_counts()}, over caps {r.over_caps}; export "
+          f"{r.export_bytes / 2**20:.1f} MiB in "
+          f"{r.export_wall_ns / 1e9:.3f}s, import "
+          f"{r.import_bytes / 2**20:.1f} MiB in "
+          f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); law "
+          f"calls {r.calls_all.tolist()} (committed "
+          f"{r.ks_calls.tolist()}), windows {r.windows_all}", flush=True)
+
+
+def phold_pair(name: str, make, min_share: float, codel,
+               plain_run: bool = False) -> dict:
+    """One PHOLD/udp-mesh cell through the port's Manager on the card:
+    spans off, forced (every window one stt_phold_window launch) and,
+    with `plain_run`, forced through the plain window (the law kernels
+    launched per relay pass).  Requires one trace in every run, equal to
+    the cell's digest from before the window kernel (DIGESTS), equal
+    counters, device spans with no abort, `min_share` of the rounds on
+    the card, family 1 with drops for the meshes (every CoDel drop where
+    `codel`), no kernel in the C++ run and each forced run's launch gates
+    (check_window_launches).  Returns each run's launches of every
+    kernel, by path."""
     import hashlib
 
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops import phold_span as ps
+    from shadow_tpu_torch.ops.phold_window import eager_window
 
     tag = f"[{name}]"
     wrappers = kernel_wrappers()
     runs = {}
-    for spans in ("off", "force"):
+    for run_name in ("off", "force") + (("plain",) if plain_run else ()):
+        spans = "off" if run_name == "off" else "force"
         t0 = time.perf_counter()
         mgr = Manager(make(spans), device="cuda")
+        if run_name == "plain":
+            mgr._dev_span = mgr.make_dev_span_runner()
+            mgr._dev_span.window_factory = eager_window
         build_s = time.perf_counter() - t0
         # Counts cover this run only: zeroed just before it.
         for w in wrappers.values():
@@ -804,86 +1146,89 @@ def phold_pair(name: str, make, min_share: float, codel) -> dict:
         digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
         r = mgr._dev_span
         codel_drops = sum(1 for ln in lines if ln.endswith("codel"))
-        runs[spans] = dict(summary=summary, r=r, launches=launches,
-                           digest=digest, codel=codel_drops,
-                           tcp=mgr._dev_span_tcp)
-        print(f"{tag} spans={spans}: {len(mgr.hosts)} hosts, rounds "
+        cut, want = PREFIX_DIGESTS.get(name, (0, ""))
+        prefix = hashlib.sha256("\n".join(
+            ln for ln in lines if int(ln.split(" ", 1)[0]) < cut
+        ).encode()).hexdigest()
+        runs[run_name] = dict(summary=summary, r=r, launches=launches,
+                              digest=digest, prefix=prefix,
+                              codel=codel_drops,
+                              tcp=mgr._dev_span_tcp, wall=wall)
+        print(f"{tag} {run_name}: {len(mgr.hosts)} hosts, rounds "
               f"{summary.rounds} (device {r.rounds if r else 0}), events "
               f"{summary.events}, packets {summary.packets_sent} sent / "
               f"{summary.packets_dropped} dropped ({codel_drops} by "
               f"CoDel), trace lines {len(lines)} sha256 {digest[:16]}, "
-              f"Manager build {build_s:.1f}s, run wall {wall:.2f}s, peak "
+              f"Manager build {build_s:.1f}s, run wall {wall:.2f}s, "
+              f"{summary.end_time_ns / 1e9 / wall:.4f} sim-s/wall-s, peak "
               f"device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
               f"launches {launches}", flush=True)
         if r is not None and r.spans:
-            per = r.device_ms / max(r.micro_iters, 1)
-            print(f"{tag} spans={spans}: device spans {r.spans}, "
-                  f"micro-iterations {r.micro_iters} "
-                  f"({r.micro_iters / max(r.rounds, 1):.2f} per round, "
-                  f"{per:.3f} ms each in the loop), loop "
-                  f"{r.device_ms / 1e3:.3f}s (CUDA events) of span wall "
-                  f"{r.device_wall_ns / 1e9:.3f}s, aborts {r.aborts} "
-                  f"{r.abort_kind_counts()}, over caps {r.over_caps}; "
-                  f"export {r.export_bytes / 2**20:.1f} MiB in "
-                  f"{r.export_wall_ns / 1e9:.3f}s, import "
-                  f"{r.import_bytes / 2**20:.1f} MiB in "
-                  f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); "
-                  f"law kernel calls {r.calls_all.tolist()} (committed "
-                  f"{r.ks_calls.tolist()})", flush=True)
+            print_run(f"{tag} {run_name}:", r)
             print_residency(tag, r)
             print_stages(tag, r)
         if not summary.ok:
             raise AssertionError(f"{tag} plugin errors: "
                                  f"{summary.plugin_errors[:3]}")
-    off, dev = runs["off"], runs["force"]
-    so, sd, r = off["summary"], dev["summary"], dev["r"]
-    if off["digest"] != dev["digest"]:
-        raise AssertionError(f"{tag} trace sha256 differs between the C++ "
-                             f"run and the device-span run")
-    counters = [(s.events, s.packets_sent, s.packets_recv,
-                 s.packets_dropped, s.syscalls) for s in (so, sd)]
-    if counters[0] != counters[1]:
-        raise AssertionError(f"{tag} counters differ: {counters}")
-    if r is None or r.spans == 0 or r.aborts:
-        raise AssertionError(f"{tag} device spans {r and r.spans}, aborts "
-                             f"{r and r.aborts}")
-    if dev["tcp"] is not None and dev["tcp"].spans:
-        raise AssertionError(f"{tag} the TCP runner served a span")
-    if r.rounds < min_share * sd.rounds:
-        raise AssertionError(f"{tag} only {r.rounds}/{sd.rounds} rounds "
-                             f"on the device (< {min_share:.0%})")
-    if r.resident_hits < r.spans - 1 - r.stale_drops:
-        raise AssertionError(f"{tag} {r.resident_hits} resident hits over "
-                             f"{r.spans} spans ({r.stale_drops} stale)")
-    if name.startswith("mesh") and (r.family != 1
-                                    or sd.packets_dropped == 0):
-        raise AssertionError(f"{tag} family {r.family}, drops "
-                             f"{sd.packets_dropped}")
-    if codel and dev["codel"] == 0:
-        raise AssertionError(f"{tag} no CoDel drop")
+    off = runs["off"]
+    so = off["summary"]
+    if not off["digest"].startswith(DIGESTS[name]):
+        raise AssertionError(f"{tag} the C++ run's trace is not "
+                             f"{DIGESTS[name]}...")
+    if name in PREFIX_DIGESTS and not off["prefix"].startswith(
+            PREFIX_DIGESTS[name][1]):
+        raise AssertionError(f"{tag} the C++ run's trace before "
+                             f"{PREFIX_DIGESTS[name][0] / 1e9:g}s is not "
+                             f"{PREFIX_DIGESTS[name][1]}...")
     if any(off["launches"].values()):
         raise AssertionError(f"{tag} the C++ run launched {off['launches']}")
-    # The TCP relay kernels serve only the TCP family's relays.
-    for kname in ("relay1_law", "relay2_law"):
-        if dev["launches"][kname] != 0:
-            raise AssertionError(f"{tag} the PHOLD loop launched {kname} "
-                                 f"{dev['launches'][kname]} times")
-    fires = r.ks_fires
-    for i, (kname, most) in enumerate((
-            ("bucket_step", fires[ps.KS_INET_OUT] + fires[ps.KS_CODEL]),
-            ("codel_head", fires[ps.KS_CODEL]))):
-        n = dev["launches"][kname]
-        if n <= 0 or n != r.calls_all[i] or r.ks_calls[i] > most \
-                or (r.rolled_back_rounds == 0 and r.overlap_refusals == 0
-                    and n != r.ks_calls[i]):
-            raise AssertionError(
-                f"{tag} {kname} launched {n} times for {r.calls_all[i]} "
-                f"calls ({r.ks_calls[i]} committed), stage fires {most}")
-    print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds on "
-          f"the card, law kernels launched once per call "
-          f"({dev['launches']})", flush=True)
-    return dev["launches"]
+    for run_name, run in runs.items():
+        if run_name == "off":
+            continue
+        sd, r = run["summary"], run["r"]
+        rtag = f"{tag} {run_name}:"
+        if run["digest"] != off["digest"]:
+            raise AssertionError(f"{rtag} trace sha256 differs from the C++ "
+                                 f"run's")
+        counters = [(s.events, s.packets_sent, s.packets_recv,
+                     s.packets_dropped, s.syscalls) for s in (so, sd)]
+        if counters[0] != counters[1]:
+            raise AssertionError(f"{rtag} counters differ: {counters}")
+        if r is None or r.spans == 0 or r.aborts:
+            raise AssertionError(f"{rtag} device spans {r and r.spans}, "
+                                 f"aborts {r and r.aborts}")
+        if run["tcp"] is not None and run["tcp"].spans:
+            raise AssertionError(f"{rtag} the TCP runner served a span")
+        if r.rounds < min_share * sd.rounds:
+            raise AssertionError(f"{rtag} only {r.rounds}/{sd.rounds} "
+                                 f"rounds on the device "
+                                 f"(< {min_share:.0%})")
+        if r.resident_hits < r.spans - 1 - r.stale_drops:
+            raise AssertionError(f"{rtag} {r.resident_hits} resident hits "
+                                 f"over {r.spans} spans ({r.stale_drops} "
+                                 f"stale)")
+        if name.startswith("mesh") and (r.family != 1
+                                        or sd.packets_dropped == 0):
+            raise AssertionError(f"{rtag} family {r.family}, drops "
+                                 f"{sd.packets_dropped}")
+        if codel and run["codel"] != MESH_CODEL_DROPS:
+            raise AssertionError(f"{rtag} {run['codel']} CoDel drops, not "
+                                 f"{MESH_CODEL_DROPS}")
+        check_window_launches(rtag, r, run["launches"],
+                              kernel=run_name == "force")
+    print(f"{tag} PASS: one trace ({off['digest'][:16]}"
+          + (f"; before {PREFIX_DIGESTS[name][0] / 1e9:g}s "
+             f"{off['prefix'][:16]}" if name in PREFIX_DIGESTS else "")
+          + f") in "
+          f"{len(runs)} runs, {runs['force']['r'].rounds}/"
+          f"{runs['force']['summary'].rounds} rounds on the card, one "
+          f"window-kernel launch per window "
+          f"({runs['force']['launches']['phold_window']}); walls "
+          + ", ".join(f"{k} {v['wall']:.2f}s" for k, v in runs.items()),
+          flush=True)
+    return {name if k == "force" else f"{name}/{k}": v["launches"]
+            for k, v in runs.items() if k != "off"}
 
 
 class EpochWatch:
@@ -912,37 +1257,24 @@ class EpochWatch:
 
 
 def ring_runs() -> dict:
-    """Phase 5: phold-64k-ring (bench.py phold_rung's 64k rung: 65,536
-    LPs, ring peers 16, the ring caps; 1 Gbit, 5 ms, LPs start at
-    100 ms) run to 1.0 s instead of the rung's 0.15 s, the one change,
-    so that the device stretch takes three spans.  Three runs: spans off,
-    forced with `span_overlap: off` and forced with `auto`.  Returns each
-    run's launches of all four kernels, by path."""
+    """Phase 5: phold-64k-ring (ring_config) three times: spans off,
+    forced with `span_overlap: off` (residency alone, through the plain
+    window: the law kernels launched per relay pass) and forced with
+    `auto` (the overlap, every window one stt_phold_window launch).
+    Returns each run's launches of every kernel, by path."""
     import hashlib
 
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops.propagate import HOST_ONLY
-    from shadow_tpu_torch.tools.netgen import phold_yaml
+    from shadow_tpu_torch.ops.phold_window import eager_window
 
     tag = "[phold-64k-ring]"
-    t0 = time.perf_counter()
-    text = phold_yaml(H_RING, n_init=1, mean_delay_ns=20_000_000,
-                      stop_time="1.0s", seed=13, scheduler="tpu",
-                      peers_per_host=16)
-    base = parse_yaml(text)
-    print(f"{tag} {H_RING} LPs, stop_time 1.0s, caps {RING_CAPS}; YAML "
-          f"{len(text) / 2**20:.1f} MiB parsed in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
     wrappers = kernel_wrappers()
     runs = {}
     for name, spans, overlap in (("off", "off", "off"),
                                  ("residency", "force", "off"),
                                  ("overlap", "force", "auto")):
         t0 = time.perf_counter()
-        mgr = Manager(config_with(base, tpu_device_spans=spans,
-                                  span_overlap=overlap,
-                                  tpu_min_device_batch=HOST_ONLY),
-                      device="cuda")
+        mgr = Manager(ring_config(spans, overlap), device="cuda")
         watch = mgr.plane.engine = EpochWatch(mgr.plane.engine)
         r = None
         exports, stale_by = [], []
@@ -950,6 +1282,8 @@ def ring_runs() -> dict:
             r = mgr._dev_span = mgr.make_dev_span_runner()
             for k, v in RING_CAPS.items():
                 setattr(r, k, v)
+            if name != "overlap":
+                r.window_factory = eager_window
             export_state, try_span = r.export_state, r.try_span
 
             def counted_export(r=r, export_state=export_state,
@@ -995,21 +1329,10 @@ def ring_runs() -> dict:
               f"device memory {peak:.3f} GiB, launches {launches}",
               flush=True)
         if r is not None:
-            print(f"{tag} {name}: device spans {r.spans}, micro-iterations "
-                  f"{r.micro_iters} ({r.micro_iters / max(r.rounds, 1):.2f}"
-                  f" per round, {r.device_ms / max(r.micro_iters, 1):.3f} "
-                  f"ms each in the loop), loop {r.device_ms / 1e3:.3f}s "
-                  f"(CUDA events) of span wall {r.device_wall_ns / 1e9:.3f}s"
-                  f", aborts {r.aborts} {r.abort_kind_counts()}, over caps "
-                  f"{r.over_caps}; exports {len(exports)}: "
-                  f"{r.export_bytes / 2**20:.1f} MiB in "
-                  f"{r.export_wall_ns / 1e9:.3f}s (per export "
-                  f"{[round(b / 2**20, 1) for b in exports]} MiB), import "
-                  f"{r.import_bytes / 2**20:.1f} MiB in "
-                  f"{r.import_wall_ns / 1e9:.3f}s (engine call + codec); "
-                  f"law kernel calls {r.calls_all.tolist()} (committed "
-                  f"{r.ks_calls.tolist()}); stale drops named by "
-                  f"{stale_by}", flush=True)
+            print_run(f"{tag} {name}:", r)
+            print(f"{tag} {name}: exports {len(exports)} (per export "
+                  f"{[round(b / 2**20, 1) for b in exports]} MiB); stale "
+                  f"drops named by {stale_by}", flush=True)
             print_residency(f"{tag} {name}:", r)
             print_stages(f"{tag} {name}:", r)
         if not summary.ok:
@@ -1019,6 +1342,9 @@ def ring_runs() -> dict:
     so = off["summary"]
     if any(off["launches"].values()):
         raise AssertionError(f"{tag} the C++ run launched {off['launches']}")
+    if not off["digest"].startswith(DIGESTS["phold-64k-ring"]):
+        raise AssertionError(f"{tag} the C++ run's trace is not "
+                             f"{DIGESTS['phold-64k-ring']}...")
     for name in ("residency", "overlap"):
         run = runs[name]
         sd, r = run["summary"], run["r"]
@@ -1043,16 +1369,8 @@ def ring_runs() -> dict:
         if not run["exports"] \
                 or r.export_bytes >= 1.5 * max(run["exports"]):
             raise AssertionError(f"{tag} {name}: exports {run['exports']}")
-        for kname in ("relay1_law", "relay2_law"):
-            if run["launches"][kname]:
-                raise AssertionError(f"{tag} {name}: the PHOLD loop "
-                                     f"launched {kname}")
-        for i, kname in enumerate(("bucket_step", "codel_head")):
-            n = run["launches"][kname]
-            if n <= 0 or n != r.calls_all[i]:
-                raise AssertionError(
-                    f"{tag} {name}: {kname} launched {n} times for "
-                    f"{r.calls_all[i]} calls ({r.ks_calls[i]} committed)")
+        check_window_launches(f"{tag} {name}:", r, run["launches"],
+                              kernel=name == "overlap")
     ro, rr = runs["overlap"]["r"], runs["residency"]["r"]
     if ro.overlap_windows < 1 or ro.overlap_hits < 1:
         raise AssertionError(f"{tag} overlap: {ro.overlap_summary()}")
@@ -1177,12 +1495,14 @@ def propagate_run(tag: str, name: str, cfg) -> dict:
 
 def kernel_wrappers() -> dict:
     from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
     from shadow_tpu_torch.ops.propagate import PROPAGATE
     return {"bucket_step": queues.BUCKET_STEP,
             "codel_head": queues.CODEL_HEAD,
             "relay1_law": tcp_span.RELAY1_LAW,
             "relay2_law": tcp_span.RELAY2_LAW,
-            "propagate": PROPAGATE}
+            "propagate": PROPAGATE,
+            "phold_window": PHOLD_WINDOW}
 
 
 def check_forced(tag: str, run: dict) -> None:
@@ -1296,6 +1616,7 @@ def main(argv=None) -> int:
              for name in ("bucket_step", "codel_head")}
     relay_stats = check_relay_kernels()
     check_propagate()
+    window_stats = check_phold_window()
     by_path: dict = {}
     # The main path of the relay kernels: the 10,000-host stream.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
@@ -1315,7 +1636,8 @@ def main(argv=None) -> int:
     # The main path of the standalone law kernels: the PHOLD/udp-mesh
     # family, phold-8k first.
     for name, (make, share, codel) in phold_cells().items():
-        by_path[name] = phold_pair(name, make, share, codel)
+        by_path.update(phold_pair(name, make, share, codel,
+                                  plain_run=name == "phold-8k"))
     # The law kernels' main path: phold-64k-ring with residency and the
     # speculative overlap; then the overlap through the CLI.
     by_path.update(ring_runs())
@@ -1351,15 +1673,19 @@ def main(argv=None) -> int:
               f"the kernels line's row)", flush=True)
         stats[name] = dict(row, max_abs_err=max(
             relay_stats[(name, d)]["max_abs_err"] for d in DENSITIES))
+    # The window kernel's row: timed on the phold-64k-ring export.
+    stats["phold_window"] = window_stats["phold-64k-ring"]
     # `launches`: the count on each kernel's main path (tcp-stream-10k
-    # for the relay kernels, phold-64k-ring with the overlap for the law
-    # kernels); `launches_by_path`: every path's count, each zeroed just
-    # before its run.
-    ring = "phold-64k-ring/overlap"
-    main_path = {"bucket_step": ring, "codel_head": ring,
+    # for the relay kernels; phold-64k-ring with residency alone, through
+    # the plain window, for the law kernels; phold-64k-ring with the
+    # overlap for the window kernel); `launches_by_path`: every path's
+    # count, each zeroed just before its run.
+    main_path = {"bucket_step": "phold-64k-ring/residency",
+                 "codel_head": "phold-64k-ring/residency",
                  "relay1_law": "tcp-stream-10k",
                  "relay2_law": "tcp-stream-10k",
-                 "propagate": "tier10k/forced"}
+                 "propagate": "tier10k/forced",
+                 "phold_window": "phold-64k-ring/overlap"}
     # library_ms: no single PyTorch call computes any of these laws.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],

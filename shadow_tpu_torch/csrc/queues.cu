@@ -10,7 +10,10 @@
 // queue_laws.cuh, shared with the fused relay kernels (relay.cu), which
 // are what the span loop launches; these standalone kernels serve the
 // laws one launch each (chip_smoke.py holds them against their plain
-// versions).
+// versions).  The PHOLD/udp-mesh loop launches them only from its eager
+// window (ops/phold_span.py with `fused` off, or a `window_factory` that
+// makes no step): on the card's fused path its window is one stt_phold_window launch
+// (phold_window.cu), whose lanes call the same laws.
 //
 // Bound: both move every input once and write every output once and do
 // a handful of integer operations per lane, so they are bound by bytes.

@@ -33,11 +33,20 @@ the LCG, IPs) are int64 in [0, 2**32) with explicit masking; the
 lane is skipped (every stage is the identity on an empty mask); the
 inbox lexsort is three stable argsorts.
 
-The relays' token-bucket law and the inet-in relay's CoDel head law run
-through the standalone hand kernels (ops/queues.py, csrc/queues.cu) at
-the sites where the JAX code calls its Pallas kernels: on a CPU tensor
-each wrapper runs its plain law, on a CUDA tensor it launches its
-kernel or raises.
+On the card with the fused schedule, a round's window is one launch of
+the hand kernel `stt_phold_window` (ops/phold_window.py,
+csrc/phold_window.cu): one thread per host lane steps the lane through
+the same fused iterations (csrc/phold_lane.cuh), with the relays'
+token-bucket and CoDel-head laws (csrc/queue_laws.cuh) run in the lane,
+and the counters (micro-iterations, stage fires and lanes, law calls)
+come back from the kernel.  The eager window below (`window_plain`) is
+its plain version: the CPU runs it, and so does the card with `fused`
+off (the reference schedule, which only tests set) or with a
+`window_factory` that makes no step.  There the relays' laws run through the standalone hand kernels
+(ops/queues.py, csrc/queues.cu) at the sites where the JAX code calls
+its Pallas kernels: on a CPU tensor each wrapper runs its plain law, on
+a CUDA tensor it launches its kernel or raises.  The round end
+(propagation and the inbox merge) stays eager on every path.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
                                        threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
+from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
 from shadow_tpu_torch.ops.queues import (BUCKET_STEP, CODEL_HEAD,
                                          CODEL_INTERVAL_NS, CODEL_TARGET_NS,
                                          MTU, REFILL_NS)
@@ -258,6 +268,12 @@ class PholdSpanRunner(SpanMeshMixin):
         # Fused micro-op dispatch (default); False runs the one-micro-op-
         # per-iteration reference schedule (the differential's comparator).
         self.fused = True
+        # The window step.  None: one stt_phold_window launch a window on
+        # the card with the fused schedule, else the eager window.  A
+        # hook `window_factory(shape, params)` makes the step instead
+        # (the tests' host build of the lane law); a hook returning None
+        # keeps the eager window on the card (its plain version).
+        self.window_factory = None
         # Per-stage fires, lanes and host wall of committed spans (KS_*
         # slots), beside micro_iters (the trips they are bounded by).
         self.ks_fires = np.zeros(KS_N, np.int64)
@@ -267,6 +283,11 @@ class PholdSpanRunner(SpanMeshMixin):
         # committed spans, and of every dispatch (aborted ones too).
         self.ks_calls = np.zeros(2, np.int64)
         self.calls_all = np.zeros(2, np.int64)
+        # Window-kernel launches and their CUDA-event time (ms) of
+        # committed spans, and the launches of every dispatch.
+        self.ks_windows = 0
+        self.ks_window_ms = 0.0
+        self.windows_all = 0
         # Stage fires of every dispatch (aborted and refused ones too).
         self.fires_all = np.zeros(KS_N, np.int64)
         self._fn = None
@@ -460,12 +481,36 @@ class PholdSpanRunner(SpanMeshMixin):
     def _cached_build(self, P: int):
         """The built loop for peer width `P`, from the fn cache."""
         key = (self._H, P, self._caps(), self.cap_out, self.cap_tr,
-               self.tracing, self.family, self.fused, str(self.device))
+               self.tracing, self.family, self.fused, str(self.device),
+               self.window_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
+
+    def _window_step(self):
+        """The window step of a build: the hook's, else the kernel's on
+        the card with the fused schedule; None runs the eager window."""
+        factory = self.window_factory
+        if factory is None:
+            if not (self.fused and self.device.type == "cuda"):
+                return None
+            factory = PHOLD_WINDOW.bind
+        shape = {"n": self._H, "I": self.CAP_I, "T": self.CAP_T,
+                 "R": self.CAP_R, "S": self.CAP_S, "C": self.CAP_C,
+                 "asys": ASYS_N, "tel": TEL_N, "out": self.cap_out + 1,
+                 "tr": self.cap_tr + 1}
+        params = {"n": self._H, "cap_i": self.CAP_I, "cap_t": self.CAP_T,
+                  "cap_r": self.CAP_R, "cap_s": self.CAP_S,
+                  "cap_c": self.CAP_C, "cap_out": self.cap_out,
+                  "cap_tr": self.cap_tr, "tracing": int(self.tracing),
+                  "family": self.family}
+        return factory(shape, params)
 
     def _build(self):
         """Return `run(st, pay, start, stop, limit, runahead,
         max_rounds)`, the eager twin of the reference's jitted span loop.
+        Its parts hang on it: `run.prepare(st, pay)` makes a span's local
+        buffers, `run.window_plain(st, window_end)` steps one window
+        eagerly (the kernel's plain version) and `run.step` is the
+        build's window step (None: the eager window).
         `run` updates its input state in place (the reference's donation
         semantics), so a retry re-exports."""
         H = self._H
@@ -477,6 +522,7 @@ class PholdSpanRunner(SpanMeshMixin):
         family = self.family
         fused = self.fused
         dev = self.device
+        step = self._window_step()
         i64 = torch.int64
         hidx = torch.arange(H, dtype=i64, device=dev)
         where = torch.where
@@ -1239,6 +1285,27 @@ class PholdSpanRunner(SpanMeshMixin):
             ).tolist()
             return bool(go), n_due, n_tim
 
+        def window_plain(st, window_end) -> int:
+            """The eager window (the kernel's plain version): iterations
+            until no lane is busy or due, or an abort; returns their
+            count and credits the stage counters in `st`."""
+            it = 0
+            while True:
+                go, n_due, n_tim = micro_busy(st, window_end)
+                if not go:
+                    break
+                if fused:
+                    micro_iter_fused(st, window_end, n_due, n_tim)
+                else:
+                    micro_iter_unfused(st, window_end)
+                # runaway valve: a continuation-cycle bug must abort,
+                # not spin
+                if it > (1 << 22):
+                    st["abort_code"] = st["abort_code"] | AB_STRUCT
+                it += 1
+            th_memo[0] = None
+            return it
+
         # -------- round end: propagation + inbox merge ---------------
 
         ar_o = torch.arange(O, dtype=i64, device=dev)
@@ -1303,7 +1370,8 @@ class PholdSpanRunner(SpanMeshMixin):
 
         # -------- the multi-round loop -------------------------------
 
-        def run(st, pay, start, stop, limit, runahead, max_rounds):
+        def prepare(st, pay):
+            """A span's local buffers and counters, made anew in `st`."""
             z = torch.zeros((), dtype=i64, device=dev)
             st["_pay"] = torch.tensor(pay, dtype=i64, device=dev)
             st["_psize"] = torch.tensor(pay + 28, dtype=i64, device=dev)
@@ -1323,6 +1391,13 @@ class PholdSpanRunner(SpanMeshMixin):
             st["ks_lanes"] = np.zeros(KS_N, np.int64)
             st["ks_wall_s"] = np.zeros(KS_N)
             st["ks_calls"] = np.zeros(2, np.int64)
+            st["ks_windows"] = 0
+            st["ks_window_ms"] = 0.0
+
+        def run(st, pay, start, stop, limit, runahead, max_rounds):
+            prepare(st, pay)
+            if step is not None:
+                step.begin(st, pay)
 
             rounds = busy_rounds = packets = iters = 0
             busy_end = start
@@ -1330,21 +1405,10 @@ class PholdSpanRunner(SpanMeshMixin):
             while (rounds < max_rounds and start < limit and start < stop
                    and not aborted):
                 window_end = min(start + runahead, stop)
-                it = 0
-                while True:
-                    go, n_due, n_tim = micro_busy(st, window_end)
-                    if not go:
-                        break
-                    if fused:
-                        micro_iter_fused(st, window_end, n_due, n_tim)
-                    else:
-                        micro_iter_unfused(st, window_end)
-                    # runaway valve: a continuation-cycle bug must abort,
-                    # not spin
-                    if it > (1 << 22):
-                        st["abort_code"] = st["abort_code"] | AB_STRUCT
-                    it += 1
-                th_memo[0] = None
+                if step is None:
+                    iters += window_plain(st, window_end)
+                else:
+                    step(st, window_end)  # one launch, no host sync
                 n_out, min_lat = propagate(st, window_end)
                 ib_t, th_t = next_event_time(st)
                 # One sync per round for the round's scalars.
@@ -1358,11 +1422,19 @@ class PholdSpanRunner(SpanMeshMixin):
                 busy_rounds += int(n_out > 0)
                 packets += n_out
                 busy_end = window_end
-                iters += it
                 aborted = code != 0
+            if step is not None:
+                # The kernel's counts: the law calls are its lanes'.
+                got = step.end()
+                for k in ("fires", "lanes", "calls"):
+                    st[f"ks_{k}"] += got[k]
+                iters = got["iters"]
+                st["ks_windows"] = got["windows"]
+                st["ks_window_ms"] = got["window_ms"]
             return (st, start, runahead, rounds, busy_rounds, packets,
                     busy_end, iters)
 
+        run.prepare, run.window_plain, run.step = prepare, window_plain, step
         return run
 
     # ------------------------------------------------------------------

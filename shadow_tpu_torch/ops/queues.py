@@ -13,10 +13,11 @@ below; the standalone kernels here serve one law per launch.
   tests); `chip_smoke.py` holds the kernels against them on the card.
 - `BucketStep` / `CodelHead` are the wrappers, and `BUCKET_STEP` /
   `CODEL_HEAD` the one instance of each that the span runners share
-  (the PHOLD/udp-mesh relays call them; the TCP relays run the laws
-  inside their fused kernels).  For CUDA tensors they launch the kernel
-  or raise: there is no fallback.  Each keeps a plain integer launch
-  counter, bumped only where it launches its kernel.
+  (the PHOLD/udp-mesh relays call them in the eager window; the card's
+  fused PHOLD window runs the laws inside `stt_phold_window` and the TCP
+  relays inside their fused kernels).  For CUDA tensors they launch the
+  kernel or raise: there is no fallback.  Each keeps a plain integer
+  launch counter, bumped only where it launches its kernel.
 
 The kernels build at first use with nvcc for sm_90a into the gitignored
 `shadow_tpu_torch/csrc/build/` and bind through a plain C interface
@@ -85,15 +86,19 @@ class KernelLibrary:
     """One compiled kernel library: `source` in csrc/ (with the headers
     there) built once per process with nvcc, or found already built and
     newer than every source, and loaded with ctypes.  `declare(lib)`
-    sets the argument and result types of its C functions."""
+    sets the argument and result types of its C functions; `flags` are
+    added to nvcc's, and `log` keeps what nvcc printed."""
 
-    def __init__(self, source: str, name: str, declare, error_fn: str):
+    def __init__(self, source: str, name: str, declare, error_fn: str,
+                 flags: tuple = ()):
         self.source = source
         self.name = name
         self.declare = declare
         self.error_fn = error_fn
+        self.flags = tuple(flags)
         self.lib = None
         self.build_s = 0.0
+        self.log = ""
 
     def path(self) -> str:
         return os.path.join(BUILD_DIR, self.name)
@@ -119,9 +124,11 @@ class KernelLibrary:
                 nvcc = "nvcc"
             tmp = f"{out}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, *self.flags, "-o", tmp, src],
+                capture_output=True, text=True)
             self.build_s = time.perf_counter() - t0
+            self.log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src}:\n"
                                    f"{proc.stdout}\n{proc.stderr}")

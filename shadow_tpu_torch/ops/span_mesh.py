@@ -54,7 +54,8 @@ AB_EXCH = 8
 # never carried into the next span.
 SPAN_LOCAL = ("abort_", "tr_", "ks_", "out_")
 # Per-stage counters credited when a span commits.
-COMMIT_COUNTS = ("ks_fires", "ks_lanes", "ks_wall_s", "ks_calls")
+COMMIT_COUNTS = ("ks_fires", "ks_lanes", "ks_wall_s", "ks_calls",
+                 "ks_windows", "ks_window_ms")
 
 
 def snapshot(st: dict, keys, stream=None) -> dict:
@@ -254,10 +255,13 @@ class SpanMeshMixin:
     def _note_dispatch(self, st_out) -> None:
         """Launch counts of every dispatch, whatever its fate: stage
         fires (one relay-kernel launch each on the TCP loop) and, where
-        the loop counts them, the law-kernel calls."""
+        the loop counts them, the law calls and the window-kernel
+        launches."""
         self.fires_all += st_out["ks_fires"]
         if "ks_calls" in st_out:
             self.calls_all += st_out["ks_calls"]
+        if "ks_windows" in st_out:
+            self.windows_all += st_out["ks_windows"]
 
     def _span_call(self, fn, st, *args):
         """Dispatch the built span fn; returns (out, host wall ns) and

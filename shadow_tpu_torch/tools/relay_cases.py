@@ -265,7 +265,9 @@ def relay_case_state(H: int, *, seed: int, density: float, cq_cap: int,
 
 
 def clone_state(st: dict) -> dict:
-    return {k: v.clone() for k, v in st.items()}
+    """A copy of a span state: each tensor cloned, anything else kept."""
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in st.items()}
 
 
 def carried(law, out):
