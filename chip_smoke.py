@@ -5,9 +5,9 @@
 Six phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
-2. Build the engine and the three kernel libraries from this checkout
-   (in parallel), hold each kernel against its plain PyTorch version on
-   the card and time both:
+2. Build the engine and the kernel libraries from this checkout (in
+   parallel, one nvcc per source), hold each kernel against its plain
+   PyTorch version on the card and time both:
    - the standalone law kernels (stt_bucket_step, stt_codel_head) on
      adversarial integer inputs at H = 10,000, a ragged H = 10,001, a
      scalar `now`, and the PHOLD paths' shapes (scalar `size`):
@@ -29,52 +29,70 @@ Six phases; any failed check raises, so the script exits non-zero:
      CUDA graph (back to back on the card, the minima's fill included),
      host time per wrapper call, the plain version, and the bound from
      the bytes per packet and the matrices.
-   - the PHOLD/udp-mesh window kernel (stt_phold_window) on exported
-     span states of phold-8k, mesh-codel-10 (inside its CoDel stretch)
-     and phold-64k-ring: one window, then four rounds with their round
-     ends, through the kernel and through its plain version (the
-     runner's eager window) on copies of the same state: every state
-     column, the outbox and trace in canonical order, the stage fires
-     and lanes, the micro-iterations and the abort bits exactly equal;
-     the outbox cut to H + 2 slots gives AB_OUT both ways; card time per
-     launch (ten launches back to back in a CUDA graph, each on its own
-     fresh copy of the export), host time per wrapper call, the plain
-     window's time, the bound from the bytes the window must move (its
-     lanes' last busy/due test, the slots it dequeues and copies, the
-     words it changes), and nvcc's register and spill report.
+   - the PHOLD/udp-mesh window kernel (stt_phold_window) and span
+     kernel (stt_phold_span) on exported span states of phold-8k,
+     mesh-codel-10 (inside its CoDel stretch) and phold-64k-ring: one
+     window, then four rounds with the eager round ends, through the
+     window kernel, and whole spans of one and of four rounds through
+     the span kernel, each against its plain version (the runner's eager
+     loop) on copies of the same state: every state column, the outbox
+     and trace in canonical order, the stage fires and lanes, the
+     micro-iterations, the run's scalars and the abort bits exactly
+     equal; the outbox cut to H + 2 slots gives AB_OUT on every path
+     (phold-8k and the ring); the window kernel's card time per launch
+     (ten launches back to back in a CUDA graph, each on its own fresh
+     copy of the export), host time per wrapper call, the plain window's
+     time and the bound from the bytes the window must move (its lanes'
+     last busy/due test, the slots it dequeues and copies, the words it
+     changes); the span kernel's card time per one- and four-round span
+     and per round (single launches on fresh copies, the card asleep
+     while the host issues each), its host issue per launch, the plain loop's
+     four rounds, the bound from the bytes the four-round span must
+     move (each window's reads, each round end's packets and moved
+     entries, each changed word once), and its phase clocks; nvcc's
+     register and spill
+     report of both.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
-   port's Manager on the card, once with the C++ engine serving every
-   round (`tpu_device_spans: off`) and once with forced device spans,
-   and require identical traces, device spans, each relay kernel
+   port's Manager on the card with forced device spans, and require the
+   trace, packets and events that the C++ engine serving every round
+   (`tpu_device_spans: off`) gives (recorded in STREAM_10K for the
+   default stop time; run again for another), device spans, each relay kernel
    launched once per fire of its stage by the device run and the
    standalone law kernels never (their laws run inside the relay
    kernels); print the per-stage
    fire/lane counters and the wall of the router's one PHOLD probe.
-   Then the same stream at 16 hosts, where at least half the rounds
+   Then the same stream at 16 hosts, spans off and forced (the C++ run
+   in the same call), where at least half the rounds
    must run on the card, with the router's first window at 4 rounds
    so that the device stretch takes several spans.
 4. Run the PHOLD/udp-mesh family the same way, spans off and forced
-   (every window one stt_phold_window launch): phold-8k (the reference
+   (every span one stt_phold_span launch): phold-8k (the reference
    ladder's 8,192-LP rung), mesh-24 (the reference's 24-host paced
    udp-mesh, to the reference's own 30 s) and mesh-codel-10 (the
    reference's CoDel-active mesh, 60 s); phold-8k also forced through
-   the plain window.  Requires one trace per cell, the one it had
-   before the window kernel (DIGESTS; for mesh-24 also the lines
-   before 1 s, the earlier cut's trace: PREFIX_DIGESTS), spans with no
-   abort, >= 50% of rounds on the card, family 1 and drops for the
-   meshes (all 3,350 CoDel drops for mesh-codel-10); through the
-   kernel, one launch per window stepped in every dispatch and none of
-   the standalone law kernels; through the plain window, each law
-   kernel launched once per call the runner made, never more often
-   than the stages that call it fire, and no window kernel; the TCP
-   relay kernels never.  Prints the per-stage counters,
-   micro-iterations, the loop's wall, the windows' launch-to-end time,
-   the span codec's bytes and walls and the peak device memory.
+   the window kernel (one stt_phold_window launch a round, the eager
+   round ends) and through the plain window.  Requires one trace per
+   cell, the one it had before the PHOLD kernels (DIGESTS; for mesh-24
+   also the lines before 1 s, the earlier cut's trace: PREFIX_DIGESTS),
+   spans with no abort, >= 50% of rounds on the card, family 1 and
+   drops for the meshes (all 3,350 CoDel drops for mesh-codel-10);
+   through the span kernel, one launch per dispatch (aborted and
+   refused ones too), one read of the span's words per launch, every
+   committed round stepped inside the kernel and no window or law
+   kernel; through the window kernel, one launch per window stepped in
+   every dispatch and no span or law kernel; through the plain window,
+   each law kernel launched once per call the runner made, never more
+   often than the stages that call it fire, and no PHOLD kernel; the
+   TCP relay kernels never.  Prints the per-stage counters,
+   micro-iterations, the loop's wall, the spans' (or windows')
+   launch-to-end time, the span codec's bytes and walls and the peak
+   device memory.
 5. Run phold-64k-ring (the reference ladder's 65,536-LP ring-caps rung,
    to 1.0 s so that the device stretch takes three spans) three times:
    spans off, forced with `span_overlap: off` (residency alone, through
    the plain window) and forced with `span_overlap: auto` (on, on the
-   card, through the window kernel).  Requires the cell's trace in all
+   card, through the span kernel: the speculative spans launch on the
+   worker's stream).  Requires the cell's trace in all
    three runs, no abort, >= 50% of rounds on the card, resident hits on
    every span after the first (less stale drops, each named by the
    engine call that moved the epoch), the residency run's export bytes
@@ -137,13 +155,15 @@ REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "relay1_law": "shadow_tpu/ops/pallas_queues.py:80",
             "relay2_law": "shadow_tpu/ops/pallas_queues.py:119",
             "propagate": "shadow_tpu/ops/propagate.py:391",
-            "phold_window": "shadow_tpu/ops/phold_span.py:1675"}
+            "phold_window": "shadow_tpu/ops/phold_span.py:1675",
+            "phold_span": "shadow_tpu/ops/phold_span.py:1675"}
 SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "codel_head": "shadow_tpu_torch/csrc/queues.cu",
           "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
           "relay2_law": "shadow_tpu_torch/csrc/relay.cu",
           "propagate": "shadow_tpu_torch/csrc/propagate.cu",
-          "phold_window": "shadow_tpu_torch/csrc/phold_window.cu"}
+          "phold_window": "shadow_tpu_torch/csrc/phold_window.cu",
+          "phold_span": "shadow_tpu_torch/csrc/phold_span.cu"}
 # Each PHOLD-family cell's trace sha256 (its first 16 hex digits) as the
 # C++-only run and the device runs gave it before the window kernel: a
 # device run through the kernel must give the same trace.  mesh-24 runs
@@ -154,6 +174,12 @@ DIGESTS = {"phold-8k": "193df0b724ca82af", "mesh-24": "418a93e5434d900a",
            "mesh-codel-10": "465140a4129e63e7",
            "phold-64k-ring": "8a7e37bc1464a71e"}
 PREFIX_DIGESTS = {"mesh-24": (1_000_000_000, "7e888cfb90af5447")}
+# The 10,000-host stream's C++-only run (stream_results) by stop time,
+# as every earlier run of this script on the card gave it (PERF.md): its
+# ~100 s are not spent again on each run.
+STREAM_10K = {"1.25s": {"digest": "c235e5ef74032058", "lines": 21447834,
+                        "packets_sent": 10771536, "packets_dropped": 32988,
+                        "events": 19194042}}
 MESH_CODEL_DROPS = 3350  # every CoDel drop of mesh-codel-10's 60 s
 DENSITIES = (0.001, 0.1, 1.0)
 # stt_propagate: bytes per packet (in: src_node, dst_node i32, src_host,
@@ -193,7 +219,8 @@ def build_all():
     """The engine (make) and the kernel libraries (one nvcc per source),
     started together."""
     from shadow_tpu_torch.native import plane
-    from shadow_tpu_torch.ops import phold_window, propagate, queues, relay
+    from shadow_tpu_torch.ops import (phold_span_kernel, phold_window,
+                                      propagate, queues, relay)
     errs = []
     walls = {}
 
@@ -214,7 +241,8 @@ def build_all():
                          ("queues.cu", queues.LIBRARY.build),
                          ("relay.cu", relay.LIBRARY.build),
                          ("propagate.cu", propagate.LIBRARY.build),
-                         ("phold_window.cu", phold_window.LIBRARY.build))]
+                         ("phold_window.cu", phold_window.LIBRARY.build),
+                         ("phold_span.cu", phold_span_kernel.LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -229,11 +257,15 @@ def build_all():
           f"{walls['propagate.cu']:.1f}s (nvcc "
           f"{propagate.LIBRARY.build_s:.1f}s), phold_window.cu "
           f"{walls['phold_window.cu']:.1f}s (nvcc "
-          f"{phold_window.LIBRARY.build_s:.1f}s)", flush=True)
-    # nvcc -Xptxas=-v: the window kernel's registers, stack and spills.
-    for ln in phold_window.LIBRARY.log.splitlines():
-        if ln.strip():
-            print(f"[build] phold_window.cu: {ln.strip()}", flush=True)
+          f"{phold_window.LIBRARY.build_s:.1f}s), phold_span.cu "
+          f"{walls['phold_span.cu']:.1f}s (nvcc "
+          f"{phold_span_kernel.LIBRARY.build_s:.1f}s)", flush=True)
+    # nvcc -Xptxas=-v: the PHOLD kernels' registers, stack and spills.
+    for src, lib in (("phold_window.cu", phold_window.LIBRARY),
+                     ("phold_span.cu", phold_span_kernel.LIBRARY)):
+        for ln in lib.log.splitlines():
+            if ln.strip():
+                print(f"[build] {src}: {ln.strip()}", flush=True)
 
 
 def adversarial(H: int, seed: int = 7):
@@ -650,25 +682,69 @@ def window_graph_ms(fn, base: dict, pay: int, window_end: int,
     return out
 
 
-def check_phold_window() -> dict:
-    """Phase 2's stt_phold_window leg.  For each cell's export on the
-    card: one window through the kernel and through its plain version
-    (the runner's eager window) on copies of the same state, then four
-    rounds of each, round ends included; every state column, the outbox
-    and the trace in canonical order, ks_fires, ks_lanes, the
-    micro-iterations and the abort bits exactly equal.  phold-8k also
-    runs with the outbox cut to H + 2 slots: both abort with AB_OUT
-    alone.  Card time per launch (window_graph_ms), host time per
-    wrapper call, the plain window's time, and the bound from the bytes
-    one window must move (ops/phold_window.py window_need_bytes)."""
+def span_card_ms(fn, base: dict, pay: int, args: tuple, n: int) -> tuple:
+    """Card time and host issue of the built loop `fn`'s span step, one
+    launch at a time on a fresh copy of `base`: the card sleeps while the
+    host records the start event and issues the launch, so the event
+    pair holds the kernel alone (a cooperative launch is not captured in
+    a CUDA graph here), and the host clock around the launch call holds
+    its issue alone.  Returns (card ms, host issue ms) per launch, each
+    over `n` launches."""
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    card_ms, issue_ms = [], []
+    for _ in range(n):
+        c = clone_state(base)
+        fn.prepare(c, pay)
+        fn.span.begin(c, pay)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        t0 = time.perf_counter()
+        fn.span.launch(c, *args)
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        e1.synchronize()
+        card_ms.append(e0.elapsed_time(e1))
+        del c
+    return card_ms, issue_ms
+
+
+def check_phold_window() -> tuple:
+    """Phase 2's PHOLD legs: stt_phold_window and stt_phold_span.  For
+    each cell's export on the card, copies of the same state through the
+    kernels and through their plain version (the runner's eager loop:
+    the eager window, then the eager round end):
+
+    - the window kernel: one window, then four rounds with the eager
+      round ends between the windows;
+    - the span kernel: whole spans of one and of four rounds;
+
+    every state column, the outbox and the trace in canonical order,
+    ks_fires, ks_lanes, the micro-iterations, the run's scalars (start,
+    runahead, rounds, busy rounds, packets, busy end) and the abort bits
+    exactly equal.  With the outbox cut to H + 2 slots (phold-8k and
+    phold-64k-ring) the plain loop and both kernels abort with AB_OUT
+    alone.  Times: the window kernel per launch (window_graph_ms) and
+    per wrapper call, the plain window, the bound from the bytes one
+    window must move (ops/phold_window.py window_need_bytes); the span
+    kernel per four-round span and per round (span_card_ms), its host
+    issue per launch, the plain loop's four rounds, the bound from the
+    bytes the four rounds must move (ops/phold_span_kernel.py
+    span_need_bytes, from the plain loop and the span kernel's operand
+    table: each window's reads, each round end's packets and moved
+    entries, the span's changed words once), and the span's phase
+    clocks.  Returns (window rows, span rows) by cell."""
     from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops import phold_span_kernel as pks
     from shadow_tpu_torch.ops import phold_window as pw
     from shadow_tpu_torch.ops.span_mesh import AB_OUT
     from shadow_tpu_torch.tools.relay_cases import clone_state
     from shadow_tpu_torch.tools.window_cases import (capture_export,
                                                      device_state,
                                                      window_mismatch)
-    stats = {}
+    stats, span_stats = {}, {}
     for name, (cfg, nth, caps) in window_cells().items():
         tag = f"[window {name}]"
         t0 = time.perf_counter()
@@ -679,11 +755,16 @@ def check_phold_window() -> dict:
         del st_np
         we = min(start + runahead, stop)
 
-        def build(kernel: bool):
-            runner.window_factory = None if kernel else pw.eager_window
+        def build(path: str):
+            # "plain": the eager loop; "window": the window kernel and
+            # the eager round ends; "span": the span kernel.
+            runner.window_factory = {"plain": pw.eager_window,
+                                     "window": pw.PHOLD_WINDOW.bind,
+                                     "span": None}[path]
             return runner._build()
 
-        plain, kern = build(False), build(True)
+        plain, kern, span = build("plain"), build("window"), build("span")
+        assert span.span is not None and kern.step is not None
         print(f"{tag} export {nth} at {start / 1e9:.4f}s ({H} lanes, "
               f"window {runahead / 1e6:.3f} ms) in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -712,37 +793,47 @@ def check_phold_window() -> dict:
         lanes = got["lanes"]
         need = pw.window_need_bytes(kern.step.table.ops, before, b)
         del a, b, before
-        # Four rounds each way, the round ends between the windows.
-        outs = []
-        for fn in (plain, kern):
-            outs.append(fn(clone_state(base), pay, start, stop, limit,
-                           runahead, 4))
-        (ra, *rest_a), (rb, *rest_b) = outs
-        bad = window_mismatch(ra, rb) + [
-            k for k in ("ks_fires", "ks_lanes")
-            if not np.array_equal(ra[k], rb[k])]
-        if bad or rest_a != rest_b or rest_a[2] < 2 \
-                or int(ra["abort_code"]) or rb["ks_windows"] != rest_a[2]:
-            raise AssertionError(f"{tag} four rounds: {bad} differ, "
-                                 f"{rest_a} vs {rest_b}, windows "
-                                 f"{rb['ks_windows']}")
-        codel = int((rb["codel_dropped"] - base["codel_dropped"]).sum())
+        # Spans of one and four rounds: the plain loop, then the window
+        # kernel (four rounds) and the span kernel against it.
+        args = {mr: (start, stop, limit, runahead, mr) for mr in (1, 4)}
+        want = {mr: plain(clone_state(base), pay, *args[mr])
+                for mr in (1, 4)}
+        runs = [("window kernel", 4, kern(clone_state(base), pay,
+                                          *args[4]))]
+        runs += [("span kernel", mr, span(clone_state(base), pay,
+                                          *args[mr])) for mr in (1, 4)]
+        for what, mr, (rb, *rest_b) in runs:
+            ra, *rest_a = want[mr]
+            bad = window_mismatch(ra, rb) + [
+                k for k in ("ks_fires", "ks_lanes")
+                if not np.array_equal(ra[k], rb[k])]
+            if bad or rest_a != rest_b or rest_a[2] != mr \
+                    or int(ra["abort_code"]) or int(rb["abort_code"]) \
+                    or rb["ks_windows"] != mr:
+                raise AssertionError(f"{tag} {what}, {mr} rounds: {bad} "
+                                     f"differ, {rest_a} vs {rest_b}, "
+                                     f"windows {rb['ks_windows']}")
+        ra, *rest_a = want[4]
+        codel = int((ra["codel_dropped"] - base["codel_dropped"]).sum())
         if name == "mesh-codel-10" and codel == 0:
             raise AssertionError(f"{tag} no CoDel drop in four rounds")
-        del outs, ra, rb
-        if name == "phold-8k":
+        span_rounds = rest_a[2]
+        del want, runs, ra
+        if name != "mesh-codel-10":
             # One forced overflow: the outbox cut to H + 2 slots.
             cap = runner.cap_out
             runner.cap_out = H + 2
-            codes = [int(fn(clone_state(base), pay, start, stop, limit,
-                            runahead, 4)[0]["abort_code"])
-                     for fn in (build(False), build(True))]
+            codes = [int(build(path)(clone_state(base), pay,
+                                     *args[4])[0]["abort_code"])
+                     for path in ("plain", "window", "span")]
             runner.cap_out = cap
-            if codes != [AB_OUT, AB_OUT]:
+            if codes != [AB_OUT] * 3:
                 raise AssertionError(f"{tag} outbox overflow: abort bits "
-                                     f"{codes} (plain, kernel)")
-            print(f"{tag} outbox cut to H + 2: both abort with bits "
-                  f"{codes[0]}", flush=True)
+                                     f"{codes} (plain, window, span)")
+            print(f"{tag} outbox cut to H + 2: plain, window and span "
+                  f"kernel all abort with bits {codes[0]}", flush=True)
+            plain, kern, span = (build("plain"), build("window"),
+                                 build("span"))
         ms = window_graph_ms(kern, base, pay, we, 10)
         call, ms_call = [], []
         for _ in range(5):
@@ -755,19 +846,21 @@ def check_phold_window() -> dict:
             call.append(time.perf_counter() - t1)
             ms_call.append(kern.step.end()["window_ms"])
             del c
-        pms = []
+        pms, span_pms = [], []
         for _ in range(2):
-            c = clone_state(base)
-            plain.prepare(c, pay)
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            plain.window_plain(c, we)
-            e1.record()
-            e1.synchronize()
-            pms.append(e0.elapsed_time(e1))
-            del c
+            for fn, out in ((lambda c: plain.window_plain(c, we), pms),
+                            (lambda c: plain(c, pay, *args[4]), span_pms)):
+                c = clone_state(base)
+                plain.prepare(c, pay)
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn(c)
+                e1.record()
+                e1.synchronize()
+                out.append(e0.elapsed_time(e1))
+                del c
         nbytes = need["total"]
         row = {"ms": float(np.median(ms)), "graph_ms": float(np.median(ms)),
                "ms_min": min(ms), "ms_max": max(ms),
@@ -776,10 +869,10 @@ def check_phold_window() -> dict:
                "bound_ms": nbytes / BANDWIDTH * 1e3, "bytes": nbytes,
                "max_abs_err": 0, "iters": it, "H": H, "lanes": lanes}
         stats[name] = row
-        print(f"{tag} exact: one window ({it} micro-iterations; fires "
-              f"{got['fires'].tolist()}, lanes {lanes.tolist()}, law "
-              f"calls {got['calls'].tolist()}; outbox {n_out}, trace "
-              f"{n_tr}) and four rounds ({rest_a[2]} windows, "
+        print(f"{tag} window kernel exact: one window ({it} "
+              f"micro-iterations; fires {got['fires'].tolist()}, lanes "
+              f"{lanes.tolist()}, law calls {got['calls'].tolist()}; "
+              f"outbox {n_out}, trace {n_tr}) and four rounds ("
               f"{rest_a[-1]} micro-iterations, {codel} CoDel drops); "
               f"{row['ms'] * 1e3:.3f} us per launch on the card (CUDA "
               f"graph of 10, fresh state each; median of 3 replays, "
@@ -791,10 +884,53 @@ def check_phold_window() -> dict:
               + ", ".join(f"{k} {v}" for k, v in need.items()
                           if k != "total") + ")",
               flush=True)
-        del base, plain, kern, runner
+        # The span kernel's times (one and four rounds), bound and phase
+        # clocks (four rounds).
+        card1, _ = span_card_ms(span, base, pay, args[1], 5)
+        card, issue = span_card_ms(span, base, pay, args[4], 5)
+        c = clone_state(base)
+        span.prepare(c, pay)
+        got = span.span(c, pay, *args[4])
+        del c
+        sneed = pks.span_need_bytes(plain, span.span.table.ops,
+                                    clone_state(base), pay, *args[4])
+        clk = got["clocks"]
+        srow = {"ms": float(np.median(card)), "ms_min": min(card),
+                "ms_max": max(card), "rounds": span_rounds,
+                "ms_per_round": float(np.median(card)) / span_rounds,
+                "ms_1_round": float(np.median(card1)),
+                "call_ms": float(np.median(issue)),
+                "launch_to_end_ms": got["span_ms"],
+                "plain_ms": float(np.median(span_pms)),
+                "bound_ms": sneed["total"] / BANDWIDTH * 1e3,
+                "bytes": sneed["total"], "bound_parts": sneed,
+                "max_abs_err": 0, "H": H, "clocks": clk,
+                "blocks": span.span.blocks}
+        span_stats[name] = srow
+        share = {k: clk[k] / max(clk["span"], 1)
+                 for k in ("window", "propagate", "settle", "wait")}
+        print(f"{tag} span kernel exact: spans of 1 and 4 rounds "
+              f"({rest_a[-1]} micro-iterations in 4); "
+              f"{srow['ms'] * 1e3:.3f} us per 4-round span on the card "
+              f"({srow['ms_per_round'] * 1e3:.3f} us a round; median of "
+              f"5 launches on fresh copies, {srow['ms_min'] * 1e3:.3f}-"
+              f"{srow['ms_max'] * 1e3:.3f}; a 1-round span "
+              f"{srow['ms_1_round'] * 1e3:.3f} us), host issue "
+              f"{srow['call_ms'] * 1e3:.1f} us per launch, launch to end "
+              f"{got['span_ms'] * 1e3:.1f} us; {srow['blocks']} blocks of "
+              f"64; plain loop {srow['plain_ms']:.3f} ms; bound "
+              f"{srow['bound_ms'] * 1e3:.3f} us by bytes "
+              f"({sneed['total']} B: window reads {sneed['window']}, "
+              f"round ends {sneed['round_end']}, changed words "
+              f"{sneed['state']}); phase clocks (cycles: each phase "
+              f"to its barrier's exit, wait the part inside the barriers) "
+              f"{clk}, shares of the span "
+              + ", ".join(f"{k} {v:.3f}" for k, v in share.items()),
+              flush=True)
+        del base, plain, kern, span, runner
         gc.collect()
         torch.cuda.empty_cache()
-    return stats
+    return stats, span_stats
 
 
 def log_spans(mgr) -> None:
@@ -815,12 +951,15 @@ def log_spans(mgr) -> None:
 
 
 def stream_pair(n_hosts: int, stop_time: str, min_share: float,
-                k_init: int | None = None):
+                k_init: int | None = None, reference: dict | None = None):
     """The tgen TCP bulk stream (tools/span_loop_bench.stream_config)
     through the port's Manager on the card, once with the C++ engine
     serving every round and once with forced device spans (the router's
-    first window `k_init` rounds where given).  Requires identical
-    traces, packets and events, a device span, at least `min_share` of
+    first window `k_init` rounds where given); with a `reference` (the
+    C++ run's trace digest, lines, packets and events, as
+    stream_results gives them, recorded from earlier runs) the C++ run
+    is not repeated.  Requires identical results, a device span, at
+    least `min_share` of
     the rounds on the card, a resident hit on every span after the
     first (less stale drops), each relay kernel launched once per fire
     of its stage and the standalone law kernels never.  Returns the
@@ -835,7 +974,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     print(f"{tag} {n_hosts} hosts ({max(1, n_hosts // 8)} tgen servers), "
           f"stop_time {stop_time}", flush=True)
     runs = {}
-    for spans in ("off", "force"):
+    for spans in ("off", "force")[reference is not None:]:
         cfg = stream_config(n_hosts, stop_time, spans)
         if k_init is not None:
             cfg.experimental.dev_span_k_init = k_init
@@ -844,8 +983,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
             log_spans(mgr)
         wrappers = kernel_wrappers()
         # Counts cover this run only: zeroed just before it.
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts(wrappers)
         # Earlier runs' span state (held in reference cycles) freed first.
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
@@ -879,15 +1017,17 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
         if not summary.ok:
             raise AssertionError(f"plugin errors: "
                                  f"{summary.plugin_errors[:3]}")
-    off, dev = runs["off"], runs["force"]
-    so, sd = off["summary"], dev["summary"]
-    r = dev["runner"]
-    if off["digest"] != dev["digest"]:
-        raise AssertionError(f"{tag} trace sha256 differs between the C++ "
-                             f"run and the device-span run")
-    if (so.packets_sent, so.packets_dropped, so.events) != \
-            (sd.packets_sent, sd.packets_dropped, sd.events):
-        raise AssertionError(f"{tag} packets/events differ between runs")
+    dev = runs["force"]
+    sd, r = dev["summary"], dev["runner"]
+    if reference is None:
+        reference = stream_results(runs["off"])
+    else:
+        print(f"{tag} the C++ engine's results, recorded: {reference}",
+              flush=True)
+    if stream_results(dev) != reference:
+        raise AssertionError(f"{tag} the device-span run's results "
+                             f"{stream_results(dev)} differ from the C++ "
+                             f"engine's {reference}")
     if r is None or r.spans == 0 or r.rounds == 0:
         raise AssertionError(f"{tag} no device span ran")
     if r.rounds < min_share * sd.rounds:
@@ -907,8 +1047,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                                  f"times for {fires_all} fires of its "
                                  f"stage ({fires} committed)")
     # The laws run inside the relay kernels: the span loop launches no
-    # standalone law kernel (nor the PHOLD window kernel).
-    for name in ("bucket_step", "codel_head", "phold_window"):
+    # standalone law kernel (nor a PHOLD kernel).
+    for name in ("bucket_step", "codel_head", "phold_window", "phold_span"):
         if launches[name] != 0:
             raise AssertionError(f"{tag} the span loop launched {name} "
                                  f"{launches[name]} times")
@@ -926,6 +1066,15 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     return launches, lanes
 
 
+def stream_results(run: dict) -> dict:
+    """What a stream run must agree on: its trace's digest (16 hex
+    digits) and lines, its packets and its events."""
+    s = run["summary"]
+    return {"digest": run["digest"][:16], "lines": run["lines"],
+            "packets_sent": s.packets_sent,
+            "packets_dropped": s.packets_dropped, "events": s.events}
+
+
 def print_residency(tag, r) -> None:
     """The runner's residency and speculative-overlap counters."""
     print(f"{tag} residency: resident hits {r.resident_hits}, stale drops "
@@ -938,11 +1087,12 @@ def print_stages(tag, r) -> None:
     """The runner's per-stage counters over its committed spans: fires,
     lanes, lanes per fire, and host wall from each guard's sync to the
     end of the stage's issue (so the kernels' device time hides in the
-    next sync).  Through the PHOLD window kernel the stages have no
-    host wall of their own: the windows' launch-to-end time stands for
-    them."""
+    next sync).  Through the PHOLD kernels the stages have no host wall
+    of their own: the windows' or the spans' launch-to-end time stands
+    for them."""
     from shadow_tpu_torch.ops.tcp_span import KS_NAMES
     windows = getattr(r, "ks_windows", 0)
+    spans = getattr(r, "ks_spans", 0)
     if not r.ks_wall_s.sum() and not windows:
         return
     print(f"{tag} stages over {r.micro_iters} micro-iterations "
@@ -953,7 +1103,11 @@ def print_stages(tag, r) -> None:
         if f:
             print(f"{tag}   {name}: {f}, {n}, {n / f:.1f}, {w:.3f}, "
                   f"{w / f * 1e3:.3f}", flush=True)
-    if windows:
+    if spans:
+        print(f"{tag} span kernel launch-to-end {r.ks_span_ms / 1e3:.3f}s"
+              f" over {spans} spans ({windows} rounds) of "
+              f"{r.device_ms / 1e3:.3f}s loop", flush=True)
+    elif windows:
         print(f"{tag} window kernel launch-to-end {r.ks_window_ms / 1e3:.3f}s"
               f" over {windows} windows of {r.device_ms / 1e3:.3f}s loop",
               flush=True)
@@ -1032,34 +1186,47 @@ def phold_cells() -> dict:
             "mesh-codel-10": (mesh_codel_10, 0.5, "drops")}
 
 
-def check_window_launches(tag: str, r, launches: dict, kernel: bool):
-    """A forced PHOLD-family run's launch gates.  Through the window
-    kernel: one stt_phold_window launch per window stepped in every
-    dispatch (aborted and refused ones too), one per round in the
-    committed spans, and no standalone law kernel.  Through the plain
-    window: each law kernel launched exactly once per call the runner
-    made, and no window kernel.  Never a TCP relay kernel."""
+def check_window_launches(tag: str, r, launches: dict, path: str,
+                          host_reads: int = 0):
+    """A forced PHOLD-family run's launch gates, by the run's path.
+    "span" (the main path): one stt_phold_span launch per dispatch
+    (aborted and refused ones too), each span's words read once, the
+    committed spans' rounds all stepped inside the kernel, and no window
+    or standalone law kernel.  "window": one stt_phold_window launch per
+    window stepped in every dispatch, one per round in the committed
+    spans, and no span or law kernel.  "plain" (the eager window): each
+    law kernel launched exactly once per call the runner made, and no
+    window or span kernel.  Never a TCP relay kernel."""
     for kname in ("relay1_law", "relay2_law"):
         if launches[kname]:
             raise AssertionError(f"{tag} the PHOLD loop launched {kname} "
                                  f"{launches[kname]} times")
-    if kernel:
+    others = {"span": ("phold_window", "bucket_step", "codel_head"),
+              "window": ("phold_span", "bucket_step", "codel_head"),
+              "plain": ("phold_span", "phold_window")}[path]
+    for kname in others:
+        if launches[kname]:
+            raise AssertionError(f"{tag} {kname} launched "
+                                 f"{launches[kname]} times on the {path} "
+                                 f"path")
+    if path == "span":
+        n = launches["phold_span"]
+        if n <= 0 or n != r.spans_all or host_reads != n \
+                or r.ks_spans != r.spans or r.ks_windows != r.rounds:
+            raise AssertionError(
+                f"{tag} phold_span launched {n} times ({host_reads} host "
+                f"reads) for {r.spans_all} dispatches ({r.ks_spans} "
+                f"committed of {r.spans} spans; {r.ks_windows} rounds "
+                f"inside of {r.rounds})")
+        return
+    if path == "window":
         n = launches["phold_window"]
         if n <= 0 or n != r.windows_all or r.ks_windows != r.rounds:
             raise AssertionError(f"{tag} phold_window launched {n} times "
                                  f"for {r.windows_all} windows "
                                  f"({r.ks_windows} committed, {r.rounds} "
                                  f"rounds)")
-        for kname in ("bucket_step", "codel_head"):
-            if launches[kname]:
-                raise AssertionError(f"{tag} {kname} launched "
-                                     f"{launches[kname]} times beside the "
-                                     f"window kernel")
         return
-    if launches["phold_window"]:
-        raise AssertionError(f"{tag} the plain window launched "
-                             f"phold_window {launches['phold_window']} "
-                             f"times")
     from shadow_tpu_torch.ops import phold_span as ps
     fires = r.ks_fires
     for i, (kname, most) in enumerate((
@@ -1077,13 +1244,23 @@ def check_window_launches(tag: str, r, launches: dict, kernel: bool):
 def print_run(tag, r) -> None:
     """A forced PHOLD-family run's loop: dispatches, micro-iterations,
     the loop's wall (CUDA events around each dispatch) and, through the
-    window kernel, the windows' launch-to-end time (CUDA events just
-    before each launch call and after it: card time plus the launch's
-    host issue) and the rest (round ends and the span's set-up), the
-    codec's bytes and walls, law calls."""
+    span kernel, the spans' launch-to-end time (CUDA events just before
+    each launch call and after it: card time plus the launch's host
+    issue) and the rest (the span's set-up and its one read); through
+    the window kernel, the windows' launch-to-end time and the rest
+    (round ends and the span's set-up); the codec's bytes and walls, law
+    calls."""
     per = r.device_ms / max(r.micro_iters, 1)
     kern = ""
-    if r.ks_windows:
+    if r.ks_spans:
+        kern = (f"; span kernel {r.ks_spans} launches ({r.spans_all} over "
+                f"every dispatch) stepping {r.ks_windows} rounds, "
+                f"{r.ks_span_ms / 1e3:.3f}s launch to end "
+                f"({r.ks_span_ms / r.ks_spans * 1e3:.1f} us a span, "
+                f"{r.ks_span_ms / max(r.ks_windows, 1) * 1e3:.1f} us a "
+                f"round), set-up and read "
+                f"{(r.device_ms - r.ks_span_ms) / 1e3:.3f}s")
+    elif r.ks_windows:
         kern = (f"; window kernel {r.ks_windows} launches, "
                 f"{r.ks_window_ms / 1e3:.3f}s launch to end "
                 f"({r.ks_window_ms / r.ks_windows * 1e3:.1f} us each), "
@@ -1104,11 +1281,12 @@ def print_run(tag, r) -> None:
 
 
 def phold_pair(name: str, make, min_share: float, codel,
-               plain_run: bool = False) -> dict:
+               side_runs: bool = False) -> dict:
     """One PHOLD/udp-mesh cell through the port's Manager on the card:
-    spans off, forced (every window one stt_phold_window launch) and,
-    with `plain_run`, forced through the plain window (the law kernels
-    launched per relay pass).  Requires one trace in every run, equal to
+    spans off, forced (every span one stt_phold_span launch) and, with
+    `side_runs`, forced through the window kernel ("window": one
+    stt_phold_window launch a round, eager round ends) and through the
+    plain window ("plain": the law kernels launched per relay pass).  Requires one trace in every run, equal to
     the cell's digest from before the window kernel (DIGESTS), equal
     counters, device spans with no abort, `min_share` of the rounds on
     the card, family 1 with drops for the meshes (every CoDel drop where
@@ -1118,22 +1296,23 @@ def phold_pair(name: str, make, min_share: float, codel,
     import hashlib
 
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops.phold_window import eager_window
+    from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW, eager_window
 
     tag = f"[{name}]"
     wrappers = kernel_wrappers()
     runs = {}
-    for run_name in ("off", "force") + (("plain",) if plain_run else ()):
+    factories = {"window": PHOLD_WINDOW.bind, "plain": eager_window}
+    for run_name in ("off", "force") + (("window", "plain") if side_runs
+                                        else ()):
         spans = "off" if run_name == "off" else "force"
         t0 = time.perf_counter()
         mgr = Manager(make(spans), device="cuda")
-        if run_name == "plain":
+        if run_name in factories:
             mgr._dev_span = mgr.make_dev_span_runner()
-            mgr._dev_span.window_factory = eager_window
+            mgr._dev_span.window_factory = factories[run_name]
         build_s = time.perf_counter() - t0
         # Counts cover this run only: zeroed just before it.
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts(wrappers)
         # Earlier runs' span state (held in reference cycles) freed first.
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
@@ -1142,6 +1321,7 @@ def phold_pair(name: str, make, min_share: float, codel,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        host_reads = wrappers["phold_span"].host_reads
         lines = mgr.trace_lines()
         digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
         r = mgr._dev_span
@@ -1151,8 +1331,8 @@ def phold_pair(name: str, make, min_share: float, codel,
             ln for ln in lines if int(ln.split(" ", 1)[0]) < cut
         ).encode()).hexdigest()
         runs[run_name] = dict(summary=summary, r=r, launches=launches,
-                              digest=digest, prefix=prefix,
-                              codel=codel_drops,
+                              host_reads=host_reads, digest=digest,
+                              prefix=prefix, codel=codel_drops,
                               tcp=mgr._dev_span_tcp, wall=wall)
         print(f"{tag} {run_name}: {len(mgr.hosts)} hosts, rounds "
               f"{summary.rounds} (device {r.rounds if r else 0}), events "
@@ -1216,15 +1396,16 @@ def phold_pair(name: str, make, min_share: float, codel,
             raise AssertionError(f"{rtag} {run['codel']} CoDel drops, not "
                                  f"{MESH_CODEL_DROPS}")
         check_window_launches(rtag, r, run["launches"],
-                              kernel=run_name == "force")
+                              "span" if run_name == "force" else run_name,
+                              run["host_reads"])
     print(f"{tag} PASS: one trace ({off['digest'][:16]}"
           + (f"; before {PREFIX_DIGESTS[name][0] / 1e9:g}s "
              f"{off['prefix'][:16]}" if name in PREFIX_DIGESTS else "")
           + f") in "
           f"{len(runs)} runs, {runs['force']['r'].rounds}/"
           f"{runs['force']['summary'].rounds} rounds on the card, one "
-          f"window-kernel launch per window "
-          f"({runs['force']['launches']['phold_window']}); walls "
+          f"span-kernel launch per dispatch "
+          f"({runs['force']['launches']['phold_span']}); walls "
           + ", ".join(f"{k} {v['wall']:.2f}s" for k, v in runs.items()),
           flush=True)
     return {name if k == "force" else f"{name}/{k}": v["launches"]
@@ -1260,8 +1441,9 @@ def ring_runs() -> dict:
     """Phase 5: phold-64k-ring (ring_config) three times: spans off,
     forced with `span_overlap: off` (residency alone, through the plain
     window: the law kernels launched per relay pass) and forced with
-    `auto` (the overlap, every window one stt_phold_window launch).
-    Returns each run's launches of every kernel, by path."""
+    `auto` (the overlap, every span one stt_phold_span launch, the
+    speculative ones on the worker's stream).  Returns each run's
+    launches of every kernel, by path."""
     import hashlib
 
     from shadow_tpu_torch.core.manager import Manager
@@ -1303,8 +1485,7 @@ def ring_runs() -> dict:
             r.export_state, r.try_span = counted_export, named_try
         build_s = time.perf_counter() - t0
         # Counts cover this run only: zeroed just before it.
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts(wrappers)
         # Earlier runs' span state (held in reference cycles) freed first.
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
@@ -1313,12 +1494,13 @@ def ring_runs() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        host_reads = wrappers["phold_span"].host_reads
         lines = mgr.trace_lines()
         digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
         peak = torch.cuda.max_memory_allocated() / 2**30
         runs[name] = dict(summary=summary, r=r, launches=launches,
-                          digest=digest, exports=exports,
-                          stale_by=stale_by, wall=wall)
+                          host_reads=host_reads, digest=digest,
+                          exports=exports, stale_by=stale_by, wall=wall)
         print(f"{tag} {name}: spans={spans} span_overlap={overlap} "
               f"(resolved {mgr._span_overlap_on()}): rounds "
               f"{summary.rounds} (device {r.rounds if r else 0}), events "
@@ -1370,7 +1552,8 @@ def ring_runs() -> dict:
                 or r.export_bytes >= 1.5 * max(run["exports"]):
             raise AssertionError(f"{tag} {name}: exports {run['exports']}")
         check_window_launches(f"{tag} {name}:", r, run["launches"],
-                              kernel=name == "overlap")
+                              "span" if name == "overlap" else "plain",
+                              run["host_reads"])
     ro, rr = runs["overlap"]["r"], runs["residency"]["r"]
     if ro.overlap_windows < 1 or ro.overlap_hits < 1:
         raise AssertionError(f"{tag} overlap: {ro.overlap_summary()}")
@@ -1448,8 +1631,7 @@ def propagate_run(tag: str, name: str, cfg) -> dict:
     mgr = Manager(cfg, device="cuda")
     build_s = time.perf_counter() - t0
     wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts(wrappers)
     wrappers["propagate"].probe_launches = 0
     gc.collect()
     t0 = time.perf_counter()
@@ -1495,6 +1677,7 @@ def propagate_run(tag: str, name: str, cfg) -> dict:
 
 def kernel_wrappers() -> dict:
     from shadow_tpu_torch.ops import queues, tcp_span
+    from shadow_tpu_torch.ops.phold_span_kernel import PHOLD_SPAN
     from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
     from shadow_tpu_torch.ops.propagate import PROPAGATE
     return {"bucket_step": queues.BUCKET_STEP,
@@ -1502,7 +1685,16 @@ def kernel_wrappers() -> dict:
             "relay1_law": tcp_span.RELAY1_LAW,
             "relay2_law": tcp_span.RELAY2_LAW,
             "propagate": PROPAGATE,
-            "phold_window": PHOLD_WINDOW}
+            "phold_window": PHOLD_WINDOW,
+            "phold_span": PHOLD_SPAN}
+
+
+def zero_counts(wrappers: dict) -> None:
+    """Every wrapper's launch count, and the span kernel's host reads, to
+    0 (just before a run)."""
+    for w in wrappers.values():
+        w.launches = 0
+    wrappers["phold_span"].host_reads = 0
 
 
 def check_forced(tag: str, run: dict) -> None:
@@ -1616,7 +1808,7 @@ def main(argv=None) -> int:
              for name in ("bucket_step", "codel_head")}
     relay_stats = check_relay_kernels()
     check_propagate()
-    window_stats = check_phold_window()
+    window_stats, span_stats = check_phold_window()
     by_path: dict = {}
     # The main path of the relay kernels: the 10,000-host stream.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
@@ -1628,7 +1820,8 @@ def main(argv=None) -> int:
           f"reach the device-span domain (entered at 1.23 s) and kept "
           f"short for the time limit", flush=True)
     by_path["tcp-stream-10k"], occupancy = stream_pair(
-        H_MAIN, args.stop_time, min_share=0.0)
+        H_MAIN, args.stop_time, min_share=0.0,
+        reference=STREAM_10K.get(args.stop_time))
     # The device share at a width the eager loop finishes in time; the
     # router's first window is 4 rounds, so the device stretch takes
     # several spans and TCP residency and the overlap show on the card.
@@ -1637,7 +1830,7 @@ def main(argv=None) -> int:
     # family, phold-8k first.
     for name, (make, share, codel) in phold_cells().items():
         by_path.update(phold_pair(name, make, share, codel,
-                                  plain_run=name == "phold-8k"))
+                                  side_runs=name == "phold-8k"))
     # The law kernels' main path: phold-64k-ring with residency and the
     # speculative overlap; then the overlap through the CLI.
     by_path.update(ring_runs())
@@ -1673,19 +1866,23 @@ def main(argv=None) -> int:
               f"the kernels line's row)", flush=True)
         stats[name] = dict(row, max_abs_err=max(
             relay_stats[(name, d)]["max_abs_err"] for d in DENSITIES))
-    # The window kernel's row: timed on the phold-64k-ring export.
+    # The PHOLD kernels' rows: timed on the phold-64k-ring export (the
+    # span kernel's over four rounds).
     stats["phold_window"] = window_stats["phold-64k-ring"]
+    stats["phold_span"] = span_stats["phold-64k-ring"]
     # `launches`: the count on each kernel's main path (tcp-stream-10k
     # for the relay kernels; phold-64k-ring with residency alone, through
     # the plain window, for the law kernels; phold-64k-ring with the
-    # overlap for the window kernel); `launches_by_path`: every path's
-    # count, each zeroed just before its run.
+    # overlap for the span kernel; phold-8k through the window kernel
+    # for it, off the main path since the span kernel); `launches_by_path`:
+    # every path's count, each zeroed just before its run.
     main_path = {"bucket_step": "phold-64k-ring/residency",
                  "codel_head": "phold-64k-ring/residency",
                  "relay1_law": "tcp-stream-10k",
                  "relay2_law": "tcp-stream-10k",
                  "propagate": "tier10k/forced",
-                 "phold_window": "phold-64k-ring/overlap"}
+                 "phold_window": "phold-8k/window",
+                 "phold_span": "phold-64k-ring/overlap"}
     # library_ms: no single PyTorch call computes any of these laws.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
@@ -1694,6 +1891,8 @@ def main(argv=None) -> int:
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s.get("bound_by", "bytes"), "library_ms": None,
                 "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"],
+                "ms_per_round": s.get("ms_per_round"),
+                "phase_clocks": s.get("clocks"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]
                                      for p, n in by_path.items()}}

@@ -494,7 +494,8 @@ class Manager:
         `metrics.wall.dispatch` entries the port has): the overlap mode,
         the per-round propagator's `propagate` block, and, per
         device-span family that was tried, its span counts, residency
-        and the `overlap` block."""
+        and the `overlap` block (the PHOLD family's also its kernel
+        launches)."""
         out = {"span_overlap": self.config.experimental.span_overlap,
                "span_overlap_on": self._span_overlap_on(),
                "propagate": self.propagator.summary()}
@@ -512,6 +513,12 @@ class Manager:
                     "stale_drops": r.stale_drops,
                     "overlap": r.overlap_summary(),
                 }
+        if self._dev_span is not None:
+            # The PHOLD family's kernel launches over every dispatch: span
+            # launches, and the windows a kernel stepped.
+            r = self._dev_span
+            out["device_span_phold"].update(span_launches=r.spans_all,
+                                            kernel_windows=r.windows_all)
         return out
 
     # ------------------------------------------------------------------

@@ -79,9 +79,10 @@ __device__ __forceinline__ int64_t claim_warp(int64_t* ctr) {
   X(CODEL_HARD_LIMIT, 1000)                                               \
   X(TR_SND, 0) X(TR_DRP, 1) X(TR_RCV, 2)                                  \
   X(RSN_NONE, 0) X(RSN_CODEL, 1) X(RSN_RTRLIMIT, 2) X(RSN_RCVBUF, 3)      \
-  X(RSN_NOSOCK, 4) X(RSN_NOROUTE, 5) X(RSN_HOSTDOWN, 9)                   \
-  X(RSN_LINKDOWN, 10)                                                     \
-  X(TEL_CODEL, 0) X(TEL_RTR_LIMIT, 1) X(TEL_NO_ROUTE, 4)                  \
+  X(RSN_NOSOCK, 4) X(RSN_NOROUTE, 5) X(RSN_LOSS, 6) X(RSN_UNREACH, 7)    \
+  X(RSN_HOSTDOWN, 9) X(RSN_LINKDOWN, 10)                                  \
+  X(TEL_CODEL, 0) X(TEL_RTR_LIMIT, 1) X(TEL_LOSS_EDGE, 2)                 \
+  X(TEL_UNREACHABLE, 3) X(TEL_NO_ROUTE, 4)                                \
   X(TEL_NO_SOCKET, 5) X(TEL_RECVBUF_FULL, 9) X(TEL_HOST_DOWN, 11)         \
   X(TEL_LINK_DOWN, 12) X(TEL_N, 15)                                       \
   X(KS_POP, 0) X(KS_STEP, 1) X(KS_CODEL, 2) X(KS_INET_OUT, 8)             \
@@ -347,21 +348,28 @@ struct ThMin {
   int64_t t, kind, tgt, slot;
 };
 
-// One host lane: `o` and `p` are the window's tables, `i` the lane.
-// The hot words live in members for the window; every other column is
-// read and written in memory, at the lane's own row.
+// One host lane: `o` and `p` are the window's tables, `i` the lane,
+// `window_end` the window's end (p.window_end unless the caller steps
+// several windows on one table).  The hot words live in members for the
+// window; every other column is read and written in memory, at the
+// lane's own row.
 struct Lane {
   const Ops& o;
   const Params& p;
   const int64_t i;
   LaneStats& s;
+  const int64_t window_end;
   int64_t now, cont, then, status, event_seq, m_lcg;
   int64_t r1_bal, r1_next, r2_bal, r2_next;
   CodelWords cw;
   int64_t ib_len, ib_pos, rq_pos, rq_len, sq_pos, sq_len, cq_pos, cq_len;
 
   STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_)
-      : o(o_), p(p_), i(i_), s(s_) {
+      : Lane(o_, p_, i_, s_, p_.window_end) {}
+
+  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
+               int64_t window_end_)
+      : o(o_), p(p_), i(i_), s(s_), window_end(window_end_) {
     now = o.now[i];
     cont = o.cont[i];
     then = o.then[i];
@@ -919,7 +927,7 @@ struct Lane {
             ib_len > ib_pos ? o.ib_time[i * p.cap_i + safe] : I64_MAX;
         const ThMin th = th_min();
         const int64_t et = ib_t < th.t ? ib_t : th.t;
-        if (et >= p.window_end) break;  // neither busy nor due
+        if (et >= window_end) break;  // neither busy nor due
         const bool pick_ib = pick_inbox(ib_t, th.t);
         mark(P_POP, j);
         if (!pick_ib) mark(P_TIM, j);

@@ -33,20 +33,28 @@ the LCG, IPs) are int64 in [0, 2**32) with explicit masking; the
 lane is skipped (every stage is the identity on an empty mask); the
 inbox lexsort is three stable argsorts.
 
-On the card with the fused schedule, a round's window is one launch of
-the hand kernel `stt_phold_window` (ops/phold_window.py,
-csrc/phold_window.cu): one thread per host lane steps the lane through
-the same fused iterations (csrc/phold_lane.cuh), with the relays'
-token-bucket and CoDel-head laws (csrc/queue_laws.cuh) run in the lane,
-and the counters (micro-iterations, stage fires and lanes, law calls)
-come back from the kernel.  The eager window below (`window_plain`) is
-its plain version: the CPU runs it, and so does the card with `fused`
-off (the reference schedule, which only tests set) or with a
-`window_factory` that makes no step.  There the relays' laws run through the standalone hand kernels
-(ops/queues.py, csrc/queues.cu) at the sites where the JAX code calls
-its Pallas kernels: on a CPU tensor each wrapper runs its plain law, on
-a CUDA tensor it launches its kernel or raises.  The round end
-(propagation and the inbox merge) stays eager on every path.
+On the card with the fused schedule, a whole span is one launch of the
+hand kernel `stt_phold_span` (ops/phold_span_kernel.py,
+csrc/phold_span.cu): the round loop below, window, propagation, inbox
+merge and the round's scalars, between grid barriers, with one host
+read of the span's words at the end.  Its window is the lane law
+(csrc/phold_lane.cuh: one thread per host lane through the same fused
+iterations, the relays' token-bucket and CoDel-head laws from
+csrc/queue_laws.cuh run in the lane), its round end
+csrc/phold_round_end.cuh's laws, and the counters (micro-iterations,
+stage fires and lanes, law calls) come back from the kernel.
+
+The eager loop below (`run` without a span step) is its plain version:
+the CPU runs it, and so does the card with `fused` off (the reference
+schedule, which only tests set) or with a `window_factory` set.  That
+hook makes the window step of the eager loop: `PHOLD_WINDOW.bind` one
+launch of the window kernel `stt_phold_window` a round (ops/
+phold_window.py, csrc/phold_window.cu), `eager_window` the eager window
+(`window_plain`), where the relays' laws run through the standalone hand
+kernels (ops/queues.py, csrc/queues.cu) at the sites where the JAX code
+calls its Pallas kernels: on a CPU tensor each wrapper runs its plain
+law, on a CUDA tensor it launches its kernel or raises.  The eager round
+end (propagation and the inbox merge) follows each window there.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ import torch
 from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
                                        threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
-from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
+from shadow_tpu_torch.ops.phold_span_kernel import PHOLD_SPAN
 from shadow_tpu_torch.ops.queues import (BUCKET_STEP, CODEL_HEAD,
                                          CODEL_INTERVAL_NS, CODEL_TARGET_NS,
                                          MTU, REFILL_NS)
@@ -268,11 +276,16 @@ class PholdSpanRunner(SpanMeshMixin):
         # Fused micro-op dispatch (default); False runs the one-micro-op-
         # per-iteration reference schedule (the differential's comparator).
         self.fused = True
-        # The window step.  None: one stt_phold_window launch a window on
-        # the card with the fused schedule, else the eager window.  A
-        # hook `window_factory(shape, params)` makes the step instead
-        # (the tests' host build of the lane law); a hook returning None
-        # keeps the eager window on the card (its plain version).
+        # The span step.  None: one stt_phold_span launch a span on the
+        # card with the fused schedule and no window_factory, else the
+        # eager loop.  A hook `span_factory(shape, params)` makes the
+        # step instead (the tests' host build of the span); a hook
+        # returning None keeps the eager loop.
+        self.span_factory = None
+        # The eager loop's window step: None the eager window; a hook
+        # `window_factory(shape, params)` makes it (PHOLD_WINDOW.bind:
+        # one stt_phold_window launch a window; the tests' host build of
+        # the lane law; eager_window: None, the eager window).
         self.window_factory = None
         # Per-stage fires, lanes and host wall of committed spans (KS_*
         # slots), beside micro_iters (the trips they are bounded by).
@@ -283,11 +296,19 @@ class PholdSpanRunner(SpanMeshMixin):
         # committed spans, and of every dispatch (aborted ones too).
         self.ks_calls = np.zeros(2, np.int64)
         self.calls_all = np.zeros(2, np.int64)
-        # Window-kernel launches and their CUDA-event time (ms) of
-        # committed spans, and the launches of every dispatch.
+        # Windows a kernel stepped (window-kernel launches, or rounds
+        # inside the span kernel) and the window kernel's launch-to-end
+        # time (ms, CUDA events) of committed spans, and the windows of
+        # every dispatch.
         self.ks_windows = 0
         self.ks_window_ms = 0.0
         self.windows_all = 0
+        # Span-kernel launches and their launch-to-end time (ms) of
+        # committed spans, and the launches of every dispatch (aborted
+        # and refused ones too).
+        self.ks_spans = 0
+        self.ks_span_ms = 0.0
+        self.spans_all = 0
         # Stage fires of every dispatch (aborted and refused ones too).
         self.fires_all = np.zeros(KS_N, np.int64)
         self._fn = None
@@ -482,17 +503,11 @@ class PholdSpanRunner(SpanMeshMixin):
         """The built loop for peer width `P`, from the fn cache."""
         key = (self._H, P, self._caps(), self.cap_out, self.cap_tr,
                self.tracing, self.family, self.fused, str(self.device),
-               self.window_factory)
+               self.window_factory, self.span_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
 
-    def _window_step(self):
-        """The window step of a build: the hook's, else the kernel's on
-        the card with the fused schedule; None runs the eager window."""
-        factory = self.window_factory
-        if factory is None:
-            if not (self.fused and self.device.type == "cuda"):
-                return None
-            factory = PHOLD_WINDOW.bind
+    def _window_shape(self) -> tuple:
+        """The window kernel's table dimensions and build parameters."""
         shape = {"n": self._H, "I": self.CAP_I, "T": self.CAP_T,
                  "R": self.CAP_R, "S": self.CAP_S, "C": self.CAP_C,
                  "asys": ASYS_N, "tel": TEL_N, "out": self.cap_out + 1,
@@ -502,15 +517,47 @@ class PholdSpanRunner(SpanMeshMixin):
                   "cap_c": self.CAP_C, "cap_out": self.cap_out,
                   "cap_tr": self.cap_tr, "tracing": int(self.tracing),
                   "family": self.family}
-        return factory(shape, params)
+        return shape, params
+
+    def _window_step(self):
+        """The eager loop's window step: the hook's; None runs the eager
+        window."""
+        if self.window_factory is None:
+            return None
+        return self.window_factory(*self._window_shape())
+
+    def _span_shape(self) -> tuple:
+        """The span kernel's table dimensions and build parameters: the
+        window kernel's, with the graph's nodes and the round end's
+        words."""
+        shape, params = self._window_shape()
+        shape["v"] = len(self._lat)
+        params.update(n_nodes=len(self._lat), k0=self._k[0], k1=self._k[1],
+                      bootstrap_end=self.bootstrap_end,
+                      time_never=TIME_NEVER)
+        return shape, params
+
+    def _span_step(self):
+        """A build's span step: the hook's, else the span kernel's on the
+        card with the fused schedule and no window hook; None runs the
+        eager loop."""
+        factory = self.span_factory
+        if factory is None:
+            if not (self.fused and self.device.type == "cuda"
+                    and self.window_factory is None):
+                return None
+            factory = PHOLD_SPAN.bind
+        return factory(*self._span_shape())
 
     def _build(self):
         """Return `run(st, pay, start, stop, limit, runahead,
         max_rounds)`, the eager twin of the reference's jitted span loop.
         Its parts hang on it: `run.prepare(st, pay)` makes a span's local
         buffers, `run.window_plain(st, window_end)` steps one window
-        eagerly (the kernel's plain version) and `run.step` is the
-        build's window step (None: the eager window).
+        eagerly (the window kernel's plain version), `run.round_end(st,
+        window_end)` the eager round end, `run.span` is the build's span
+        step (None: the eager loop) and `run.step` the eager loop's window
+        step (None: the eager window).
         `run` updates its input state in place (the reference's donation
         semantics), so a retry re-exports."""
         H = self._H
@@ -522,7 +569,8 @@ class PholdSpanRunner(SpanMeshMixin):
         family = self.family
         fused = self.fused
         dev = self.device
-        step = self._window_step()
+        span = self._span_step()
+        step = None if span is not None else self._window_step()
         i64 = torch.int64
         hidx = torch.arange(H, dtype=i64, device=dev)
         where = torch.where
@@ -1393,9 +1441,33 @@ class PholdSpanRunner(SpanMeshMixin):
             st["ks_calls"] = np.zeros(2, np.int64)
             st["ks_windows"] = 0
             st["ks_window_ms"] = 0.0
+            st["ks_spans"] = 0
+            st["ks_span_ms"] = 0.0
+
+        def round_end(st, window_end):
+            """Propagation and the inbox merge after a window, then the
+            round's scalars in one host sync: (packets, least kept
+            latency, next start, abort word)."""
+            n_out, min_lat = propagate(st, window_end)
+            ib_t, th_t = next_event_time(st)
+            return torch.stack([
+                n_out, min_lat, torch.minimum(ib_t, th_t).min(),
+                st["abort_code"]]).tolist()
 
         def run(st, pay, start, stop, limit, runahead, max_rounds):
             prepare(st, pay)
+            if span is not None:
+                # The whole loop in one launch and one read.
+                got = span(st, pay, start, stop, limit, runahead,
+                           max_rounds)
+                for k in ("fires", "lanes", "calls"):
+                    st[f"ks_{k}"] += got[k]
+                st["ks_windows"] = got["rounds"]
+                st["ks_spans"] = 1
+                st["ks_span_ms"] = got["span_ms"]
+                return (st, got["start"], got["runahead"], got["rounds"],
+                        got["busy_rounds"], got["packets"],
+                        got["busy_end"], got["iters"])
             if step is not None:
                 step.begin(st, pay)
 
@@ -1409,12 +1481,7 @@ class PholdSpanRunner(SpanMeshMixin):
                     iters += window_plain(st, window_end)
                 else:
                     step(st, window_end)  # one launch, no host sync
-                n_out, min_lat = propagate(st, window_end)
-                ib_t, th_t = next_event_time(st)
-                # One sync per round for the round's scalars.
-                n_out, min_lat, nxt, code = torch.stack([
-                    n_out, min_lat, torch.minimum(ib_t, th_t).min(),
-                    st["abort_code"]]).tolist()
+                n_out, min_lat, nxt, code = round_end(st, window_end)
                 if 0 < min_lat < runahead:
                     runahead = min_lat
                 start = nxt
@@ -1434,7 +1501,10 @@ class PholdSpanRunner(SpanMeshMixin):
             return (st, start, runahead, rounds, busy_rounds, packets,
                     busy_end, iters)
 
-        run.prepare, run.window_plain, run.step = prepare, window_plain, step
+        run.prepare, run.window_plain, run.round_end = (prepare,
+                                                        window_plain,
+                                                        round_end)
+        run.span, run.step = span, step
         return run
 
     # ------------------------------------------------------------------

@@ -8,7 +8,11 @@ due.  Eager, that is dozens of ops and several host syncs per
 micro-iteration, and one standalone law-kernel launch per relay pass
 (ops/queues.py).  The kernel steps the whole window in one launch, one
 thread per host lane, with the relays' token-bucket and CoDel-head laws
-(csrc/queue_laws.cuh) run in the lane (csrc/phold_lane.cuh).
+(csrc/queue_laws.cuh) run in the lane (csrc/phold_lane.cuh).  The main
+path runs whole spans in the span kernel (ops/phold_span_kernel.py),
+whose window is this lane law; this kernel is the runner's window step
+with the `window_factory` PHOLD_WINDOW.bind (the eager round end after
+each window).
 
 - The plain version is the runner's own eager window, `window_plain`
   of the built loop (`PholdSpanRunner._build`); the runner runs it on
@@ -23,7 +27,8 @@ thread per host lane, with the relays' token-bucket and CoDel-head laws
   the order lives in csrc/phold_lane.cuh alone), checks every operand's
   dtype, shape and contiguity by them, owns the window's bitmaps and
   statistics words and reads the counts back.  The tier-1 tests drive
-  the same table through a host build of the lane law.
+  the same table through a host build of the lane law; the span
+  kernel's table (SpanTable) extends it.
 
 The kernel builds at first use with nvcc for sm_90a (with `-Xptxas=-v`,
 whose report of registers and spills `LIBRARY.log` keeps) into the
@@ -119,11 +124,17 @@ class WindowTable:
     names (n, I, T, R, S, C, asys, tel, out, tr) and the build's
     constant parameters; `begin` completes both from the run's state."""
 
+    # The library's name functions and the words set per run or launch
+    # rather than by the build (a subclass's kernel takes more).
+    OPERANDS = "stt_phold_operands"
+    PARAMS = "stt_phold_params"
+    LAUNCH_WORDS = ("n_peer_cols", "psize", "pay", "window_end")
+
     def __init__(self, lib, shape: dict, params: dict):
         self.lib = lib
         check_consts(lib)
-        self.ops = parse_operands(lib.stt_phold_operands().decode())
-        self.names = lib.stt_phold_params().decode().split()
+        self.ops = parse_operands(getattr(lib, self.OPERANDS)().decode())
+        self.names = getattr(lib, self.PARAMS)().decode().split()
         self.layout = parse_words(lib.stt_phold_stats().decode())
         self.words = int(lib.stt_phold_bitmap_words())
         self.dims = dict(shape, passes=self.layout["N_PASSES"],
@@ -131,8 +142,7 @@ class WindowTable:
         self.params = dict(params, bitmap_words=self.words,
                            refill_ns=REFILL_NS, target_ns=CODEL_TARGET_NS,
                            mtu=MTU, interval_ns=CODEL_INTERVAL_NS)
-        want = set(self.params) | {"n_peer_cols", "psize", "pay",
-                                   "window_end"}
+        want = set(self.params) | set(self.LAUNCH_WORDS)
         if set(self.names) != want:
             raise RuntimeError(f"phold_window: the kernel's parameters "
                                f"{self.names} are not {sorted(want)}")
@@ -177,9 +187,10 @@ class WindowTable:
         if not t.is_contiguous():
             raise ValueError(f"phold_window {o.key}: not contiguous")
 
-    def fill(self, st: dict, window_end: int) -> tuple:
-        """Both tables for one window; returns their addresses.  The
-        first fill of a run checks every operand by its table entry."""
+    def fill(self, st: dict, window_end: int = 0, **words) -> tuple:
+        """Both tables for one launch (`words`: the launch's other
+        LAUNCH_WORDS); returns their addresses.  The first fill of a run
+        checks every operand by its table entry."""
         ts = [self._tensor(st, o.key) for o in self.ops]
         if not self._checked:
             for o, t in zip(self.ops, ts):
@@ -192,6 +203,7 @@ class WindowTable:
                                "storage; the kernel writes in place")
         self._table[:] = ptrs
         self.params["window_end"] = int(window_end)
+        self.params.update((k, int(v)) for k, v in words.items())
         self._words[:] = [self.params[k] for k in self.names]
         return self._addr
 
@@ -199,7 +211,10 @@ class WindowTable:
         """The run's counts, summed over its windows: fires and lanes by
         KS slot, the law calls (bucket, CoDel head) made in the lanes and
         the micro-iterations (each window's largest lane count)."""
-        s = self.stats.cpu().numpy()
+        return self.counts(self.stats.cpu().numpy())
+
+    def counts(self, s) -> dict:
+        """WindowTable.end's counts from the statistics words `s`."""
         lay = self.layout
         return {"fires": s[lay["ST_FIRES"]:lay["ST_LANES"]].copy(),
                 "lanes": s[lay["ST_LANES"]:lay["ST_CALLS"]].copy(),
@@ -282,9 +297,9 @@ def eager_window(shape: dict, params: dict) -> None:
     return None
 
 
-def window_need_bytes(ops: list, before: dict, after: dict) -> dict:
-    """A lower bound of the bytes one window must move, from the span
-    state `before` it and `after` it (a window that did not abort):
+def window_read_bytes(before: dict, after: dict) -> dict:
+    """The reads one window must make, from the span state `before` it
+    and `after` it (a window that did not abort):
 
     - idle: every lane ends on the busy/due test, which reads its
       continuation, inbox length and position, the inbox head's time
@@ -294,9 +309,7 @@ def window_need_bytes(ops: list, before: dict, after: dict) -> dict:
       (ib_time, cq_enq);
     - copies: each packet copied on (inbox -> CoDel ring, CoDel ring ->
       recv queue: 6 words; send queue -> an outbox record: 5) is read
-      once from where it lay;
-    - writes: every element of a written operand whose value changed,
-      at its size (an unchanged word need not be written).
+      once from where it lay.
 
     Returns the parts and their sum under "total"."""
     H = after["now"].shape[0]
@@ -311,10 +324,30 @@ def window_need_bytes(ops: list, before: dict, after: dict) -> dict:
         "idle": H * (3 * 8 + T) + 8 * (pending + valid),
         "dequeue": 8 * (delta("ib_pos") + delta("cq_pos")),
         "copies": 48 * (delta("cq_len") + delta("rq_len"))
-        + 40 * delta("out_n"),
-        "writes": sum(int((after[o.key] != before[o.key]).sum())
-                      * after[o.key].element_size()
-                      for o in ops if o.written and o.key in after)}
+        + 40 * delta("out_n")}
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def changed_bytes(ops: list, before: dict, after: dict) -> int:
+    """Every element of a written operand whose value differs between
+    `before` and `after`, at its size (an unchanged word need not be
+    written)."""
+    return sum(int((after[o.key] != before[o.key]).sum())
+               * after[o.key].element_size()
+               for o in ops if o.written and o.key in after)
+
+
+def window_need_bytes(ops: list, before: dict, after: dict) -> dict:
+    """A lower bound of the bytes one window must move, from the span
+    state `before` it and `after` it (a window that did not abort): the
+    reads of window_read_bytes, and under "writes" every changed element
+    of a written operand once (changed_bytes).
+
+    Returns the parts and their sum under "total"."""
+    parts = window_read_bytes(before, after)
+    del parts["total"]
+    parts["writes"] = changed_bytes(ops, before, after)
     parts["total"] = sum(parts.values())
     return parts
 

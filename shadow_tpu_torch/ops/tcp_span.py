@@ -345,11 +345,13 @@ class TcpSpanRunner(SpanMeshMixin):
 
     # Ring capacities: export refuses state beyond half of each, and
     # the loop aborts transactionally on overflow.  The rtx and
-    # reassembly rings are twice the reference's 256: at thousands of
-    # lossy connections some connection's rtx queue or reassembly
-    # holds more than 128 segments at nearly every span boundary
-    # (a window of ~130 segments behind a hole), so with 256 the
-    # export refuses and the device never gets the stream.
+    # reassembly rings are by default twice the reference's 256 (the
+    # constructor's `ring_cap` sets both): at thousands of lossy
+    # connections some connection's rtx queue or reassembly holds more
+    # than 128 segments at nearly every span boundary (a window of ~130
+    # segments behind a hole), so with 256 the export refuses and the
+    # device never gets the stream.  At 256 the span records (spans,
+    # device rounds, export refusals, aborts) are the reference's.
     CAP_I = 512    # inbox
     CAP_T = 4096   # timer heap
     CAP_CQ = 2048  # CoDel ring (covers the 1000-entry hard limit)
@@ -365,11 +367,13 @@ class TcpSpanRunner(SpanMeshMixin):
 
     def __init__(self, engine, latency_ns, thresholds, host_node,
                  host_ips, seed, bootstrap_end, tracing: bool,
-                 device=None):
+                 device=None, ring_cap: int | None = None):
         from shadow_tpu_torch.utils.device import resolve_device
         self.device = resolve_device(device)
         self.engine = engine
         self.tracing = bool(tracing)
+        if ring_cap is not None:
+            self.CAP_RT = self.CAP_RA = int(ring_cap)
         k0, k1 = mix_key(seed, STREAM_PACKET_LOSS)
         self._k = (int(k0), int(k1))
         self._lat = np.ascontiguousarray(latency_ns, dtype=np.int64)
