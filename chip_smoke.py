@@ -51,20 +51,40 @@ Six phases; any failed check raises, so the script exits non-zero:
      move (each window's reads, each round end's packets and moved
      entries, each changed word once), and its phase clocks; nvcc's
      register and spill
-     report of both.
+     report of both;
+   - the TCP window kernel (stt_tcp_window) on the 16-host stream's
+     first in-domain exports at 0% and 2% loss and, after phase 3's run
+     captured it, the 10,000-host stream's: one window against its plain
+     version (the runner's eager window) on copies of the same state,
+     every state column (conn-major ones without their trash row), the
+     outbox and trace in canonical order, the stage fires and lanes, the
+     micro-iterations and the abort bits and site exactly equal (the
+     16-host exports also without the kept timer-heap minimum); card
+     time per window (ten launches in a CUDA graph on fresh copies; the
+     10,000-host state, too large for ten copies, by three single
+     launches on a restored copy, the card asleep while the host issues
+     each), with and without the kept heap minimum, host time per
+     wrapper call, the plain window's time and the bound from the bytes
+     the window must move (ops/tcp_window.py window_need_bytes); nvcc's
+     register and spill report.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
-   port's Manager on the card with forced device spans, and require the
-   trace, packets and events that the C++ engine serving every round
-   (`tpu_device_spans: off`) gives (recorded in STREAM_10K for the
-   default stop time; run again for another), device spans, each relay kernel
-   launched once per fire of its stage by the device run and the
-   standalone law kernels never (their laws run inside the relay
-   kernels); print the per-stage
-   fire/lane counters and the wall of the router's one PHOLD probe.
-   Then the same stream at 16 hosts, spans off and forced (the C++ run
-   in the same call), where at least half the rounds
-   must run on the card, with the router's first window at 4 rounds
-   so that the device stretch takes several spans.
+   port's Manager on the card with forced device spans, every window
+   one stt_tcp_window launch, and require the trace, packets and events
+   that the C++ engine serving every round (`tpu_device_spans: off`)
+   gives (recorded in STREAM_10K for the default stop time; run again
+   for another), device spans, one window-kernel launch per window
+   stepped in every dispatch (one per round of the committed spans) and
+   no relay, law or PHOLD kernel (the relay laws run in the lanes);
+   print the per-stage fire/lane counters and the wall of the router's
+   one PHOLD probe.  The run's first in-domain export, cloned before
+   its launch, feeds phase 2's 10,000-host TCP window leg.  Then the
+   same stream at 16 hosts, spans off and forced (the C++ run in the
+   same call), where at least half the rounds must run on the card,
+   with the router's first window at 4 rounds so that the device
+   stretch takes several spans; then to EAGER_STOP (400 ms) off and
+   forced through the eager window (`tcp_window.eager_window`), the
+   path that still launches the relay kernels: each once per fire of
+   its stage, and no window kernel.
 4. Run the PHOLD/udp-mesh family the same way, spans off and forced
    (every span one stt_phold_span launch): phold-8k (the reference
    ladder's 8,192-LP rung), mesh-24 (the reference's 24-host paced
@@ -156,14 +176,16 @@ REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "relay2_law": "shadow_tpu/ops/pallas_queues.py:119",
             "propagate": "shadow_tpu/ops/propagate.py:391",
             "phold_window": "shadow_tpu/ops/phold_span.py:1675",
-            "phold_span": "shadow_tpu/ops/phold_span.py:1675"}
+            "phold_span": "shadow_tpu/ops/phold_span.py:1675",
+            "tcp_window": "shadow_tpu/ops/tcp_span.py:2373"}
 SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "codel_head": "shadow_tpu_torch/csrc/queues.cu",
           "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
           "relay2_law": "shadow_tpu_torch/csrc/relay.cu",
           "propagate": "shadow_tpu_torch/csrc/propagate.cu",
           "phold_window": "shadow_tpu_torch/csrc/phold_window.cu",
-          "phold_span": "shadow_tpu_torch/csrc/phold_span.cu"}
+          "phold_span": "shadow_tpu_torch/csrc/phold_span.cu",
+          "tcp_window": "shadow_tpu_torch/csrc/tcp_window.cu"}
 # Each PHOLD-family cell's trace sha256 (its first 16 hex digits) as the
 # C++-only run and the device runs gave it before the window kernel: a
 # device run through the kernel must give the same trace.  mesh-24 runs
@@ -197,6 +219,10 @@ OPS_RATE = 67e12
 # and launches the graph meanwhile.
 SLEEP_CYCLES = 4_000_000
 PROPAGATE_N = (1, 1_000, 65_536, 1_048_576, 1_000_003)
+# The 16-host stream's run through the eager window, the path that still
+# launches the relay kernels: the fleet enters the TCP domain near 270 ms,
+# so 400 ms gives a dozen device rounds at a few seconds each.
+EAGER_STOP = "400ms"
 
 
 def card() -> str:
@@ -220,7 +246,7 @@ def build_all():
     started together."""
     from shadow_tpu_torch.native import plane
     from shadow_tpu_torch.ops import (phold_span_kernel, phold_window,
-                                      propagate, queues, relay)
+                                      propagate, queues, relay, tcp_window)
     errs = []
     walls = {}
 
@@ -242,7 +268,8 @@ def build_all():
                          ("relay.cu", relay.LIBRARY.build),
                          ("propagate.cu", propagate.LIBRARY.build),
                          ("phold_window.cu", phold_window.LIBRARY.build),
-                         ("phold_span.cu", phold_span_kernel.LIBRARY.build))]
+                         ("phold_span.cu", phold_span_kernel.LIBRARY.build),
+                         ("tcp_window.cu", tcp_window.LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -259,10 +286,14 @@ def build_all():
           f"{walls['phold_window.cu']:.1f}s (nvcc "
           f"{phold_window.LIBRARY.build_s:.1f}s), phold_span.cu "
           f"{walls['phold_span.cu']:.1f}s (nvcc "
-          f"{phold_span_kernel.LIBRARY.build_s:.1f}s)", flush=True)
-    # nvcc -Xptxas=-v: the PHOLD kernels' registers, stack and spills.
+          f"{phold_span_kernel.LIBRARY.build_s:.1f}s), tcp_window.cu "
+          f"{walls['tcp_window.cu']:.1f}s (nvcc "
+          f"{tcp_window.LIBRARY.build_s:.1f}s)", flush=True)
+    # nvcc -Xptxas=-v: the window and span kernels' registers, stack and
+    # spills.
     for src, lib in (("phold_window.cu", phold_window.LIBRARY),
-                     ("phold_span.cu", phold_span_kernel.LIBRARY)):
+                     ("phold_span.cu", phold_span_kernel.LIBRARY),
+                     ("tcp_window.cu", tcp_window.LIBRARY)):
         for ln in lib.log.splitlines():
             if ln.strip():
                 print(f"[build] {src}: {ln.strip()}", flush=True)
@@ -933,12 +964,22 @@ def check_phold_window() -> tuple:
     return stats, span_stats
 
 
-def log_spans(mgr) -> None:
-    """Print one line per device-span attempt (progress for a long run)."""
+def log_spans(mgr, window_factory=None, capture: dict | None = None):
+    """Print one line per device-span attempt (progress for a long run),
+    on the Manager's TCP runner (with `window_factory`, its window step).
+    With `capture`, the first in-domain export is cloned into it before
+    the span runs: `capture["st"]` (the runner's device state),
+    `capture["args"]` (start, stop, limit, runahead) and
+    `capture["runner"]`."""
+    from shadow_tpu_torch.tools.relay_cases import clone_state
     runner = mgr._dev_span_tcp = mgr.make_tcp_span_runner()
+    runner.window_factory = window_factory
     try_span = runner.try_span
+    export_state = runner.export_state
+    current = {}
 
     def logged(start, *a, **k):
+        current["args"] = (int(start), int(a[0]), int(a[1]), int(a[2]))
         t0 = time.perf_counter()
         res = try_span(start, *a, **k)
         print(f"[span] start {start / 1e9:.4f}s -> "
@@ -947,32 +988,51 @@ def log_spans(mgr) -> None:
               f"{runner.micro_iters}, aborts {runner.aborts}, transient "
               f"{runner.over_caps})", flush=True)
         return res
+
+    def exported():
+        st = export_state()
+        if capture is not None and "st" not in capture \
+                and isinstance(st, dict):
+            capture.update(st=clone_state(st), args=current["args"],
+                           runner=runner)
+        return st
     runner.try_span = logged
+    runner.export_state = exported
 
 
 def stream_pair(n_hosts: int, stop_time: str, min_share: float,
-                k_init: int | None = None, reference: dict | None = None):
+                k_init: int | None = None, reference: dict | None = None,
+                path: str = "kernel", capture: dict | None = None):
     """The tgen TCP bulk stream (tools/span_loop_bench.stream_config)
     through the port's Manager on the card, once with the C++ engine
     serving every round and once with forced device spans (the router's
     first window `k_init` rounds where given); with a `reference` (the
     C++ run's trace digest, lines, packets and events, as
     stream_results gives them, recorded from earlier runs) the C++ run
-    is not repeated.  Requires identical results, a device span, at
-    least `min_share` of
-    the rounds on the card, a resident hit on every span after the
-    first (less stale drops), each relay kernel launched once per fire
-    of its stage and the standalone law kernels never.  Returns the
-    device run's kernel launch counts and lanes per fire of each relay
-    stage."""
+    is not repeated.  The forced run's windows go through `path`:
+    "kernel" (the main path: one stt_tcp_window launch a window) or
+    "eager" (the eager window: the relay kernels).  Requires identical
+    results, a device span, at least `min_share` of the rounds on the
+    card, a resident hit on every span after the first (less stale
+    drops), and the path's launch gates: through the kernel, one
+    stt_tcp_window launch per window stepped in every dispatch, one per
+    round of the committed spans and no relay or law kernel; through the
+    eager window, each relay kernel launched once per fire of its stage
+    and no window or law kernel; never a PHOLD kernel.  With `capture`,
+    the forced run's first in-domain export is cloned into it
+    (log_spans).  Returns the forced run's kernel launch counts and lanes
+    per fire of each relay stage."""
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import tcp_span
+    from shadow_tpu_torch.ops.tcp_window import eager_window
     from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
                                                         stream_config)
 
-    tag = f"[stream {n_hosts}]"
+    tag = f"[stream {n_hosts}{'' if path == 'kernel' else ' ' + path}]"
     print(f"{tag} {n_hosts} hosts ({max(1, n_hosts // 8)} tgen servers), "
-          f"stop_time {stop_time}", flush=True)
+          f"stop_time {stop_time}, forced windows through "
+          + ("stt_tcp_window" if path == "kernel" else "the eager window"),
+          flush=True)
     runs = {}
     for spans in ("off", "force")[reference is not None:]:
         cfg = stream_config(n_hosts, stop_time, spans)
@@ -980,7 +1040,8 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
             cfg.experimental.dev_span_k_init = k_init
         mgr = Manager(cfg, device="cuda")
         if spans == "force":
-            log_spans(mgr)
+            log_spans(mgr, eager_window if path == "eager" else None,
+                      capture)
         wrappers = kernel_wrappers()
         # Counts cover this run only: zeroed just before it.
         zero_counts(wrappers)
@@ -1009,9 +1070,12 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                   f"in the loop), aborts {r.aborts} "
                   f"{r.abort_kind_counts()}, transient {r.over_caps}, "
                   f"loop time {r.device_ms / 1e3:.1f}s (CUDA events), "
-                  f"export {r.export_bytes / 2**30:.2f} GiB / import "
-                  f"{r.import_bytes / 2**30:.2f} GiB, launches "
-                  f"{run['launches']}", flush=True)
+                  f"export {r.export_bytes / 2**30:.2f} GiB in "
+                  f"{r.export_wall_ns / 1e9:.1f}s / import "
+                  f"{r.import_bytes / 2**30:.2f} GiB in "
+                  f"{r.import_wall_ns / 1e9:.1f}s, law calls in the lanes "
+                  f"{r.ks_calls.tolist()}, launches {run['launches']}",
+                  flush=True)
             print_residency(tag, r)
             print_stages(tag, r)
         if not summary.ok:
@@ -1021,6 +1085,9 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     sd, r = dev["summary"], dev["runner"]
     if reference is None:
         reference = stream_results(runs["off"])
+        if any(runs["off"]["launches"].values()):
+            raise AssertionError(f"{tag} the C++ run launched "
+                                 f"{runs['off']['launches']}")
     else:
         print(f"{tag} the C++ engine's results, recorded: {reference}",
               flush=True)
@@ -1037,18 +1104,33 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
         raise AssertionError(f"{tag} {r.resident_hits} resident hits over "
                              f"{r.spans} spans ({r.stale_drops} stale)")
     launches = dev["launches"]
-    # One launch per fire of the relay stage, over every dispatch
-    # (aborted spans and refused speculative windows launched too).
-    for name, code in (("relay1_law", tcp_span.KS_INET_OUT),
-                       ("relay2_law", tcp_span.KS_CODEL)):
-        fires, fires_all = int(r.ks_fires[code]), int(r.fires_all[code])
-        if fires <= 0 or launches[name] != fires_all:
-            raise AssertionError(f"{tag} {name} launched {launches[name]} "
-                                 f"times for {fires_all} fires of its "
-                                 f"stage ({fires} committed)")
-    # The laws run inside the relay kernels: the span loop launches no
-    # standalone law kernel (nor a PHOLD kernel).
-    for name in ("bucket_step", "codel_head", "phold_window", "phold_span"):
+    if path == "kernel":
+        # One window-kernel launch per window stepped, over every
+        # dispatch (aborted spans and refused speculative windows
+        # launched too), one per round of the committed spans.
+        n = launches["tcp_window"]
+        if n <= 0 or n != r.windows_all or r.ks_windows != r.rounds:
+            raise AssertionError(f"{tag} tcp_window launched {n} times "
+                                 f"for {r.windows_all} windows "
+                                 f"({r.ks_windows} committed, {r.rounds} "
+                                 f"rounds)")
+        never = ("relay1_law", "relay2_law")
+    else:
+        # One launch per fire of the relay stage, over every dispatch.
+        for name, code in (("relay1_law", tcp_span.KS_INET_OUT),
+                           ("relay2_law", tcp_span.KS_CODEL)):
+            fires, fires_all = int(r.ks_fires[code]), \
+                int(r.fires_all[code])
+            if fires <= 0 or launches[name] != fires_all:
+                raise AssertionError(f"{tag} {name} launched "
+                                     f"{launches[name]} times for "
+                                     f"{fires_all} fires of its stage "
+                                     f"({fires} committed)")
+        never = ("tcp_window",)
+    # The relay laws run inside the lanes or the relay kernels: the span
+    # loop launches no standalone law kernel (nor a PHOLD kernel).
+    for name in never + ("bucket_step", "codel_head", "phold_window",
+                         "phold_span", "propagate"):
         if launches[name] != 0:
             raise AssertionError(f"{tag} the span loop launched {name} "
                                  f"{launches[name]} times")
@@ -1060,10 +1142,197 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     print(f"{tag} PHOLD probe: refused structurally once in "
           f"{ph.export_wall_ns / 1e6:.3f} ms", flush=True)
     print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds "
-          f"on the card, one relay launch per relay fire", flush=True)
+          f"on the card, "
+          + (f"one stt_tcp_window launch per window ({launches['tcp_window']}"
+             f"), no relay kernel" if path == "kernel" else
+             f"one relay launch per relay fire ({launches['relay1_law']} / "
+             f"{launches['relay2_law']})"), flush=True)
     lanes = {code: r.ks_lanes[code] / max(r.ks_fires[code], 1)
              for code in (tcp_span.KS_INET_OUT, tcp_span.KS_CODEL)}
     return launches, lanes
+
+
+def tcp_export(loss: float) -> tuple:
+    """The 16-host stream's (tools/netgen.tcp_stream_yaml: 50 MB per
+    client, seed 11, the tier-1 tests' stream) first in-domain export on
+    the card, at `loss`: (runner, device state, span arguments)."""
+    from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.tools.netgen import tcp_stream_yaml
+    from shadow_tpu_torch.tools.window_cases import (capture_tcp_export,
+                                                     tcp_device_state)
+    runner, st_np, args = capture_tcp_export(Manager(
+        ConfigOptions.from_yaml_text(tcp_stream_yaml(
+            16, nbytes=50_000_000, loss=loss, stop_time="500ms", seed=11,
+            scheduler="tpu", device_spans="force")), device="cuda"), 1)
+    return runner, tcp_device_state(runner, st_np), args
+
+
+def tcp_window_ms(fn, base: dict, window_end: int, n: int,
+                  graph: bool) -> list:
+    """Card time per window of the built loop `fn`'s kernel step, on
+    copies of `base` (the written operands cloned, the rest shared),
+    restored before each timing.  With `graph`, `n` launches back to
+    back in one CUDA graph, each on its own copy, once per replay of
+    three; else `n` single launches on one copy (a state too large for
+    ten copies).  The card sleeps while the host records the start event
+    and issues the work, so neither the host's issue nor the graph's
+    launch is in the time."""
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    ref = clone_state(base)
+    fn.prepare(ref)
+    fn.step.begin(ref)
+    written = [o.key for o in fn.step.table.ops
+               if o.written and o.key in ref]
+    copies = [dict(ref, **{k: ref[k].clone() for k in written})
+              for _ in range(n if graph else 1)]
+    out = []
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for c in copies:
+                fn.step.launch(c, window_end)
+    for _ in range(3 if graph else n):
+        for c in copies:
+            for k in written:
+                c[k].copy_(ref[k])
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0.record()
+        if graph:
+            g.replay()
+        else:
+            fn.step.launch(copies[0], window_end)
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1) / (n if graph else 1))
+    if graph:
+        del g
+    del copies, ref
+    return out
+
+
+def check_tcp_window(name: str, runner, base: dict, args: tuple,
+                     graph: bool = True) -> dict:
+    """Phase 2's TCP leg on one export: stt_tcp_window against its plain
+    version (the runner's eager window) on copies of the same state:
+    every state column (conn-major ones without their trash row), the
+    outbox and the trace in canonical order, ks_fires, ks_lanes, the
+    micro-iterations and the abort bits and site exactly equal.  Times:
+    the plain window (CUDA events), the kernel's card time per window
+    with the timer heap's minimum kept between pops and without it
+    (tcp_window_ms: ten launches in a CUDA graph, or with `graph` off
+    three single launches), host time per wrapper call, and the bound
+    from the bytes the window must move (ops/tcp_window.py
+    window_need_bytes).  Returns the kernels line's row."""
+    from shadow_tpu_torch.ops import tcp_window as tw
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    from shadow_tpu_torch.tools.window_cases import tcp_window_mismatch
+    tag = f"[tcp window {name}]"
+    start, stop, _limit, runahead = args
+    we = min(start + runahead, stop)
+
+    def build(factory):
+        runner.window_factory = factory
+        return runner._build()
+
+    plain, kern = build(tw.eager_window), build(None)
+    assert plain.step is None and kern.step is not None
+    print(f"{tag} export at {start / 1e9:.4f}s ({runner._H} lanes, "
+          f"{runner._n_conns} conns, window {runahead / 1e6:.3f} ms)",
+          flush=True)
+    a = clone_state(base)
+    plain.prepare(a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    it = plain.window_plain(a, we)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    b = clone_state(base)
+    kern.prepare(b)
+    before = clone_state(b)
+    kern.step.begin(b)
+    kern.step(b, we)
+    got = kern.step.end()
+    torch.cuda.synchronize()
+    bad = tcp_window_mismatch(a, b) + [
+        what for what, x, y in (
+            ("iterations", it, got["iters"]),
+            ("ks_fires", a["ks_fires"], got["fires"]),
+            ("ks_lanes", a["ks_lanes"], got["lanes"]),
+            ("abort", int(a["abort_code"]), int(b["abort_code"])),
+            ("abort site", int(a["abort_site"]), int(b["abort_site"])))
+        if not np.array_equal(x, y)]
+    if bad or it == 0 or int(b["abort_code"]):
+        raise AssertionError(f"{tag} one window: {bad} differ ({it} "
+                             f"iterations, abort {int(b['abort_code'])})")
+    need = tw.window_need_bytes(kern.step.table.ops, before, b)
+    n_out, n_tr = int(b["out_n"]), int(b["tr_n"])
+    del a, before
+    if graph:
+        # The lane without the timer heap's kept minimum: the same window.
+        kern.step.table.params["th_cache"] = 0
+        c = clone_state(base)
+        kern.prepare(c)
+        kern.step.begin(c)
+        kern.step(c, we)
+        kern.step.end()
+        if tcp_window_mismatch(b, c):
+            raise AssertionError(f"{tag} the lane without the kept heap "
+                                 f"minimum differs: "
+                                 f"{tcp_window_mismatch(b, c)}")
+        kern.step.table.params["th_cache"] = 1
+        del c
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    reps = 10 if graph else 3
+    ms = {}
+    for cache in (1, 0):
+        kern.step.table.params["th_cache"] = cache
+        ms[cache] = tcp_window_ms(kern, base, we, reps, graph)
+    kern.step.table.params["th_cache"] = 1
+    call, ms_call = [], []
+    for _ in range(5 if graph else 2):
+        c = clone_state(base)
+        kern.prepare(c)
+        kern.step.begin(c)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kern.step(c, we)
+        call.append(time.perf_counter() - t1)
+        ms_call.append(kern.step.end()["window_ms"])
+        del c
+    nbytes = need["total"]
+    row = {"ms": float(np.median(ms[1])), "ms_min": min(ms[1]),
+           "ms_max": max(ms[1]), "ms_uncached": float(np.median(ms[0])),
+           "call_ms": float(np.median(call)) * 1e3,
+           "launch_to_end_ms": float(np.median(ms_call)),
+           "plain_ms": plain_ms, "bound_ms": nbytes / BANDWIDTH * 1e3,
+           "bytes": nbytes, "bound_parts": need, "max_abs_err": 0,
+           "iters": it, "H": runner._H, "lanes": got["lanes"].tolist(),
+           "fires": got["fires"].tolist(), "calls": got["calls"].tolist()}
+    how = ("CUDA graph of 10, fresh state each; median of 3 replays" if graph
+           else "single launches on a restored copy; median of 3")
+    print(f"{tag} stt_tcp_window exact against the eager window: {it} "
+          f"micro-iterations; fires {row['fires']}, lanes {row['lanes']}, "
+          f"law calls in the lanes {row['calls']}; outbox {n_out}, trace "
+          f"{n_tr}; {row['ms'] * 1e3:.3f} us per window on the card ({how},"
+          f" {row['ms_min'] * 1e3:.3f}-{row['ms_max'] * 1e3:.3f}); without "
+          f"the kept heap minimum {row['ms_uncached'] * 1e3:.3f} us; "
+          f"{row['call_ms'] * 1e3:.1f} us host per wrapper call (launch to "
+          f"end {row['launch_to_end_ms'] * 1e3:.1f} us); plain window "
+          f"{plain_ms:.3f} ms; bound {row['bound_ms'] * 1e3:.3f} us by bytes "
+          f"({nbytes} B: "
+          + ", ".join(f"{k} {v}" for k, v in need.items() if k != "total")
+          + ")", flush=True)
+    runner.window_factory = None
+    return row
 
 
 def stream_results(run: dict) -> dict:
@@ -1196,8 +1465,8 @@ def check_window_launches(tag: str, r, launches: dict, path: str,
     window stepped in every dispatch, one per round in the committed
     spans, and no span or law kernel.  "plain" (the eager window): each
     law kernel launched exactly once per call the runner made, and no
-    window or span kernel.  Never a TCP relay kernel."""
-    for kname in ("relay1_law", "relay2_law"):
+    window or span kernel.  Never a TCP kernel."""
+    for kname in ("relay1_law", "relay2_law", "tcp_window"):
         if launches[kname]:
             raise AssertionError(f"{tag} the PHOLD loop launched {kname} "
                                  f"{launches[kname]} times")
@@ -1680,13 +1949,15 @@ def kernel_wrappers() -> dict:
     from shadow_tpu_torch.ops.phold_span_kernel import PHOLD_SPAN
     from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
     from shadow_tpu_torch.ops.propagate import PROPAGATE
+    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
     return {"bucket_step": queues.BUCKET_STEP,
             "codel_head": queues.CODEL_HEAD,
             "relay1_law": tcp_span.RELAY1_LAW,
             "relay2_law": tcp_span.RELAY2_LAW,
             "propagate": PROPAGATE,
             "phold_window": PHOLD_WINDOW,
-            "phold_span": PHOLD_SPAN}
+            "phold_span": PHOLD_SPAN,
+            "tcp_window": TCP_WINDOW}
 
 
 def zero_counts(wrappers: dict) -> None:
@@ -1809,6 +2080,15 @@ def main(argv=None) -> int:
     relay_stats = check_relay_kernels()
     check_propagate()
     window_stats, span_stats = check_phold_window()
+    # The TCP window kernel on the 16-host stream's exports (the
+    # 10,000-host one follows phase 3's run, which captures it).
+    tcp_stats = {}
+    for name, loss in (("stream-16", 0.0), ("stream-16-lossy", 0.02)):
+        runner, base, span_args = tcp_export(loss)
+        tcp_stats[name] = check_tcp_window(name, runner, base, span_args)
+        del runner, base
+        gc.collect()
+        torch.cuda.empty_cache()
     by_path: dict = {}
     # The main path of the relay kernels: the 10,000-host stream.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
@@ -1819,13 +2099,32 @@ def main(argv=None) -> int:
     print(f"[main] stop_time {args.stop_time}: cut from 1s upward to "
           f"reach the device-span domain (entered at 1.23 s) and kept "
           f"short for the time limit", flush=True)
+    capture: dict = {}
     by_path["tcp-stream-10k"], occupancy = stream_pair(
         H_MAIN, args.stop_time, min_share=0.0,
-        reference=STREAM_10K.get(args.stop_time))
+        reference=STREAM_10K.get(args.stop_time), capture=capture)
+    # Phase 2's TCP leg on the run's first in-domain export, captured
+    # before its launch (the C++ prefix is not run twice).
+    if "st" not in capture:
+        raise AssertionError("[main] the 10,000-host run made no export")
+    runner = capture.pop("runner")
+    runner._res_st = None  # the run's resident carry
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcp_stats["stream-10k"] = check_tcp_window(
+        "stream-10k", runner, capture.pop("st"), capture["args"],
+        graph=False)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
     # The device share at a width the eager loop finishes in time; the
     # router's first window is 4 rounds, so the device stretch takes
     # several spans and TCP residency and the overlap show on the card.
     stream_pair(16, "500ms", min_share=0.5, k_init=4)
+    # The relay kernels' path: the same stream through the eager window,
+    # to EAGER_STOP.
+    by_path["tcp-stream-16/eager-window"], _ = stream_pair(
+        16, EAGER_STOP, min_share=0.0, k_init=4, path="eager")
     # The main path of the standalone law kernels: the PHOLD/udp-mesh
     # family, phold-8k first.
     for name, (make, share, codel) in phold_cells().items():
@@ -1870,19 +2169,24 @@ def main(argv=None) -> int:
     # span kernel's over four rounds).
     stats["phold_window"] = window_stats["phold-64k-ring"]
     stats["phold_span"] = span_stats["phold-64k-ring"]
+    # The TCP window kernel's row: the 10,000-host export.
+    stats["tcp_window"] = tcp_stats["stream-10k"]
     # `launches`: the count on each kernel's main path (tcp-stream-10k
-    # for the relay kernels; phold-64k-ring with residency alone, through
+    # for the TCP window kernel; the 16-host stream through the eager
+    # window for the relay kernels, 0 on tcp-stream-10k since the window
+    # kernel; phold-64k-ring with residency alone, through
     # the plain window, for the law kernels; phold-64k-ring with the
     # overlap for the span kernel; phold-8k through the window kernel
     # for it, off the main path since the span kernel); `launches_by_path`:
     # every path's count, each zeroed just before its run.
     main_path = {"bucket_step": "phold-64k-ring/residency",
                  "codel_head": "phold-64k-ring/residency",
-                 "relay1_law": "tcp-stream-10k",
-                 "relay2_law": "tcp-stream-10k",
+                 "relay1_law": "tcp-stream-16/eager-window",
+                 "relay2_law": "tcp-stream-16/eager-window",
                  "propagate": "tier10k/forced",
                  "phold_window": "phold-8k/window",
-                 "phold_span": "phold-64k-ring/overlap"}
+                 "phold_span": "phold-64k-ring/overlap",
+                 "tcp_window": "tcp-stream-10k"}
     # library_ms: no single PyTorch call computes any of these laws.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
@@ -1892,6 +2196,7 @@ def main(argv=None) -> int:
                 "bound_by": s.get("bound_by", "bytes"), "library_ms": None,
                 "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"],
                 "ms_per_round": s.get("ms_per_round"),
+                "ms_uncached": s.get("ms_uncached"),
                 "phase_clocks": s.get("clocks"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]

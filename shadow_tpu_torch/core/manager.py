@@ -493,9 +493,8 @@ class Manager:
         """The run summary's dispatch section (the reference's
         `metrics.wall.dispatch` entries the port has): the overlap mode,
         the per-round propagator's `propagate` block, and, per
-        device-span family that was tried, its span counts, residency
-        and the `overlap` block (the PHOLD family's also its kernel
-        launches)."""
+        device-span family that was tried, its span counts, residency,
+        the `overlap` block and its kernel launches."""
         out = {"span_overlap": self.config.experimental.span_overlap,
                "span_overlap_on": self._span_overlap_on(),
                "propagate": self.propagator.summary()}
@@ -519,6 +518,10 @@ class Manager:
             r = self._dev_span
             out["device_span_phold"].update(span_launches=r.spans_all,
                                             kernel_windows=r.windows_all)
+        if self._dev_span_tcp is not None:
+            # The TCP family's window-kernel launches over every dispatch.
+            out["device_span_tcp"].update(
+                kernel_windows=self._dev_span_tcp.windows_all)
         return out
 
     # ------------------------------------------------------------------

@@ -261,86 +261,80 @@ static_assert(sizeof(Relay2Ops) ==
                   operand_pointers(kRelay2Operands) * sizeof(void*),
               "Relay2Ops: one pointer per name");
 
-// How the lanes below spend their time.  A lane's cost on the card is
-// its chain of dependent loads (each a trip to memory), not its bytes:
-// the mask byte, then the lane's words, then its packet (relay 1: the
-// picked conn's ring position first).  So each lane of the mask loads
-// every word a branch of it may need at once, one trip for all, and
-// writes back only the words that change.  A lane off the mask reads its
-// mask byte only; `pk` is handed back on lanes with a packet and `when`
-// on throttled lanes.
+// ---------------------------------------------------------------------
+// The relay tails as scalar cores over one lane's words.  A core takes
+// the lane's words (in place), whether it sends the stashed packet
+// (`use_pend`) or dequeues one (`pop`), and that packet; it returns what
+// the caller must do around it.  The array-indexed wrappers below
+// (relay1_lane / relay2_lane, what relay.cu launches) load the words,
+// call the core and write back what changed; the TCP window's lane
+// (tcp_lane.cuh) calls the cores on its own words.
+// ---------------------------------------------------------------------
 
-// The relay-1 (inet-out drain) tail of lane i after the qdisc pick: the
-// packet (the throttled stash or the picked conn's ring head), the eth
-// send counters, the r1 token bucket, the stash of a throttled packet,
-// the forward counters and the NIC-link-down drop.
-STT_LAW void relay1_lane(const Relay1Ops& o, const RelayParams& p,
-                         int64_t i) {
-  if (!o.mask[i]) {
-    o.throttled[i] = o.linkdn[i] = o.fwd[i] = o.done[i] = 0;
-    return;
-  }
-  // One trip: the lane's words.
-  const bool use_pend = o.pk_valid[i] == 1;
-  const bool pop = o.pop[i] != 0;
-  int64_t s = o.sel[i];
-  const int64_t now = o.now[i], fault = o.h_fault[i];
-  const int64_t bal0 = o.bal[i], nxt0 = o.nxt[i], refill = o.refill[i],
-                cap = o.cap[i], unlimited = o.unlimited[i];
-  const int64_t stalls = o.stalls[i], fwd_pkts = o.fwd_pkts[i],
-                fwd_bytes = o.fwd_bytes[i], sent = o.pkts_sent[i],
-                dropped = o.pkts_dropped[i], psent = o.eth_psent[i],
-                bsent = o.eth_bsent[i];
+// What a relay tail hands back: the flags the caller's ordered steps
+// (trace, timer push, outbox or conn hand-off) are masked by, the
+// throttled packet's refill instant, whether the packet must go to the
+// stash, and the laws it called.
+struct RelayOut {
+  bool codel_drop, throttled, linkdn, fwd, done, stash;
+  bool bucket_call, codel_call;
+  int64_t when;
+};
+
+// One lane's relay-1 words (the r1_* state, the send counters and the
+// link-down drop column).
+struct Relay1Words {
+  int64_t pk_valid, bal, nxt, stalls, pending, fwd_pkts, fwd_bytes,
+      pkts_sent, pkts_dropped, eth_psent, eth_bsent, drop_cause;
+};
+
+// The relay-1 (inet-out drain) tail after the qdisc pick: the eth send
+// counters of a popped packet, the r1 token bucket, the stash of a
+// throttled packet, the forward counters and the NIC-link-down drop.
+// `pk` is read only when there is a packet (use_pend or pop).
+STT_LAW RelayOut relay1_core(Relay1Words& w, bool use_pend, bool pop,
+                             const int64_t* pk, int64_t now, int64_t fault,
+                             int64_t refill, int64_t cap, bool unlimited,
+                             int64_t refill_ns, int64_t hdr) {
+  RelayOut r = {};
   if (!use_pend && !pop) {  // nothing to send: the drain is done
-    o.throttled[i] = o.linkdn[i] = o.fwd[i] = 0;
-    o.done[i] = 1;
-    return;
+    r.done = true;
+    return r;
   }
-  // The packet: the stash, or the picked conn's ring head (two trips).
-  int64_t pk[kPk];
-  if (use_pend) {
-    STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.stash[k][i];
-  } else {
-    s = s < 0 ? 0 : (s > p.conns - 1 ? p.conns - 1 : s);
-    const int64_t slot = s * p.ring + o.op_pos[s] % p.ring;
-    STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.ring[k][slot];
-  }
-  const int64_t size = pk[kPlenCol] + p.hdr;
+  const int64_t size = pk[kPlenCol] + hdr;
   if (pop) {
-    o.eth_psent[i] = psent + 1;
-    o.eth_bsent[i] = bsent + size;
+    w.eth_psent += 1;
+    w.eth_bsent += size;
   }
-  const BucketOut b = bucket_law(bal0, nxt0, refill, cap, unlimited == 1,
-                                 size, now, p.refill_ns);
-  if (b.bal != bal0) o.bal[i] = b.bal;
-  if (b.nxt != nxt0) o.nxt[i] = b.nxt;
-  const bool throttled = !b.ok;
-  bool linkdn = false;
-  if (throttled) {
-    o.stalls[i] = stalls + 1;
-    o.pending[i] = 1;
+  const BucketOut b =
+      bucket_law(w.bal, w.nxt, refill, cap, unlimited, size, now, refill_ns);
+  r.bucket_call = true;
+  w.bal = b.bal;
+  w.nxt = b.nxt;
+  r.throttled = !b.ok;
+  if (r.throttled) {
+    w.stalls += 1;
+    w.pending = 1;
     if (!use_pend) {  // a pending packet is already the stash
-      o.pk_valid[i] = 1;
-      STT_UNROLL for (int k = 0; k < kPk; k++) o.stash[k][i] = pk[k];
+      w.pk_valid = 1;
+      r.stash = true;
     }
-    o.when[i] = b.nxt;
+    r.when = b.nxt;
   } else {
-    if (use_pend) o.pk_valid[i] = 0;
-    o.fwd_pkts[i] = fwd_pkts + 1;
-    o.fwd_bytes[i] = fwd_bytes + size;
-    o.pkts_sent[i] = sent + 1;
+    if (use_pend) w.pk_valid = 0;
+    w.fwd_pkts += 1;
+    w.fwd_bytes += size;
+    w.pkts_sent += 1;
     // NIC link down: the send dies at the egress instant.
-    linkdn = (fault & 2) != 0;
-    if (linkdn) {
-      o.pkts_dropped[i] = dropped + 1;
-      o.drop_cause[i * p.dc_stride] += 1;
+    r.linkdn = (fault & 2) != 0;
+    if (r.linkdn) {
+      w.pkts_dropped += 1;
+      w.drop_cause += 1;
     }
   }
-  o.throttled[i] = throttled;
-  o.linkdn[i] = linkdn;
-  o.fwd[i] = !throttled && !linkdn;
-  o.done[i] = throttled;
-  STT_UNROLL for (int k = 0; k < kPk; k++) o.pk[k][i] = pk[k];
+  r.fwd = !r.throttled && !r.linkdn;
+  r.done = r.throttled;
+  return r;
 }
 
 // The CoDel words of one lane.
@@ -396,10 +390,151 @@ STT_LAW bool codel_ladder(CodelWords& w, const CodelHeadOut& h,
   return drop;
 }
 
-// The relay-2 (inet-in drain) tail of lane i: the CoDel dequeue (or the
-// throttled stash), the head law and the control-law ladder, the drop
-// counters, the r2 token bucket, the stash of a throttled packet and the
-// forward/eth receive counters.
+
+// One lane's relay-2 words (the ring position, CoDel's words and
+// counters, the r2_* state, the receive counters and the CoDel drop
+// column).
+struct Relay2Words {
+  int64_t pk_valid, cq_pos, codel_bytes;
+  CodelWords cw;
+  int64_t dropped, drop_bytes, pkts_dropped, drop_cause, bal, nxt, stalls,
+      pending, fwd_pkts, fwd_bytes, eth_precv, eth_brecv;
+};
+
+// The relay-2 (inet-in drain) tail: the CoDel dequeue of `pk` enqueued
+// at `enq` (or the stashed packet), the head law and the control-law
+// ladder, the drop counters, the r2 token bucket, the stash of a
+// throttled packet and the forward/eth receive counters.  With neither a
+// stash nor a packet queued the drain ends and so does any dropping
+// state.
+STT_LAW RelayOut relay2_core(Relay2Words& w, bool use_pend, bool pop,
+                             const int64_t* pk, int64_t enq, int64_t now,
+                             int64_t refill, int64_t cap, bool unlimited,
+                             const RelayParams& p) {
+  RelayOut r = {};
+  if (!use_pend && !pop) {
+    w.cw.first_above = w.cw.dropping = w.cw.chain = w.cw.sniff = 0;
+    r.done = true;
+    return r;
+  }
+  const int64_t size = pk[kPlenCol] + p.hdr;
+  if (pop) {
+    w.cq_pos += 1;
+    w.codel_bytes -= size;
+    const CodelHeadOut h =
+        codel_head_law(true, false, now, enq, w.codel_bytes,
+                       w.cw.first_above, p.target_ns, p.mtu, p.interval_ns);
+    r.codel_call = true;
+    if (codel_ladder(w.cw, h, now)) {
+      w.dropped += 1;
+      w.drop_bytes += size;
+      w.pkts_dropped += 1;
+      w.drop_cause += 1;
+      r.codel_drop = true;
+      return r;
+    }
+  }
+  const BucketOut b =
+      bucket_law(w.bal, w.nxt, refill, cap, unlimited, size, now, p.refill_ns);
+  r.bucket_call = true;
+  w.bal = b.bal;
+  w.nxt = b.nxt;
+  r.throttled = !b.ok;
+  if (r.throttled) {
+    w.stalls += 1;
+    w.pending = 1;
+    if (!use_pend) {
+      w.pk_valid = 1;
+      r.stash = true;
+    }
+    r.when = b.nxt;
+  } else {
+    if (use_pend) w.pk_valid = 0;
+    w.fwd_pkts += 1;
+    w.fwd_bytes += size;
+    w.eth_precv += 1;
+    w.eth_brecv += size;
+  }
+  r.fwd = !r.throttled;
+  r.done = r.throttled;
+  return r;
+}
+
+// How the wrappers below spend their time.  A lane's cost on the card is
+// its chain of dependent loads (each a trip to memory), not its bytes:
+// the mask byte, then the lane's words, then its packet (relay 1: the
+// picked conn's ring position first).  So each lane of the mask loads
+// every word a branch of it may need at once, one trip for all, and
+// writes back only the words that change.  A lane off the mask reads its
+// mask byte only; `pk` is handed back on lanes with a packet and `when`
+// on throttled lanes.
+
+#define STT_PUT_CHANGED(ptr, idx, v0, v) \
+  if ((v) != (v0)) (ptr)[idx] = (v);
+
+// The relay-1 tail of lane i (relay1_core on the lane's words): the
+// packet is the throttled stash or the picked conn's ring head.
+STT_LAW void relay1_lane(const Relay1Ops& o, const RelayParams& p,
+                         int64_t i) {
+  if (!o.mask[i]) {
+    o.throttled[i] = o.linkdn[i] = o.fwd[i] = o.done[i] = 0;
+    return;
+  }
+  // One trip: the lane's words.
+  const bool use_pend = o.pk_valid[i] == 1;
+  const bool pop = o.pop[i] != 0;
+  int64_t s = o.sel[i];
+  const int64_t now = o.now[i], fault = o.h_fault[i];
+  const int64_t refill = o.refill[i], cap = o.cap[i],
+                unlimited = o.unlimited[i];
+  const int64_t dc = i * p.dc_stride;
+  const Relay1Words w0 = {o.pk_valid[i], o.bal[i],       o.nxt[i],
+                          o.stalls[i],   o.pending[i],   o.fwd_pkts[i],
+                          o.fwd_bytes[i], o.pkts_sent[i], o.pkts_dropped[i],
+                          o.eth_psent[i], o.eth_bsent[i], o.drop_cause[dc]};
+  if (!use_pend && !pop) {  // nothing to send: the drain is done
+    o.throttled[i] = o.linkdn[i] = o.fwd[i] = 0;
+    o.done[i] = 1;
+    return;
+  }
+  // The packet: the stash, or the picked conn's ring head (two trips).
+  int64_t pk[kPk];
+  if (use_pend) {
+    STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.stash[k][i];
+  } else {
+    s = s < 0 ? 0 : (s > p.conns - 1 ? p.conns - 1 : s);
+    const int64_t slot = s * p.ring + o.op_pos[s] % p.ring;
+    STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.ring[k][slot];
+  }
+  Relay1Words w = w0;
+  const RelayOut r = relay1_core(w, use_pend, pop, pk, now, fault, refill,
+                                 cap, unlimited == 1, p.refill_ns, p.hdr);
+  STT_PUT_CHANGED(o.pk_valid, i, w0.pk_valid, w.pk_valid)
+  STT_PUT_CHANGED(o.bal, i, w0.bal, w.bal)
+  STT_PUT_CHANGED(o.nxt, i, w0.nxt, w.nxt)
+  STT_PUT_CHANGED(o.stalls, i, w0.stalls, w.stalls)
+  STT_PUT_CHANGED(o.pending, i, w0.pending, w.pending)
+  STT_PUT_CHANGED(o.fwd_pkts, i, w0.fwd_pkts, w.fwd_pkts)
+  STT_PUT_CHANGED(o.fwd_bytes, i, w0.fwd_bytes, w.fwd_bytes)
+  STT_PUT_CHANGED(o.pkts_sent, i, w0.pkts_sent, w.pkts_sent)
+  STT_PUT_CHANGED(o.pkts_dropped, i, w0.pkts_dropped, w.pkts_dropped)
+  STT_PUT_CHANGED(o.eth_psent, i, w0.eth_psent, w.eth_psent)
+  STT_PUT_CHANGED(o.eth_bsent, i, w0.eth_bsent, w.eth_bsent)
+  STT_PUT_CHANGED(o.drop_cause, dc, w0.drop_cause, w.drop_cause)
+  if (r.stash) {
+    STT_UNROLL for (int k = 0; k < kPk; k++) o.stash[k][i] = pk[k];
+  }
+  if (r.throttled) o.when[i] = r.when;
+  o.throttled[i] = r.throttled;
+  o.linkdn[i] = r.linkdn;
+  o.fwd[i] = r.fwd;
+  o.done[i] = r.done;
+  STT_UNROLL for (int k = 0; k < kPk; k++) o.pk[k][i] = pk[k];
+}
+
+// The relay-2 tail of lane i (relay2_core on the lane's words): the
+// packet is the throttled stash or the CoDel ring's head with its
+// enqueue stamp.
 STT_LAW void relay2_lane(const Relay2Ops& o, const RelayParams& p,
                          int64_t i) {
   if (!o.mask[i]) {
@@ -409,27 +544,28 @@ STT_LAW void relay2_lane(const Relay2Ops& o, const RelayParams& p,
   // One trip: the lane's words.
   const bool use_pend = o.pk_valid[i] == 1;
   const int64_t cp = o.cq_pos[i], len = o.cq_len[i], now = o.now[i];
-  const int64_t cbytes0 = o.codel_bytes[i];
-  const CodelWords w0 = {o.first_above[i], o.dropping[i], o.chain[i],
-                         o.sniff[i],       o.count[i],    o.last_count[i],
-                         o.drop_next[i]};
-  const int64_t bal0 = o.bal[i], nxt0 = o.nxt[i], refill = o.refill[i],
-                cap = o.cap[i], unlimited = o.unlimited[i];
-  const int64_t stalls = o.stalls[i], fwd_pkts = o.fwd_pkts[i],
-                fwd_bytes = o.fwd_bytes[i], precv = o.eth_precv[i],
-                brecv = o.eth_brecv[i], cd_dropped = o.dropped[i],
-                cd_bytes = o.drop_bytes[i], dropped = o.pkts_dropped[i];
+  const int64_t refill = o.refill[i], cap = o.cap[i],
+                unlimited = o.unlimited[i];
+  const int64_t dc = i * p.dc_stride;
+  const Relay2Words w0 = {
+      o.pk_valid[i],
+      cp,
+      o.codel_bytes[i],
+      {o.first_above[i], o.dropping[i], o.chain[i], o.sniff[i], o.count[i],
+       o.last_count[i], o.drop_next[i]},
+      o.dropped[i],
+      o.drop_bytes[i],
+      o.pkts_dropped[i],
+      o.drop_cause[dc],
+      o.bal[i],
+      o.nxt[i],
+      o.stalls[i],
+      o.pending[i],
+      o.fwd_pkts[i],
+      o.fwd_bytes[i],
+      o.eth_precv[i],
+      o.eth_brecv[i]};
   const bool pop = !use_pend && len > cp;
-  if (!use_pend && !pop) {
-    // An empty queue ends the drain and any dropping state.
-    if (w0.first_above != 0) o.first_above[i] = 0;
-    if (w0.dropping != 0) o.dropping[i] = 0;
-    if (w0.chain != 0) o.chain[i] = 0;
-    if (w0.sniff != 0) o.sniff[i] = 0;
-    o.codel_drop[i] = o.throttled[i] = o.fwd[i] = 0;
-    o.done[i] = 1;
-    return;
-  }
   // The packet: the stash, or the ring head with its enqueue stamp (one
   // more trip).
   int64_t pk[kPk];
@@ -437,63 +573,45 @@ STT_LAW void relay2_lane(const Relay2Ops& o, const RelayParams& p,
   int64_t enq = 0;
   if (use_pend) {
     STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.stash[k][i];
-  } else {
+  } else if (pop) {
     STT_UNROLL for (int k = 0; k < kPk; k++) pk[k] = o.ring[k][slot];
     enq = o.cq_enq[slot];
   }
-  const int64_t size = pk[kPlenCol] + p.hdr;
-  if (pop) {
-    o.cq_pos[i] = cp + 1;
-    const int64_t cbytes = cbytes0 - size;
-    o.codel_bytes[i] = cbytes;
-    const CodelHeadOut h = codel_head_law(true, false, now, enq, cbytes,
-                                          w0.first_above, p.target_ns,
-                                          p.mtu, p.interval_ns);
-    CodelWords w = w0;
-    const bool drop = codel_ladder(w, h, now);
-    if (w.first_above != w0.first_above) o.first_above[i] = w.first_above;
-    if (w.dropping != w0.dropping) o.dropping[i] = w.dropping;
-    if (w.chain != w0.chain) o.chain[i] = w.chain;
-    if (w.sniff != w0.sniff) o.sniff[i] = w.sniff;
-    if (w.count != w0.count) o.count[i] = w.count;
-    if (w.last_count != w0.last_count) o.last_count[i] = w.last_count;
-    if (w.drop_next != w0.drop_next) o.drop_next[i] = w.drop_next;
-    if (drop) {
-      o.dropped[i] = cd_dropped + 1;
-      o.drop_bytes[i] = cd_bytes + size;
-      o.pkts_dropped[i] = dropped + 1;
-      o.drop_cause[i * p.dc_stride] += 1;
-      o.codel_drop[i] = 1;
-      o.throttled[i] = o.fwd[i] = o.done[i] = 0;
-      STT_UNROLL for (int k = 0; k < kPk; k++) o.pk[k][i] = pk[k];
-      return;
-    }
+  Relay2Words w = w0;
+  const RelayOut r = relay2_core(w, use_pend, pop, pk, enq, now, refill, cap,
+                                 unlimited == 1, p);
+  STT_PUT_CHANGED(o.pk_valid, i, w0.pk_valid, w.pk_valid)
+  STT_PUT_CHANGED(o.cq_pos, i, w0.cq_pos, w.cq_pos)
+  STT_PUT_CHANGED(o.codel_bytes, i, w0.codel_bytes, w.codel_bytes)
+  STT_PUT_CHANGED(o.first_above, i, w0.cw.first_above, w.cw.first_above)
+  STT_PUT_CHANGED(o.dropping, i, w0.cw.dropping, w.cw.dropping)
+  STT_PUT_CHANGED(o.chain, i, w0.cw.chain, w.cw.chain)
+  STT_PUT_CHANGED(o.sniff, i, w0.cw.sniff, w.cw.sniff)
+  STT_PUT_CHANGED(o.count, i, w0.cw.count, w.cw.count)
+  STT_PUT_CHANGED(o.last_count, i, w0.cw.last_count, w.cw.last_count)
+  STT_PUT_CHANGED(o.drop_next, i, w0.cw.drop_next, w.cw.drop_next)
+  STT_PUT_CHANGED(o.dropped, i, w0.dropped, w.dropped)
+  STT_PUT_CHANGED(o.drop_bytes, i, w0.drop_bytes, w.drop_bytes)
+  STT_PUT_CHANGED(o.pkts_dropped, i, w0.pkts_dropped, w.pkts_dropped)
+  STT_PUT_CHANGED(o.drop_cause, dc, w0.drop_cause, w.drop_cause)
+  STT_PUT_CHANGED(o.bal, i, w0.bal, w.bal)
+  STT_PUT_CHANGED(o.nxt, i, w0.nxt, w.nxt)
+  STT_PUT_CHANGED(o.stalls, i, w0.stalls, w.stalls)
+  STT_PUT_CHANGED(o.pending, i, w0.pending, w.pending)
+  STT_PUT_CHANGED(o.fwd_pkts, i, w0.fwd_pkts, w.fwd_pkts)
+  STT_PUT_CHANGED(o.fwd_bytes, i, w0.fwd_bytes, w.fwd_bytes)
+  STT_PUT_CHANGED(o.eth_precv, i, w0.eth_precv, w.eth_precv)
+  STT_PUT_CHANGED(o.eth_brecv, i, w0.eth_brecv, w.eth_brecv)
+  if (r.stash) {
+    STT_UNROLL for (int k = 0; k < kPk; k++) o.stash[k][i] = pk[k];
   }
-  const BucketOut b = bucket_law(bal0, nxt0, refill, cap, unlimited == 1,
-                                 size, now, p.refill_ns);
-  if (b.bal != bal0) o.bal[i] = b.bal;
-  if (b.nxt != nxt0) o.nxt[i] = b.nxt;
-  const bool throttled = !b.ok;
-  if (throttled) {
-    o.stalls[i] = stalls + 1;
-    o.pending[i] = 1;
-    if (!use_pend) {
-      o.pk_valid[i] = 1;
-      STT_UNROLL for (int k = 0; k < kPk; k++) o.stash[k][i] = pk[k];
-    }
-    o.when[i] = b.nxt;
-  } else {
-    if (use_pend) o.pk_valid[i] = 0;
-    o.fwd_pkts[i] = fwd_pkts + 1;
-    o.fwd_bytes[i] = fwd_bytes + size;
-    o.eth_precv[i] = precv + 1;
-    o.eth_brecv[i] = brecv + size;
+  if (r.throttled) o.when[i] = r.when;
+  o.codel_drop[i] = r.codel_drop;
+  o.throttled[i] = r.throttled;
+  o.fwd[i] = r.fwd;
+  o.done[i] = r.done;
+  if (use_pend || pop) {
+    STT_UNROLL for (int k = 0; k < kPk; k++) o.pk[k][i] = pk[k];
   }
-  o.codel_drop[i] = 0;
-  o.throttled[i] = throttled;
-  o.fwd[i] = !throttled;
-  o.done[i] = throttled;
-  STT_UNROLL for (int k = 0; k < kPk; k++) o.pk[k][i] = pk[k];
 }
-
 }  // namespace stt

@@ -39,18 +39,18 @@ interface with ctypes.  Nothing is imported or built at import time.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import torch
 
+from shadow_tpu_torch.ops import window_table
 from shadow_tpu_torch.ops.queues import (CODEL_INTERVAL_NS, CODEL_TARGET_NS,
                                          MTU, REFILL_NS, KernelLibrary)
+# parse_words: re-exported for ops/phold_span_kernel.py.
+from shadow_tpu_torch.ops.window_table import (  # noqa: F401
+    LaneTable, changed_bytes, parse_words)
 
 # The packet columns in the kernel's order (ops/phold_span.py PK_KEYS).
 PK_KEYS = ("srchost", "pseq", "sip", "sport", "dip", "dport")
-
-_DTYPES = {"uint8_t": torch.bool, "uint32_t": torch.int32,
-           "int64_t": torch.int64}
 
 
 def _declare(lib) -> None:
@@ -70,156 +70,49 @@ LIBRARY = KernelLibrary("phold_window.cu", "libstt_phold_window.so",
                         flags=("-Xptxas=-v",))
 
 
-@dataclass(frozen=True)
-class Operand:
-    """One pointer of the kernel's operand table."""
-
-    key: str        # span-state key, or "win.*" (a WindowTable buffer)
-    dims: tuple     # shape in the table's names (() for a 0-d tensor)
-    dtype: torch.dtype
-    written: bool
-
-
 def parse_operands(text: str) -> list:
     """The operand table `stt_phold_operands()` names ("type|key|dims;"
     per field): a "_*" key is one operand per packet column, a "pk*" key
     one per column after srchost."""
-    ops = []
-    for entry in filter(None, text.split(";")):
-        ctype, key, dims = entry.split("|")
-        if key.endswith("_*"):
-            keys = [key[:-1] + k for k in PK_KEYS]
-        elif key.endswith("pk*"):
-            keys = [key[:-3] + k for k in PK_KEYS[1:]]
-        else:
-            keys = [key]
-        base = ctype.replace("const ", "").rstrip("*").strip()
-        ops += [Operand(k, tuple(filter(None, dims.split(","))),
-                        _DTYPES[base], not ctype.startswith("const"))
-                for k in keys]
-    return ops
-
-
-def parse_words(text: str) -> dict:
-    """"NAME=value ..." -> {NAME: int}."""
-    return {k: int(v) for k, v in
-            (w.split("=") for w in text.split())}
+    return window_table.parse_operands(text, WindowTable.EXPAND)
 
 
 def check_consts(lib) -> None:
     """The kernel's copies of the loop's constants against the loop's."""
     from shadow_tpu_torch.ops import phold_span
-    bad = {k: (v, getattr(phold_span, k, None))
-           for k, v in parse_words(lib.stt_phold_consts().decode()).items()
-           if getattr(phold_span, k, None) != v}
-    if bad:
-        raise RuntimeError(f"phold_window: constants differ from "
-                           f"ops/phold_span.py (kernel, loop): {bad}")
+    window_table.check_consts("phold_window",
+                              lib.stt_phold_consts().decode(), phold_span)
 
 
-class WindowTable:
+class WindowTable(LaneTable):
     """The kernel's operand and parameter tables for one span build,
     filled by the names `lib` returns (the nvcc library, or the tests'
     host build of the same header).  `shape` gives the table's dimension
     names (n, I, T, R, S, C, asys, tel, out, tr) and the build's
     constant parameters; `begin` completes both from the run's state."""
 
-    # The library's name functions and the words set per run or launch
-    # rather than by the build (a subclass's kernel takes more).
+    FAMILY = "phold_window"
     OPERANDS = "stt_phold_operands"
     PARAMS = "stt_phold_params"
+    STATS = "stt_phold_stats"
+    BITMAP_WORDS = "stt_phold_bitmap_words"
+    EXPAND = {"pk*": PK_KEYS[1:], "*": PK_KEYS}
     LAUNCH_WORDS = ("n_peer_cols", "psize", "pay", "window_end")
 
-    def __init__(self, lib, shape: dict, params: dict):
-        self.lib = lib
+    def check_consts(self, lib) -> None:
         check_consts(lib)
-        self.ops = parse_operands(getattr(lib, self.OPERANDS)().decode())
-        self.names = getattr(lib, self.PARAMS)().decode().split()
-        self.layout = parse_words(lib.stt_phold_stats().decode())
-        self.words = int(lib.stt_phold_bitmap_words())
-        self.dims = dict(shape, passes=self.layout["N_PASSES"],
-                         words=self.words, stats=self.layout["ST_N"])
-        self.params = dict(params, bitmap_words=self.words,
-                           refill_ns=REFILL_NS, target_ns=CODEL_TARGET_NS,
-                           mtu=MTU, interval_ns=CODEL_INTERVAL_NS)
-        want = set(self.params) | set(self.LAUNCH_WORDS)
-        if set(self.names) != want:
-            raise RuntimeError(f"phold_window: the kernel's parameters "
-                               f"{self.names} are not {sorted(want)}")
-        self._table = (ctypes.c_uint64 * len(self.ops))()
-        self._words = (ctypes.c_longlong * len(self.names))()
-        self._addr = (ctypes.addressof(self._table),
-                      ctypes.addressof(self._words))
-        self.written = [j for j, o in enumerate(self.ops) if o.written]
+
+    def fixed_params(self) -> dict:
+        return {"refill_ns": REFILL_NS, "target_ns": CODEL_TARGET_NS,
+                "mtu": MTU, "interval_ns": CODEL_INTERVAL_NS}
 
     def begin(self, st: dict, pay: int) -> None:
         """A run's start: zeroed bitmaps and statistics on the state's
         device; the peer width and packet size from the run."""
-        dev = st["now"].device
-        self.bitmap = torch.zeros((self.dims["passes"], self.words),
-                                  dtype=torch.int32, device=dev)
-        self.stats = torch.zeros(self.layout["ST_N"], dtype=torch.int64,
-                                 device=dev)
+        super().begin(st)
         self.dims["P"] = st["peers"].shape[1]
         self.params.update(n_peer_cols=self.dims["P"], pay=pay,
                            psize=pay + 28)
-        self._checked = False
-
-    def _tensor(self, st, key):
-        if key == "win.bitmap":
-            return self.bitmap
-        if key == "win.stats":
-            return self.stats
-        return st.get(key)
-
-    def _check(self, o: Operand, t) -> None:
-        if t is None:
-            if o.key.startswith("tr_") and not self.params["tracing"]:
-                return
-            raise KeyError(f"phold_window: no operand {o.key!r}")
-        if not isinstance(t, torch.Tensor) or t.dtype != o.dtype:
-            raise TypeError(f"phold_window {o.key}: expected {o.dtype}, got "
-                            f"{getattr(t, 'dtype', type(t))}")
-        want = tuple(self.dims[d] for d in o.dims)
-        if tuple(t.shape) != want:
-            raise ValueError(f"phold_window {o.key}: expected shape {want} "
-                             f"({', '.join(o.dims)}), got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"phold_window {o.key}: not contiguous")
-
-    def fill(self, st: dict, window_end: int = 0, **words) -> tuple:
-        """Both tables for one launch (`words`: the launch's other
-        LAUNCH_WORDS); returns their addresses.  The first fill of a run
-        checks every operand by its table entry."""
-        ts = [self._tensor(st, o.key) for o in self.ops]
-        if not self._checked:
-            for o, t in zip(self.ops, ts):
-                self._check(o, t)
-            self._checked = True
-        ptrs = [0 if t is None else t.data_ptr() for t in ts]
-        written = [ptrs[j] for j in self.written if ptrs[j]]
-        if len(set(written)) != len(written):
-            raise RuntimeError("phold_window: two written operands share "
-                               "storage; the kernel writes in place")
-        self._table[:] = ptrs
-        self.params["window_end"] = int(window_end)
-        self.params.update((k, int(v)) for k, v in words.items())
-        self._words[:] = [self.params[k] for k in self.names]
-        return self._addr
-
-    def end(self) -> dict:
-        """The run's counts, summed over its windows: fires and lanes by
-        KS slot, the law calls (bucket, CoDel head) made in the lanes and
-        the micro-iterations (each window's largest lane count)."""
-        return self.counts(self.stats.cpu().numpy())
-
-    def counts(self, s) -> dict:
-        """WindowTable.end's counts from the statistics words `s`."""
-        lay = self.layout
-        return {"fires": s[lay["ST_FIRES"]:lay["ST_LANES"]].copy(),
-                "lanes": s[lay["ST_LANES"]:lay["ST_CALLS"]].copy(),
-                "calls": s[lay["ST_CALLS"]:lay["ST_ITERS"]].copy(),
-                "iters": int(s[lay["ST_ITERS"]])}
 
 
 class PholdWindow:
@@ -327,15 +220,6 @@ def window_read_bytes(before: dict, after: dict) -> dict:
         + 40 * delta("out_n")}
     parts["total"] = sum(parts.values())
     return parts
-
-
-def changed_bytes(ops: list, before: dict, after: dict) -> int:
-    """Every element of a written operand whose value differs between
-    `before` and `after`, at its size (an unchanged word need not be
-    written)."""
-    return sum(int((after[o.key] != before[o.key]).sum())
-               * after[o.key].element_size()
-               for o in ops if o.written and o.key in after)
 
 
 def window_need_bytes(ops: list, before: dict, after: dict) -> dict:

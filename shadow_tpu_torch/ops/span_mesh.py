@@ -28,8 +28,10 @@ resident carry a refused window falls back on is touched by it.  The
 next `try_span` lands the window only when its params match and the
 epoch is the one stamped after K's import; otherwise it is discarded
 unimported.  A window's counters are credited on landing only, except
-the per-dispatch launch counts (`fires_all`, `calls_all`): its kernels
-did launch.  The sharded exchange is not ported yet (ROADMAP A5).
+the per-dispatch launch counts (`fires_all`, `calls_all`,
+`windows_all`): its kernels did launch, on the worker's stream (a
+window or span kernel's wrapper launches on the current stream).  The
+sharded exchange is not ported yet (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -254,9 +256,9 @@ class SpanMeshMixin:
 
     def _note_dispatch(self, st_out) -> None:
         """Launch counts of every dispatch, whatever its fate: stage
-        fires (one relay-kernel launch each on the TCP loop) and, where
-        the loop counts them, the law calls, the windows a kernel stepped
-        and the span-kernel launches."""
+        fires (one relay-kernel launch each on the TCP eager window) and,
+        where the loop counts them, the law calls, the windows a kernel
+        stepped and the span-kernel launches."""
         self.fires_all += st_out["ks_fires"]
         if "ks_calls" in st_out:
             self.calls_all += st_out["ks_calls"]

@@ -41,14 +41,23 @@ where it is handled):
   skipping saves the launches of the whole stage, which is the larger
   cost on the card as on the CPU.  The loop conditions cost one sync
   per micro-iteration and one per round.
-- Speed.  Launch overhead dominates this first form; CUDA graphs and a
-  persistent kernel are later work (ROADMAP B5).
+- Speed.  This eager form pays the host per stage and per
+  micro-iteration; on the card the window is one kernel launch instead
+  (below), and the round end stays eager (a persistent span kernel is
+  ROADMAP B5b).
 
-The relay micro-ops launch the fused hand kernels `RELAY1_LAW` and
-`RELAY2_LAW` (ops/relay.py, csrc/relay.cu) for their lane-local tails,
-which hold the bucket and CoDel-head laws at the sites where the JAX
-code calls the Pallas kernels; those kernels write the span state in
-place on the stage's lanes.
+The window step.  On the card (`window_factory` None) each window is one
+launch of the hand kernel `stt_tcp_window` (ops/tcp_window.py,
+csrc/tcp_window.cu): one thread per host lane runs the fused schedule
+(csrc/tcp_lane.cuh), the relay tails' bucket and CoDel-head laws inside
+the lane, and the round end (propagation, the inbox merge) runs eagerly
+after it.  The eager window (`run.window_plain`) is its plain version:
+the CPU runs it, and so does the card with the `window_factory`
+`tcp_window.eager_window`.  There the relay micro-ops launch the fused
+hand kernels `RELAY1_LAW` and `RELAY2_LAW` (ops/relay.py, csrc/relay.cu)
+for their lane-local tails, which hold the bucket and CoDel-head laws at
+the sites where the JAX code calls the Pallas kernels; those kernels
+write the span state in place on the stage's lanes.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from shadow_tpu_torch.ops.relay import RelayConsts, RelayLaw
 from shadow_tpu_torch.ops.span_common import I64_MAX, merge_inbox
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
+from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
 
 SEQ_HALF = 1 << 31
 SEQ_MOD = 1 << 32
@@ -400,8 +410,24 @@ class TcpSpanRunner(SpanMeshMixin):
         self.ks_lanes = np.zeros(KS_N, np.int64)
         self.ks_wall_s = np.zeros(KS_N)
         # Stage fires of every dispatch (aborted and refused ones too):
-        # one relay-kernel launch per fire of a relay stage.
+        # one relay-kernel launch per fire of a relay stage on the eager
+        # window.
         self.fires_all = np.zeros(KS_N, np.int64)
+        # The window step.  None: one stt_tcp_window launch a window on
+        # the card, else the eager window; a hook `window_factory(shape,
+        # params)` makes it instead (tcp_window.eager_window: None, the
+        # eager window; the tests' host build of the lane law).
+        self.window_factory = None
+        # The law calls made in the window kernel's lanes (CALL_* slots:
+        # bucket, CoDel head) of committed spans and of every dispatch;
+        # windows the kernel stepped and their launch-to-end time (ms,
+        # CUDA events) of committed spans, and the windows of every
+        # dispatch.
+        self.ks_calls = np.zeros(2, np.int64)
+        self.calls_all = np.zeros(2, np.int64)
+        self.ks_windows = 0
+        self.ks_window_ms = 0.0
+        self.windows_all = 0
         self._n_conns = 0     # live connections (set from export)
         self.last_abort_code = 0
         self.last_was_cold = False
@@ -680,14 +706,45 @@ class TcpSpanRunner(SpanMeshMixin):
 
     def _cached_build(self):
         key = (self._H, self._CC, self._caps(), self.cap_out,
-               self.cap_tr, self.tracing, self.dctcp_k, str(self.device))
+               self.cap_tr, self.tracing, self.dctcp_k, str(self.device),
+               self.window_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
+
+    def _window_shape(self) -> tuple:
+        """The window kernel's table dimensions and build parameters."""
+        H, CC = self._H, self._CC
+        I, T, CQ, RT, RA, OP = self._caps()
+        shape = {"n": H, "n+1": H + 1, "cc": CC, "cc+1": CC + 1, "I": I,
+                 "T": T, "CQ": CQ, "RT": RT, "RA": RA, "OP": OP,
+                 "asys": ASYS_N, "tel": TEL_N, "mark": MARK_N,
+                 "out": self.cap_out + 1, "tr": self.cap_tr + 1}
+        params = {"n": H, "conns": CC, "cap_i": I, "cap_t": T,
+                  "cap_cq": CQ, "cap_rt": RT, "cap_ra": RA, "cap_op": OP,
+                  "cap_out": self.cap_out, "cap_tr": self.cap_tr,
+                  "tracing": int(self.tracing), "k_pkts": self.dctcp_k[0],
+                  "k_bytes": self.dctcp_k[1], "th_cache": 1}
+        return shape, params
+
+    def _window_step(self):
+        """A build's window step: the hook's, else the window kernel's on
+        the card; None runs the eager window."""
+        factory = self.window_factory
+        if factory is None:
+            if self.device.type != "cuda":
+                return None
+            factory = TCP_WINDOW.bind
+        return factory(*self._window_shape())
 
     def _build(self):
         """Return `run(st, start, stop, limit, runahead, max_rounds)`,
-        the eager twin of the reference's jitted span loop.  `run`
-        updates its input state in place (the reference's donation
-        semantics), so a retry re-exports."""
+        the eager twin of the reference's jitted span loop.  Its parts
+        hang on it: `run.prepare(st)` makes a span's local buffers and
+        indexes, `run.window_plain(st, window_end)` steps one window
+        eagerly (the window kernel's plain version), `run.round_end(st,
+        window_end)` the eager round end, and `run.step` is the build's
+        window step (None: the eager window).  `run` updates its input
+        state in place (the reference's donation semantics), so a retry
+        re-exports."""
         H = self._H
         CC = self._CC
         I, T, CQ, RT, RA, OP = self._caps()
@@ -696,6 +753,7 @@ class TcpSpanRunner(SpanMeshMixin):
         tracing = self.tracing
         k_pkts, k_bytes = self.dctcp_k
         dev = self.device
+        step = self._window_step()
         i64 = torch.int64
         hidx = torch.arange(H, dtype=i64, device=dev)
         # Out-of-bounds scatters: conn-major masked lanes write the
@@ -1786,6 +1844,19 @@ class TcpSpanRunner(SpanMeshMixin):
             go, n_due = torch.stack([go, (due & ~busy).sum()]).tolist()
             return bool(go), n_due
 
+        def window_plain(st, window_end) -> int:
+            """The eager window (the kernel's plain version): iterations
+            until no lane is busy or due, or an abort; returns their
+            count and credits the stage counters in `st`."""
+            it = 0
+            while True:
+                go, n_due = micro_busy(st, window_end)
+                if not go:
+                    break
+                micro_iter(st, window_end, it, n_due)
+                it += 1
+            return it
+
         # -------- round end: propagation + inbox merge ---------------
 
         ar_o = torch.arange(O, dtype=i64, device=dev)
@@ -1849,7 +1920,9 @@ class TcpSpanRunner(SpanMeshMixin):
 
         # -------- the multi-round loop -------------------------------
 
-        def run(st, start, stop, limit, runahead, max_rounds):
+        def prepare(st):
+            """A span's local buffers, counters and conn indexes, made
+            anew in `st`."""
             z = torch.zeros((), dtype=i64, device=dev)
             st["abort_code"] = z.clone()
             st["abort_site"] = z.clone()
@@ -1868,6 +1941,13 @@ class TcpSpanRunner(SpanMeshMixin):
             order = torch.argsort(ckey, stable=True)
             st["_ckeys"] = ckey[order]
             st["_ckperm"] = order
+            # Each host's conn rows (CSR over c_host, rows ascending; the
+            # unused rows, c_host = -1, after the last host's): the window
+            # kernel's lanes walk their own rows for the qdisc pick.
+            owner = where(c_host >= 0, c_host, H)
+            st["_conn_rows"] = torch.argsort(owner, stable=True)
+            st["_conn_off"] = torch.cat([z.view(1), torch.cumsum(
+                torch.bincount(owner, minlength=H + 1)[:H], 0)])
             # Flat span-local buffers carry one trash slot at the end.
             st["out_n"] = z.clone()
             for k in ("out_src", "out_dst", "out_seq", "out_t") + tuple(
@@ -1881,31 +1961,41 @@ class TcpSpanRunner(SpanMeshMixin):
                     st[k] = torch.zeros(TR + 1, dtype=i64, device=dev)
 
             # Span-local stage counters (the reference's ks_fires /
-            # ks_lanes, plus host wall per stage): output only, never
-            # engine state.
+            # ks_lanes, plus host wall per stage), the law calls made in
+            # the window kernel's lanes and its windows: output only,
+            # never engine state.
             st["ks_fires"] = np.zeros(KS_N, np.int64)
             st["ks_lanes"] = np.zeros(KS_N, np.int64)
             st["ks_wall_s"] = np.zeros(KS_N)
+            st["ks_calls"] = np.zeros(2, np.int64)
+            st["ks_windows"] = 0
+            st["ks_window_ms"] = 0.0
 
+        def round_end(st, window_end):
+            """Propagation and the inbox merge after a window, then the
+            round's scalars in one host sync: (packets, least kept
+            latency, next start, abort word)."""
+            n_out, min_lat = propagate(st, window_end)
+            ib_t, th_t = next_event_time(st)
+            return torch.stack([
+                n_out, min_lat, torch.minimum(ib_t, th_t).min(),
+                st["abort_code"]]).tolist()
+
+        def run(st, start, stop, limit, runahead, max_rounds):
+            prepare(st)
+            if step is not None:
+                step.begin(st)
             rounds = busy_rounds = packets = iters = 0
             busy_end = start
             aborted = False
             while (rounds < max_rounds and start < limit and start < stop
                    and not aborted):
                 window_end = min(start + runahead, stop)
-                it = 0
-                while True:
-                    go, n_due = micro_busy(st, window_end)
-                    if not go:
-                        break
-                    micro_iter(st, window_end, it, n_due)
-                    it += 1
-                n_out, min_lat = propagate(st, window_end)
-                ib_t, th_t = next_event_time(st)
-                # One sync per round for the round's scalars.
-                n_out, min_lat, nxt, code = torch.stack([
-                    n_out, min_lat, torch.minimum(ib_t, th_t).min(),
-                    st["abort_code"]]).tolist()
+                if step is None:
+                    iters += window_plain(st, window_end)
+                else:
+                    step(st, window_end)  # one launch, no host sync
+                n_out, min_lat, nxt, code = round_end(st, window_end)
                 if 0 < min_lat < runahead:
                     runahead = min_lat
                 start = nxt
@@ -1913,11 +2003,22 @@ class TcpSpanRunner(SpanMeshMixin):
                 busy_rounds += int(n_out > 0)
                 packets += n_out
                 busy_end = window_end
-                iters += it
                 aborted = code != 0
+            if step is not None:
+                # The kernel's counts: the law calls are its lanes'.
+                got = step.end()
+                for k in ("fires", "lanes", "calls"):
+                    st[f"ks_{k}"] += got[k]
+                iters = got["iters"]
+                st["ks_windows"] = got["windows"]
+                st["ks_window_ms"] = got["window_ms"]
             return (st, start, runahead, rounds, busy_rounds, packets,
                     busy_end, iters)
 
+        run.prepare, run.window_plain, run.round_end = (prepare,
+                                                        window_plain,
+                                                        round_end)
+        run.step = step
         return run
 
     # ------------------------------------------------------------------
