@@ -52,21 +52,30 @@ Six phases; any failed check raises, so the script exits non-zero:
      entries, each changed word once), and its phase clocks; nvcc's
      register and spill
      report of both;
-   - the TCP window kernel (stt_tcp_window) on the 16-host stream's
-     first in-domain exports at 0% and 2% loss and, after phase 3's run
-     captured it, the 10,000-host stream's: one window against its plain
-     version (the runner's eager window) on copies of the same state,
-     every state column (conn-major ones without their trash row), the
-     outbox and trace in canonical order, the stage fires and lanes, the
-     micro-iterations and the abort bits and site exactly equal (the
-     16-host exports also without the kept timer-heap minimum); card
+   - the TCP window kernel (stt_tcp_window: a tile of 32 threads a
+     host lane) on the 16-host stream's first in-domain exports at 0%
+     and 2% loss, the wide-rows edit of the 2%-loss one
+     (tools/window_cases.tcp_wide_rows: a 298-entry reassembly row in
+     three SACK runs, a 480-entry rtx ring with marks, 3,000 stale
+     timer-heap entries) and, after phase 3's run captured it, the
+     10,000-host stream's: one window against its plain version (the
+     runner's eager window) on copies of the same state, every state
+     column (conn-major ones without their trash row), the outbox and
+     trace in canonical order, the stage fires and lanes, the
+     micro-iterations and the abort bits and site exactly equal, with
+     the timer heap's minimum kept between pops and without it; card
      time per window (ten launches in a CUDA graph on fresh copies; the
      10,000-host state, too large for ten copies, by three single
      launches on a restored copy, the card asleep while the host issues
      each), with and without the kept heap minimum, host time per
-     wrapper call, the plain window's time and the bound from the bytes
-     the window must move (ops/tcp_window.py window_need_bytes); nvcc's
-     register and spill report.
+     wrapper call, the plain window's time, the bound from the bytes
+     the window must move (ops/tcp_window.py window_need_bytes) and the
+     launch's shape (threads a lane, lanes a block, blocks, shared
+     memory); on the 2%-loss and 10,000-host exports the profiling
+     build's window (equal to the kernel's) and its five slowest lanes,
+     cycles by stage pass and by row scan
+     (tools/tcp_window_profile.py); nvcc's register and spill report of
+     both builds.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
    port's Manager on the card with forced device spans, every window
    one stt_tcp_window launch, and require the trace, packets and events
@@ -247,6 +256,7 @@ def build_all():
     from shadow_tpu_torch.native import plane
     from shadow_tpu_torch.ops import (phold_span_kernel, phold_window,
                                       propagate, queues, relay, tcp_window)
+    from shadow_tpu_torch.tools.tcp_window_profile import PROFILE_LIBRARY
     errs = []
     walls = {}
 
@@ -269,7 +279,9 @@ def build_all():
                          ("propagate.cu", propagate.LIBRARY.build),
                          ("phold_window.cu", phold_window.LIBRARY.build),
                          ("phold_span.cu", phold_span_kernel.LIBRARY.build),
-                         ("tcp_window.cu", tcp_window.LIBRARY.build))]
+                         ("tcp_window.cu", tcp_window.LIBRARY.build),
+                         ("tcp_window.cu profiling",
+                          PROFILE_LIBRARY.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -288,12 +300,14 @@ def build_all():
           f"{walls['phold_span.cu']:.1f}s (nvcc "
           f"{phold_span_kernel.LIBRARY.build_s:.1f}s), tcp_window.cu "
           f"{walls['tcp_window.cu']:.1f}s (nvcc "
-          f"{tcp_window.LIBRARY.build_s:.1f}s)", flush=True)
+          f"{tcp_window.LIBRARY.build_s:.1f}s; its profiling build "
+          f"{PROFILE_LIBRARY.build_s:.1f}s)", flush=True)
     # nvcc -Xptxas=-v: the window and span kernels' registers, stack and
     # spills.
     for src, lib in (("phold_window.cu", phold_window.LIBRARY),
                      ("phold_span.cu", phold_span_kernel.LIBRARY),
-                     ("tcp_window.cu", tcp_window.LIBRARY)):
+                     ("tcp_window.cu", tcp_window.LIBRARY),
+                     ("tcp_window.cu profiling", PROFILE_LIBRARY)):
         for ln in lib.log.splitlines():
             if ln.strip():
                 print(f"[build] {src}: {ln.strip()}", flush=True)
@@ -1155,17 +1169,9 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
 def tcp_export(loss: float) -> tuple:
     """The 16-host stream's (tools/netgen.tcp_stream_yaml: 50 MB per
     client, seed 11, the tier-1 tests' stream) first in-domain export on
-    the card, at `loss`: (runner, device state, span arguments)."""
-    from shadow_tpu_torch.core.config import ConfigOptions
-    from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.tools.netgen import tcp_stream_yaml
-    from shadow_tpu_torch.tools.window_cases import (capture_tcp_export,
-                                                     tcp_device_state)
-    runner, st_np, args = capture_tcp_export(Manager(
-        ConfigOptions.from_yaml_text(tcp_stream_yaml(
-            16, nbytes=50_000_000, loss=loss, stop_time="500ms", seed=11,
-            scheduler="tpu", device_spans="force")), device="cuda"), 1)
-    return runner, tcp_device_state(runner, st_np), args
+    the card, at `loss`: (runner, numpy state, span arguments)."""
+    from shadow_tpu_torch.tools.tcp_window_profile import capture
+    return capture(16, loss)
 
 
 def tcp_window_ms(fn, base: dict, window_end: int, n: int,
@@ -1215,12 +1221,15 @@ def tcp_window_ms(fn, base: dict, window_end: int, n: int,
 
 
 def check_tcp_window(name: str, runner, base: dict, args: tuple,
-                     graph: bool = True) -> dict:
+                     graph: bool = True, profile: bool = False) -> dict:
     """Phase 2's TCP leg on one export: stt_tcp_window against its plain
     version (the runner's eager window) on copies of the same state:
     every state column (conn-major ones without their trash row), the
     outbox and the trace in canonical order, ks_fires, ks_lanes, the
-    micro-iterations and the abort bits and site exactly equal.  Times:
+    micro-iterations and the abort bits and site exactly equal, with the
+    timer heap's minimum kept between pops and without it.  With
+    `profile`, the profiling build's window (equal to the kernel's) and
+    its slowest lanes (tools/tcp_window_profile.py).  Times:
     the plain window (CUDA events), the kernel's card time per window
     with the timer heap's minimum kept between pops and without it
     (tcp_window_ms: ten launches in a CUDA graph, or with `graph` off
@@ -1228,6 +1237,7 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
     from the bytes the window must move (ops/tcp_window.py
     window_need_bytes).  Returns the kernels line's row."""
     from shadow_tpu_torch.ops import tcp_window as tw
+    from shadow_tpu_torch.tools import tcp_window_profile
     from shadow_tpu_torch.tools.relay_cases import clone_state
     from shadow_tpu_torch.tools.window_cases import tcp_window_mismatch
     tag = f"[tcp window {name}]"
@@ -1274,20 +1284,27 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
     need = tw.window_need_bytes(kern.step.table.ops, before, b)
     n_out, n_tr = int(b["out_n"]), int(b["tr_n"])
     del a, before
-    if graph:
-        # The lane without the timer heap's kept minimum: the same window.
-        kern.step.table.params["th_cache"] = 0
-        c = clone_state(base)
-        kern.prepare(c)
-        kern.step.begin(c)
-        kern.step(c, we)
-        kern.step.end()
-        if tcp_window_mismatch(b, c):
-            raise AssertionError(f"{tag} the lane without the kept heap "
-                                 f"minimum differs: "
-                                 f"{tcp_window_mismatch(b, c)}")
-        kern.step.table.params["th_cache"] = 1
-        del c
+    # The lane without the timer heap's kept minimum: the same window.
+    kern.step.table.params["th_cache"] = 0
+    c = clone_state(base)
+    kern.prepare(c)
+    kern.step.begin(c)
+    kern.step(c, we)
+    kern.step.end()
+    if tcp_window_mismatch(b, c):
+        raise AssertionError(f"{tag} the lane without the kept heap "
+                             f"minimum differs: "
+                             f"{tcp_window_mismatch(b, c)}")
+    kern.step.table.params["th_cache"] = 1
+    del c
+    slowest = None
+    if profile:
+        prof, layout, pgot, conn_off = tcp_window_profile.profile_window(
+            runner, base, we, against=b)
+        slowest = tcp_window_profile.report(tag, prof, layout,
+                                            conn_off)["slowest"][0]
+        tcp_window_profile.report_scans(tag, pgot["scans"])
+        del prof
     del b
     gc.collect()
     torch.cuda.empty_cache()
@@ -1309,6 +1326,7 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
         ms_call.append(kern.step.end()["window_ms"])
         del c
     nbytes = need["total"]
+    shape = tcp_window_profile.launch_shape(kern.step.table.lib, runner._H)
     row = {"ms": float(np.median(ms[1])), "ms_min": min(ms[1]),
            "ms_max": max(ms[1]), "ms_uncached": float(np.median(ms[0])),
            "call_ms": float(np.median(call)) * 1e3,
@@ -1316,7 +1334,8 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
            "plain_ms": plain_ms, "bound_ms": nbytes / BANDWIDTH * 1e3,
            "bytes": nbytes, "bound_parts": need, "max_abs_err": 0,
            "iters": it, "H": runner._H, "lanes": got["lanes"].tolist(),
-           "fires": got["fires"].tolist(), "calls": got["calls"].tolist()}
+           "fires": got["fires"].tolist(), "calls": got["calls"].tolist(),
+           "launch": shape, "slowest_lane": slowest}
     how = ("CUDA graph of 10, fresh state each; median of 3 replays" if graph
            else "single launches on a restored copy; median of 3")
     print(f"{tag} stt_tcp_window exact against the eager window: {it} "
@@ -1330,7 +1349,9 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
           f"{plain_ms:.3f} ms; bound {row['bound_ms'] * 1e3:.3f} us by bytes "
           f"({nbytes} B: "
           + ", ".join(f"{k} {v}" for k, v in need.items() if k != "total")
-          + ")", flush=True)
+          + f"); launch: {shape['team']} threads a lane, {shape['tiles']} "
+          f"lanes a block, {shape['blocks']} blocks, {shape['smem']} B "
+          f"shared a block", flush=True)
     runner.window_factory = None
     return row
 
@@ -2080,13 +2101,22 @@ def main(argv=None) -> int:
     relay_stats = check_relay_kernels()
     check_propagate()
     window_stats, span_stats = check_phold_window()
-    # The TCP window kernel on the 16-host stream's exports (the
-    # 10,000-host one follows phase 3's run, which captures it).
+    # The TCP window kernel on the 16-host stream's exports and the
+    # wide-rows edit of the lossy one (the 10,000-host one follows phase
+    # 3's run, which captures it).
+    from shadow_tpu_torch.tools.window_cases import (tcp_device_state,
+                                                     tcp_wide_rows)
     tcp_stats = {}
     for name, loss in (("stream-16", 0.0), ("stream-16-lossy", 0.02)):
-        runner, base, span_args = tcp_export(loss)
-        tcp_stats[name] = check_tcp_window(name, runner, base, span_args)
-        del runner, base
+        runner, st_np, span_args = tcp_export(loss)
+        legs = [(name, st_np)]
+        if loss:
+            legs.append(("stream-16-wide", tcp_wide_rows(st_np)))
+        for leg, st in legs:
+            tcp_stats[leg] = check_tcp_window(
+                leg, runner, tcp_device_state(runner, st), span_args,
+                profile=leg == "stream-16-lossy")
+        del runner, st_np, legs
         gc.collect()
         torch.cuda.empty_cache()
     by_path: dict = {}
@@ -2113,7 +2143,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tcp_stats["stream-10k"] = check_tcp_window(
         "stream-10k", runner, capture.pop("st"), capture["args"],
-        graph=False)
+        graph=False, profile=True)
     del runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -2198,6 +2228,7 @@ def main(argv=None) -> int:
                 "ms_per_round": s.get("ms_per_round"),
                 "ms_uncached": s.get("ms_uncached"),
                 "phase_clocks": s.get("clocks"),
+                "launch_shape": s.get("launch"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]
                                      for p, n in by_path.items()}}

@@ -48,10 +48,15 @@
 // The relay tails are queue_laws.cuh's relay1_core / relay2_core (the
 // token-bucket, CoDel-head and control laws), called in the lane.
 //
+// The lane's row scans are a team's (see "the team" below): the law
+// runs on rank 0 and asks the tile for each scan, whose answer is the
+// one the lane's own loop over the row gave.
+//
 // Plain C++ apart from the STT_LAW qualifiers and the shared-word
-// macros below (device atomics under __CUDACC__, plain operations in
-// the host build), so the tier-1 tests build this header with the system
-// C++ compiler and run the lanes serially (`window_serial`).
+// macros below (device atomics and warp primitives under __CUDACC__,
+// plain operations and ranks run in turn in the host build), so the
+// tier-1 tests build this header with the system C++ compiler and run
+// the lanes serially (`window_serial`, with a team of any size).
 
 #pragma once
 
@@ -86,6 +91,50 @@
 
 namespace stt {
 namespace tcp {
+
+// The profiling build (-DSTT_TCP_PROFILE, its own library; the main
+// kernel carries no timers): each lane accumulates clock64() cycles by
+// stage pass (and the idle test that precedes the pop) and by row-scan
+// helper, the helpers' calls and the entries its scans visited, into its
+// row of a buffer of PF_N words a lane.
+#define STT_TCP_PROFILE_WORDS(X)                                        \
+  X(PF_CYCLES, 0) X(PF_ITERS, 1) X(PF_START_NS, 2) X(PF_END_NS, 3)      \
+  X(PF_SM, 4) X(PF_PASS, 5) X(PF_HELPER, 19) X(PF_CALLS, 27)            \
+  X(PF_VISIT, 35) X(PF_N, 38) X(P_TEST, 13) X(H_TH_MIN, 0)              \
+  X(H_FIRST_FREE, 1) X(H_RA_FIND, 2) X(H_SACK, 3) X(H_RTX, 4)           \
+  X(H_QDISC, 5) X(H_HOLES, 6) X(H_SEARCH, 7) X(V_HEAP, 0) X(V_RA, 1)    \
+  X(V_RTX, 2)
+
+#if defined(STT_TCP_PROFILE) && defined(__CUDACC__)
+__device__ __forceinline__ int64_t pf_clock() { return clock64(); }
+#define STT_PF_BEGIN(name) const int64_t pf_##name = ::stt::tcp::pf_clock()
+#define STT_PF_END(name, word)                                     \
+  do {                                                             \
+    if (prof_) prof_[word] += ::stt::tcp::pf_clock() - pf_##name;  \
+  } while (0)
+#define STT_PF_HELPER(name, h)                     \
+  do {                                             \
+    STT_PF_END(name, PF_HELPER + (h));             \
+    if (prof_) prof_[PF_CALLS + (h)] += 1;         \
+  } while (0)
+#define STT_PF_VISIT(v, n) \
+  do {                     \
+    if (prof_) prof_[PF_VISIT + (v)] += (n); \
+  } while (0)
+#else
+#define STT_PF_BEGIN(name) \
+  do {                     \
+  } while (0)
+#define STT_PF_END(name, word) \
+  do {                         \
+  } while (0)
+#define STT_PF_HELPER(name, h) \
+  do {                         \
+  } while (0)
+#define STT_PF_VISIT(v, n) \
+  do {                     \
+  } while (0)
+#endif
 
 #ifdef __CUDACC__
 __device__ __forceinline__ int64_t claim_warp(int64_t* ctr) {
@@ -184,16 +233,20 @@ constexpr int64_t kBitmapWords = (kValve + 2 + 31) / 32;
 // the window's largest lane iteration count and the count of blocks done
 // (0), the least aborting iteration, the least iteration of each abort
 // bit (AB_TRACE, AB_OUT, AB_STRUCT) and the least site key (I64_MAX
-// each).  N_PASSES is the bitmaps' row count.
+// each), the two lane queues the tiles take their lanes from (0).
+// N_PASSES is the bitmaps' row count.
 #define STT_TCP_STATS(X)                                                 \
   X(ST_FIRES, 0) X(ST_LANES, 12) X(ST_CALLS, 24) X(ST_ITERS, 26)         \
   X(ST_WIN_MAX, 27) X(ST_DONE, 28) X(ST_AB_ITER, 29) X(ST_AB_BITS, 30)   \
-  X(ST_AB_SITE, 33) X(ST_N, 34) X(N_PASSES, 13) X(CALL_BUCKET, 0)        \
-  X(CALL_CODEL, 1)
+  X(ST_AB_SITE, 33) X(ST_QUEUE, 34) X(ST_N, 36) X(N_PASSES, 13)          \
+  X(CALL_BUCKET, 0) X(CALL_CODEL, 1)
 STT_TCP_STATS(STT_TCP_CONST_DEF)
 constexpr char kStats[] = STT_TCP_STATS(STT_TCP_CONST_NAME);
+STT_TCP_PROFILE_WORDS(STT_TCP_CONST_DEF)
+constexpr char kProfileWords[] = STT_TCP_PROFILE_WORDS(STT_TCP_CONST_NAME);
 static_assert(ST_LANES == ST_FIRES + KS_N && ST_CALLS == ST_LANES + KS_N &&
-                  ST_AB_SITE == ST_AB_BITS + 3 && N_PASSES == kPasses,
+                  ST_AB_SITE == ST_AB_BITS + 3 && ST_N == ST_QUEUE + 2 &&
+                  N_PASSES == kPasses,
               "stats layout");
 
 // The per-launch constants, int64 words: X(field).
@@ -442,6 +495,12 @@ struct Pk {
   int64_t v[kPk];
 };
 
+#ifdef __CUDACC__
+#define STT_UNROLL_NONE _Pragma("unroll 1")
+#else
+#define STT_UNROLL_NONE
+#endif
+
 // One lane's counts over a window: the iteration bits of the 32-index
 // chunk it is in for each pass (flushed to the shared bitmaps when it
 // moves on), how often it ran each pass, its law calls and iterations.
@@ -502,6 +561,658 @@ STT_LAW int64_t search_left(const int64_t* a, int64_t n, int64_t v) {
   return lo;
 }
 
+// -------- the team ----------------------------------------------------
+//
+// A host lane is stepped by a tile of kTeam threads of one warp (the
+// kernel's tiles; the host build's team of runtime size, its ranks run
+// in turn).  Rank 0, the leader, runs the lane law above; the others
+// wait in `serve` for its row scans, each a Req naming a scan and its
+// row, and the whole tile runs it.  A scan is a per-rank partial over
+// a strided slice of the row (rank r takes elements r, r + T, ...) and
+// a combine: team_reduce folds the partials with an associative,
+// commutative join (a butterfly of shuffles on the card, the ranks in
+// turn on the host); team_first takes the first hit in row order in
+// rounds of T elements (a ballot on the card), so a scan that finds an
+// early hit stops early, and every rank leaves the round together;
+// team_for splits a loop over the tile with team_sync (__syncwarp) after
+// each phase that later phases read.
+//
+// Hazards, and what keeps them away:
+// - Read after write inside the tile.  Only the leader writes outside a
+//   scan.  Every scan starts and ends at a __syncwarp of the tile
+//   (team_serve), so the leader's writes before a scan are seen by every
+//   rank in it, and the ranks' writes in a scan (the SACK marks, the
+//   reneging clear, the staging in shared memory) are seen by the
+//   leader after it.  Inside a scan the ranks write disjoint elements.
+// - Leader-only work.  STT_CLAIM slots, STT_ABORT atomics, STT_OR32
+//   bitmap words, store(), the counters and the stats flush are the
+//   leader's alone, since only it runs the law (STT_CLAIM aggregates the
+//   leaders that claim together: one per warp at kTeam = 32).
+// - Convergence.  Every combine is reached by the whole tile: the leader
+//   and the waiting ranks enter one function (team_serve, not inlined),
+//   and its loops end on tile-uniform values (a ballot, a reduced
+//   count); no rank leaves a round early.
+// - Aborts.  Only the leader marks them (abort_, unchanged): the least
+//   iteration per bit and the site key, and the lane's stop past the
+//   least aborting iteration seen, are the one-thread lane's, word for
+//   word.
+
+constexpr int kTeam = 32;  // the kernel's tile: one warp
+constexpr int kTeamMax = 32;  // the host build's largest team
+static_assert(kTeam >= 1 && kTeam <= 32 && (kTeam & (kTeam - 1)) == 0,
+              "a team is a power-of-two tile of one warp");
+// The reassembly slots the SACK staging holds (cap_ra <= kSackMax; the
+// kernel refuses a larger cap).  Staged arrays take one pad element per
+// 16 so that a rank's chunk of 16 starts on another bank.
+constexpr int kSackMax = 512;
+constexpr int kSackPad = kSackMax + kSackMax / 16;
+STT_LAW int spad(int64_t k) { return (int)(k + (k >> 4)); }
+
+// The timer heap's least entries a rank keeps of its slice (the words
+// rank, rank + T, ... of the lane's heap row).
+constexpr int kKeep = 4;
+
+// A tile's scratch in shared memory (the host build's: one per window).
+struct TeamScratch {
+  int64_t key[kSackPad];  // the SACK staging: distance from rcv_nxt,
+  int64_t val[kSackPad];  // then length, then the running end
+  int64_t cnt[kTeamMax];  // a rank's count, then its offset
+  int64_t brk[kTeamMax][3];  // a rank's first breaks
+  // Each rank's kept heap entries (time, seq, slot), ascending, their
+  // count, and the bound every entry of its slice up to which is kept
+  // (the largest key: all of them; tcp_lane.cuh th_min).
+  int64_t ht[kTeamMax][kKeep], hs[kTeamMax][kKeep], hslot[kTeamMax][kKeep];
+  int64_t hn[kTeamMax];
+  int64_t bt[kTeamMax], bs[kTeamMax], bslot[kTeamMax];
+};
+
+#ifdef __CUDACC__
+struct Team {
+  unsigned mask;  // the tile's threads in their warp
+  int rank;       // 0 .. kTeam - 1
+  int base;       // the warp lane of rank 0
+  static constexpr int size = kTeam;
+};
+
+__device__ __forceinline__ void team_sync(const Team& t) {
+  __syncwarp(t.mask);
+}
+
+template <class V>
+__device__ __forceinline__ V team_xor(const Team& t, V v, int m) {
+  static_assert(sizeof(V) % 4 == 0, "shuffled in 32-bit words");
+  uint32_t w[sizeof(V) / 4];
+  memcpy(w, &v, sizeof(V));
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(V) / 4); k++)
+    w[k] = __shfl_xor_sync(t.mask, w[k], m, kTeam);
+  memcpy(&v, w, sizeof(V));
+  return v;
+}
+
+// The join of every rank's part(rank, T), the same on every rank.
+template <class P, class Part, class Join>
+__device__ __forceinline__ P team_reduce(const Team& t, Part part,
+                                         Join join) {
+  P v = part(t.rank, kTeam);
+#pragma unroll
+  for (int m = kTeam / 2; m > 0; m >>= 1) v = join(v, team_xor(t, v, m));
+  return v;
+}
+
+// The first hit(k) >= 0 for k in [0, n) in order, or -1.
+template <class Hit>
+__device__ __forceinline__ int64_t team_first(const Team& t, int64_t n,
+                                              Hit hit) {
+  for (int64_t base = 0; base < n; base += kTeam) {
+    const int64_t k = base + t.rank;
+    const int64_t h = k < n ? hit(k) : -1;
+    const unsigned b = (__ballot_sync(t.mask, h >= 0) & t.mask) >> t.base;
+    if (b) return __shfl_sync(t.mask, (long long)h, __ffs(b) - 1, kTeam);
+  }
+  return -1;
+}
+
+template <class F>
+__device__ __forceinline__ void team_for(const Team& t, int64_t n, F f) {
+  for (int64_t k = t.rank; k < n; k += kTeam) f(k);
+}
+
+// Each rank's exclusive prefix (from `id`) of part(rank) under `join`
+// into out[rank]; returns the join of every rank's part.
+template <class Part, class Join>
+__device__ __forceinline__ int64_t team_exclusive(const Team& t,
+                                                  int64_t* out, int64_t id,
+                                                  Part part, Join join) {
+  int64_t x = part(t.rank);
+#pragma unroll
+  for (int d = 1; d < kTeam; d <<= 1) {
+    const int64_t y = __shfl_up_sync(t.mask, (long long)x, d, kTeam);
+    if (t.rank >= d) x = join(y, x);
+  }
+  const int64_t ex = __shfl_up_sync(t.mask, (long long)x, 1, kTeam);
+  out[t.rank] = t.rank ? ex : id;
+  return __shfl_sync(t.mask, (long long)x, kTeam - 1, kTeam);
+}
+#else
+struct Team {
+  int size;  // the ranks, run in turn
+};
+
+inline void team_sync(const Team&) {}
+
+template <class P, class Part, class Join>
+inline P team_reduce(const Team& t, Part part, Join join) {
+  P v = part(0, t.size);
+  for (int r = 1; r < t.size; r++) v = join(v, part(r, t.size));
+  return v;
+}
+
+template <class Hit>
+inline int64_t team_first(const Team& t, int64_t n, Hit hit) {
+  for (int64_t base = 0; base < n; base += t.size)
+    for (int r = 0; r < t.size && base + r < n; r++) {
+      const int64_t h = hit(base + r);
+      if (h >= 0) return h;
+    }
+  return -1;
+}
+
+template <class F>
+inline void team_for(const Team& t, int64_t n, F f) {
+  for (int r = 0; r < t.size; r++)
+    for (int64_t k = r; k < n; k += t.size) f(k);
+}
+
+template <class Part, class Join>
+inline int64_t team_exclusive(const Team& t, int64_t* out, int64_t id,
+                              Part part, Join join) {
+  int64_t acc = id;
+  for (int r = 0; r < t.size; r++) {
+    out[r] = acc;
+    acc = join(acc, part(r));
+  }
+  return acc;
+}
+#endif
+
+// The first slot of word w of a bool row whose byte is set (`set`) or
+// free, or -1.
+STT_LAW int64_t byte_in_word(uint64_t v, int64_t w, bool set) {
+  constexpr uint64_t kOnes = 0x0101010101010101ull;
+  if (set ? v == 0 : v == kOnes) return -1;
+  for (int b = 0; b < 8; b++)
+    if ((((v >> (8 * b)) & 0xff) != 0) == set) return 8 * w + b;
+  return -1;
+}
+
+// The valid bytes of a word of a 0/1 bool row.
+STT_LAW int popcount8(uint64_t v) {
+#ifdef __CUDACC__
+  return __popcll(v & 0x0101010101010101ull);
+#else
+  return __builtin_popcountll(v & 0x0101010101010101ull);
+#endif
+}
+
+// ---- the scans' partials and joins ----
+
+// A timer heap entry's order: (time, seq), then its slot (the first
+// slot wins a tie, as the eager masked argmin picks it).
+struct Key {
+  int64_t t, s, slot;
+};
+STT_LAW Key key_max() { return {I64_MAX, I64_MAX, I64_MAX}; }
+
+STT_LAW bool key_lt(const Key& a, const Key& b) {
+  return a.t != b.t ? a.t < b.t : (a.s != b.s ? a.s < b.s : a.slot < b.slot);
+}
+
+// A rank's slice of the first `words` words of a lane's heap row (words
+// r, r + size, ...) rescanned: its kKeep least entries into `c`
+// (ascending, padded with the largest key); returns the slice's count of
+// entries and (in `last`) the count of its words up to the last that
+// holds one.  The slice's valid words are read eight at a time, and a
+// word's times and seqs together, so that a rescan waits on memory a
+// few times, not once a word.
+STT_LAW int64_t heap_part(const int64_t* time, const int64_t* seq,
+                          const uint8_t* valid, int64_t words, int r,
+                          int size, Key* c, int64_t& last) {
+  int64_t n = 0;
+  last = 0;
+  STT_UNROLL
+  for (int k = 0; k < kKeep; k++) c[k] = key_max();
+  for (int64_t w0 = r; w0 < words; w0 += 8 * (int64_t)size) {
+    uint64_t vs[8];
+    STT_UNROLL
+    for (int u = 0; u < 8; u++) {
+      const int64_t w = w0 + (int64_t)u * size;
+      vs[u] = w < words ? load8(valid + 8 * w) : 0;
+    }
+    STT_UNROLL_NONE
+    for (int u = 0; u < 8; u++) {
+      const uint64_t v = vs[u];
+      if (!v) continue;
+      const int64_t w = w0 + (int64_t)u * size;
+      last = w + 1;
+      int64_t tw[8], sw[8];
+      STT_UNROLL
+      for (int b = 0; b < 8; b++) {
+        tw[b] = time[8 * w + b];
+        sw[b] = seq[8 * w + b];
+      }
+      STT_UNROLL
+      for (int b = 0; b < 8; b++) {
+        if (((v >> (8 * b)) & 0xff) == 0) continue;
+        n += 1;
+        const Key k = {tw[b], sw[b], 8 * w + b};
+        if (!key_lt(k, c[kKeep - 1])) continue;
+        c[kKeep - 1] = k;
+        STT_UNROLL
+        for (int j = kKeep - 1; j > 0; j--)
+          if (key_lt(c[j], c[j - 1])) {
+            const Key x = c[j];
+            c[j] = c[j - 1];
+            c[j - 1] = x;
+          }
+      }
+    }
+  }
+  return n;
+}
+
+// The timer heap's least (its key, the largest if the heap is empty),
+// the count of its row's words up to the last that holds an entry, and
+// the slots visited.
+struct HeapMin {
+  Key min;
+  int64_t last, visited;
+};
+
+STT_LAW HeapMin heap_min_join(const HeapMin& a, const HeapMin& b) {
+  return {key_lt(a.min, b.min) ? a.min : b.min,
+          a.last > b.last ? a.last : b.last, a.visited + b.visited};
+}
+
+// A bitonic sorting network over `size` (a power of two) elements by
+// the tile: `less(a, b)` orders, `swap(a, b)` exchanges; ascending.
+template <class Less, class Swap>
+STT_LAW void team_bitonic(const Team& t, int64_t size, Less less,
+                          Swap swap) {
+  for (int64_t run = 2; run <= size; run <<= 1)
+    for (int64_t stride = run >> 1; stride > 0; stride >>= 1) {
+      team_for(t, size >> 1, [&](int64_t q) {
+        const int64_t lo = 2 * q - (q & (stride - 1)), hi = lo + stride;
+        if (less(hi, lo) == ((lo & run) == 0)) swap(lo, hi);
+      });
+      team_sync(t);
+    }
+}
+
+// The qdisc pick over a host's conns: least head priority, ties to the
+// largest conn row.
+struct Pick {
+  int64_t best, sel;
+};
+
+STT_LAW Pick pick_join(const Pick& a, const Pick& b) {
+  const bool lt = a.best != b.best ? a.best < b.best : a.sel > b.sel;
+  return lt ? a : b;
+}
+
+// The first three run breaks of a sorted staging (ascending).
+struct Breaks {
+  int64_t k[3];
+};
+
+STT_LAW Breaks breaks_join(const Breaks& a, const Breaks& b) {
+  Breaks m;
+  int i = 0, j = 0;
+  for (int n = 0; n < 3; n++)
+    m.k[n] = a.k[i] <= b.k[j] ? a.k[i++] : b.k[j++];
+  return m;
+}
+
+// The merged reassembly runs of a row (connection.py _sack_blocks), one
+// sorted pass: the tile stages the valid entries' distances from rcv_nxt
+// and lengths (rank r's words r, r + T, ..., at the offset of the ranks
+// before it), sorts them (a bitonic network over the next power of two,
+// padded with I64_MAX), and reads off the runs: with M_k the running
+// maximum of max(d, d + len) over the sorted entries, entry k > 0 starts
+// a run iff d_k > M_{k-1}, and a run's end is M at its last entry.  This
+// is the fixpoint's answer for every row: a run is the closed interval
+// grown by every entry starting inside it, its start the least distance
+// past the previous run's end; the order among equal distances changes
+// neither.  `sk` gets (nsk, s0, e0, s1, e1, s2, e2), zeros for absent
+// runs; returns the entries staged.
+STT_LAW int64_t sack_sorted(const Team& t, TeamScratch& sh,
+                            const int64_t* seq, const int64_t* plen,
+                            const uint8_t* valid, int64_t cap,
+                            int64_t rcvnxt, int64_t* sk) {
+  const int64_t words = cap / 8;
+  int64_t* const key = sh.key;
+  int64_t* const val = sh.val;
+  const auto sum = [](int64_t a, int64_t b) { return a + b; };
+  // Each rank's offset: the valid entries of the ranks before it.
+  const int64_t n = team_exclusive(
+      t, sh.cnt, 0,
+      [&](int r) {
+        int64_t m = 0;
+        for (int64_t w = r; w < words; w += t.size)
+          m += popcount8(load8(valid + 8 * w));
+        return m;
+      },
+      sum);
+  for (int k = 0; k < 7; k++) sk[k] = 0;
+  if (n == 0) return 0;
+  team_for(t, t.size, [&](int64_t r) {
+    int64_t off = sh.cnt[r];
+    for (int64_t w = r; w < words; w += t.size) {
+      uint64_t v = load8(valid + 8 * w);
+      while (v) {
+        const int b = STT_CTZ64(v) >> 3;
+        v &= ~((uint64_t)0xff << (8 * b));
+        key[spad(off)] = s_sub(seq[8 * w + b], rcvnxt);
+        val[spad(off)] = plen[8 * w + b];
+        off += 1;
+      }
+    }
+  });
+  int64_t size = 1;
+  while (size < n) size <<= 1;
+  team_for(t, size - n, [&](int64_t k) {
+    key[spad(n + k)] = I64_MAX;
+    val[spad(n + k)] = 0;
+  });
+  team_sync(t);
+  team_bitonic(
+      t, size,
+      [&](int64_t a, int64_t b) { return key[spad(a)] < key[spad(b)]; },
+      [&](int64_t a, int64_t b) {
+        const int x = spad(a), y = spad(b);
+        const int64_t k = key[x], v = val[x];
+        key[x] = key[y];
+        val[x] = val[y];
+        key[y] = k;
+        val[y] = v;
+      });
+  // The running end over rank-sized chunks: each rank's chunk from the
+  // maximum of the chunks before it, writing M over the lengths and
+  // noting its first three breaks.
+  const int64_t chunk = (n + t.size - 1) / t.size;
+  team_exclusive(
+      t, sh.cnt, -I64_MAX,
+      [&](int r) {
+        int64_t m = -I64_MAX;
+        for (int64_t k = r * chunk; k < n && k < (r + 1) * chunk; k++) {
+          const int64_t d = key[spad(k)], e = d + val[spad(k)];
+          m = max64(m, max64(d, e));
+        }
+        return m;
+      },
+      [](int64_t a, int64_t b) { return max64(a, b); });
+  team_for(t, t.size, [&](int64_t r) {
+    int64_t m = sh.cnt[r];
+    int nb = 0;
+    sh.brk[r][0] = sh.brk[r][1] = sh.brk[r][2] = I64_MAX;
+    for (int64_t k = r * chunk; k < n && k < (r + 1) * chunk; k++) {
+      const int64_t d = key[spad(k)], e = d + val[spad(k)];
+      if (k > 0 && d > m && nb < 3) sh.brk[r][nb++] = k;
+      m = max64(m, max64(d, e));
+      val[spad(k)] = m;
+    }
+  });
+  team_sync(t);
+  const Breaks br = team_reduce<Breaks>(
+      t,
+      [&](int r, int) {
+        return Breaks{{sh.brk[r][0], sh.brk[r][1], sh.brk[r][2]}};
+      },
+      [](const Breaks& a, const Breaks& b) { return breaks_join(a, b); });
+  int64_t start = 0;
+  for (int r = 0; r < 3 && start < n; r++) {
+    const int64_t next = br.k[r] < n ? br.k[r] : n;
+    sk[0] = r + 1;
+    sk[1 + 2 * r] = s_add(rcvnxt, key[spad(start)]);
+    sk[2 + 2 * r] = s_add(rcvnxt, val[spad(next - 1)]);
+    start = next;
+  }
+  return n;
+}
+
+// -------- the lane's row scans, served by the whole tile --------------
+
+enum ScanOp : int64_t {
+  SCAN_DONE,       // the lane is done: the waiting ranks leave
+  SCAN_TH_MIN,     // a: words to scan, b: every rank rescans -> (t, s,
+                   // slot, last, visited): the heap's least
+  SCAN_TH_FREE,    // a: words to scan, b: the first -> free slot or -1
+  SCAN_RA_FREE,    // a: conn -> first free reassembly slot or -1
+  SCAN_RA_FIND,    // a: conn, b: seq -> first valid slot of seq or -1
+  SCAN_RA_ANY,     // a: conn -> first valid slot or -1
+  SCAN_SACK,       // a: conn -> (nsk, s0, e0, s1, e1, s2, e2, staged)
+  SCAN_ACKED,      // a: conn -> the leading run of fully acked entries
+  SCAN_UNSACKED,   // a: conn -> the first entry not SACKed, or -1
+  SCAN_SACK_MARK,  // a: conn, b: its written row -> entries newly marked
+  SCAN_RENEGE,     // a: written row: every SACK mark cleared
+  SCAN_QDISC,      // the qdisc pick over the lane's conns -> (best, sel)
+};
+
+struct Req {
+  int64_t op, a, b;
+};
+
+struct Res {
+  int64_t v[8];
+};
+
+// One scan of lane i's rows by the tile (every rank calls it with the
+// same request; the result is the same on every rank).
+STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
+                  const Req& rq, TeamScratch& sh) {
+  Res res = {{0, 0, 0, 0, 0, 0, 0, 0}};
+  const int64_t c = rq.a;
+  switch (rq.op) {
+    case SCAN_TH_MIN: {
+      // Each rank keeps its slice's least entries (TeamScratch ht/hs/
+      // hslot, ascending) and a bound: every entry of its slice up to
+      // the bound is kept (the lane inserts its pushes and removes its
+      // pops).  A rank whose kept entries ran out under a finite bound
+      // (or every rank, with b) rescans its slice; the heap's least is
+      // the least of the ranks' first.
+      const int64_t row = i * p.cap_t;
+      const HeapMin m = team_reduce<HeapMin>(
+          t,
+          [&](int r, int n) {
+            HeapMin h = {key_max(), 0, 0};
+            const bool ran_out = sh.hn[r] == 0 &&
+                                 key_lt(Key{sh.bt[r], sh.bs[r], sh.bslot[r]},
+                                        key_max());
+            if (rq.b || ran_out) {
+              Key least[kKeep];
+              h.visited = heap_part(o.th_time + row, o.th_seq + row,
+                                    o.th_valid + row, rq.a, r, n, least,
+                                    h.last);
+              STT_UNROLL
+              for (int k = 0; k < kKeep; k++) {
+                sh.ht[r][k] = least[k].t;
+                sh.hs[r][k] = least[k].s;
+                sh.hslot[r][k] = least[k].slot;
+              }
+              sh.hn[r] = h.visited < kKeep ? h.visited : kKeep;
+              const Key b = h.visited > kKeep ? least[kKeep - 1] : key_max();
+              sh.bt[r] = b.t;
+              sh.bs[r] = b.s;
+              sh.bslot[r] = b.slot;
+            }
+            if (sh.hn[r] > 0)
+              h.min = {sh.ht[r][0], sh.hs[r][0], sh.hslot[r][0]};
+            return h;
+          },
+          [](const HeapMin& a, const HeapMin& b) {
+            return heap_min_join(a, b);
+          });
+      res.v[0] = m.min.t;
+      res.v[1] = m.min.s;
+      res.v[2] = m.min.slot;
+      res.v[3] = m.last;
+      res.v[4] = m.visited;
+      break;
+    }
+    case SCAN_TH_FREE:
+    case SCAN_RA_FREE:
+    case SCAN_RA_FIND:
+    case SCAN_RA_ANY: {
+      const bool heap = rq.op == SCAN_TH_FREE;
+      const uint8_t* const row =
+          heap ? o.th_valid + i * p.cap_t : o.ra_valid + c * p.cap_ra;
+      const int64_t w0 = heap ? rq.b : 0;
+      const int64_t words = heap ? rq.a - w0 : p.cap_ra / 8;
+      const bool set = rq.op == SCAN_RA_FIND || rq.op == SCAN_RA_ANY;
+      const int64_t* const seq = o.ra_seq + c * p.cap_ra;
+      res.v[0] = team_first(t, words, [&](int64_t k) -> int64_t {
+        const int64_t w = w0 + k;
+        uint64_t v = load8(row + 8 * w);
+        if (rq.op != SCAN_RA_FIND) return byte_in_word(v, w, set);
+        while (v) {
+          const int b = STT_CTZ64(v) >> 3;
+          v &= ~((uint64_t)0xff << (8 * b));
+          if (seq[8 * w + b] == rq.b) return 8 * w + b;
+        }
+        return -1;
+      });
+      break;
+    }
+    case SCAN_SACK:
+      res.v[7] = sack_sorted(t, sh, o.ra_seq + c * p.cap_ra,
+                             o.ra_plen + c * p.cap_ra,
+                             o.ra_valid + c * p.cap_ra, p.cap_ra,
+                             o.c_rcvnxt[c], res.v);
+      break;
+    case SCAN_ACKED:
+    case SCAN_UNSACKED:
+    case SCAN_SACK_MARK: {
+      const int64_t pos = o.rtx_pos[c], len = o.rtx_len[c] - pos;
+      const int64_t n = len < p.cap_rt ? len : p.cap_rt;
+      const int64_t* const seq = o.rtx_seq + c * p.cap_rt;
+      const int64_t* const plen = o.rtx_plen + c * p.cap_rt;
+      const int64_t* const sacked = o.rtx_sacked + c * p.cap_rt;
+      if (rq.op == SCAN_ACKED) {
+        const int64_t una = o.c_snduna[c];
+        const int64_t first = team_first(t, n, [&](int64_t k) -> int64_t {
+          const int64_t s = (pos + k) % p.cap_rt;
+          return s_leq(s_add(seq[s], plen[s]), una) ? -1 : k;
+        });
+        res.v[0] = first < 0 ? (n > 0 ? n : 0) : first;
+        res.v[1] = first < 0 ? res.v[0] : first + 1;  // entries visited
+      } else if (rq.op == SCAN_UNSACKED) {
+        res.v[0] = team_first(t, n, [&](int64_t k) -> int64_t {
+          return sacked[(pos + k) % p.cap_rt] == 0 ? k : -1;
+        });
+      } else {
+        // The SACK blocks the packet in C_TCPIN carries.
+        int64_t blk[7];
+        STT_UNROLL
+        for (int k = 0; k < 7; k++) blk[k] = o.ar[PK_NSK + k][i];
+        int64_t* const out = o.rtx_sacked + rq.b * p.cap_rt;
+        res.v[0] = team_reduce<int64_t>(
+            t,
+            [&](int r, int size) {
+              int64_t newly = 0;
+              for (int64_t k = r; k < n; k += size) {
+                const int64_t s = (pos + k) % p.cap_rt;
+                const int64_t end = s_add(seq[s], plen[s]);
+                bool cov = false;
+                STT_UNROLL
+                for (int b = 0; b < 3; b++)
+                  cov = cov || (blk[0] > b && s_leq(blk[1 + 2 * b], seq[s]) &&
+                                s_leq(end, blk[2 + 2 * b]));
+                if (cov && sacked[s] == 0) {
+                  out[s] = 1;
+                  newly += 1;
+                }
+              }
+              return newly;
+            },
+            [](int64_t a, int64_t b) { return a + b; });
+      }
+      break;
+    }
+    case SCAN_RENEGE:
+      team_for(t, p.cap_rt,
+               [&](int64_t k) { o.rtx_sacked[c * p.cap_rt + k] = 0; });
+      break;
+    case SCAN_QDISC: {
+      const int64_t k0 = o.conn_off[i], k1 = o.conn_off[i + 1];
+      const Pick pick = team_reduce<Pick>(
+          t,
+          [&](int r, int size) {
+            Pick m = {I64_MAX, -1};
+            for (int64_t k = k0 + r; k < k1; k += size) {
+              const int64_t cc = o.conn_rows[k];
+              const int64_t pos = o.op_pos[cc];
+              if (o.c_queued[cc] != 1 || o.op_len[cc] <= pos) continue;
+              m = pick_join(m, {o.op[PK_PSEQ][cc * p.cap_op + pos % p.cap_op],
+                                cc});
+            }
+            return m;
+          },
+          [](const Pick& a, const Pick& b) { return pick_join(a, b); });
+      res.v[0] = pick.best;
+      res.v[1] = pick.sel;
+      break;
+    }
+    default:
+      break;
+  }
+  return res;
+}
+
+#ifdef __CUDACC__
+// The tile's one entry to a scan, the leader's and the waiting ranks'
+// alike (not inlined: one copy of every scan, entered by the whole tile,
+// with its own registers; inlined at every call it ran a 10k window
+// 2x slower, PERF.md).  The leader's writes before it, and the ranks'
+// writes in it, are ordered by the __syncwarp at either end.
+#ifdef STT_TCP_PROFILE
+// The profiling build's clocks of the tile's scans, by scan op: calls,
+// and rank 0's cycles waiting for the tile at entry, in the scan, and
+// waiting at the exit (stt_tcp_serve_profile reads and clears them).
+constexpr int kScanOps = 16;
+__device__ unsigned long long g_serve_prof[kScanOps][4];
+#endif
+
+__device__ __noinline__ Res team_serve(const Team& t, const Ops& o,
+                                       const Params& p, int64_t i, Req& rq,
+                                       TeamScratch& sh) {
+#ifdef STT_TCP_PROFILE
+  const long long c0 = clock64();
+#endif
+  __syncwarp(t.mask);
+  rq.op = __shfl_sync(t.mask, (long long)rq.op, 0, kTeam);
+  rq.a = __shfl_sync(t.mask, (long long)rq.a, 0, kTeam);
+  rq.b = __shfl_sync(t.mask, (long long)rq.b, 0, kTeam);
+#ifdef STT_TCP_PROFILE
+  const long long c1 = clock64();
+#endif
+  const Res r = serve(t, o, p, i, rq, sh);
+#ifdef STT_TCP_PROFILE
+  const long long c2 = clock64();
+#endif
+  __syncwarp(t.mask);
+#ifdef STT_TCP_PROFILE
+  if (t.rank == 0 && rq.op >= 0 && rq.op < kScanOps) {
+    unsigned long long* const g = g_serve_prof[rq.op];
+    atomicAdd(g, 1ull);
+    atomicAdd(g + 1, (unsigned long long)(c1 - c0));
+    atomicAdd(g + 2, (unsigned long long)(c2 - c1));
+    atomicAdd(g + 3, (unsigned long long)(clock64() - c2));
+  }
+#endif
+  return r;
+}
+#endif
+
 // One host lane: `o` and `p` are the window's tables, `i` the lane.  The
 // hot words live in members for the window; every other column is read
 // and written in memory at the lane's own rows.
@@ -510,6 +1221,8 @@ struct Lane {
   const Params& p;
   const int64_t i;
   LaneStats& s;
+  const Team& t_;    // the tile stepping the lane (the law runs on rank 0)
+  TeamScratch& sh_;  // its scratch
   const int64_t window_end;
   const RelayParams rp;  // the relay cores' constants
   int64_t now, cont, then, ret, cur, event_seq, packet_seq;
@@ -519,12 +1232,23 @@ struct Lane {
   // (-1 until the first scan).
   int64_t th_t, th_s, th_slot, th_words;
   bool th_ok;
+  // th_kept: the ranks' kept heap entries (TeamScratch ht/hs/hslot) hold
+  // every entry of their slices up to their bounds; false until the
+  // first rescan of every slice.  th_free: every slot below it holds an
+  // entry.
+  int64_t th_free;
+  bool th_kept;
   // Where the lane is, for the abort keys: iteration, pass, place.
   int64_t j_;
   int q_, at_;
+#ifdef STT_TCP_PROFILE
+  int64_t* prof_ = nullptr;  // the lane's profile words (profiling build)
+#endif
 
-  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_)
-      : o(o_), p(p_), i(i_), s(s_), window_end(p_.window_end),
+  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
+               const Team& t, TeamScratch& sh)
+      : o(o_), p(p_), i(i_), s(s_), t_(t), sh_(sh),
+        window_end(p_.window_end),
         rp{p_.n, 0, p_.conns, TEL_N, p_.refill_ns, p_.target_ns, p_.mtu,
            p_.interval_ns, TCP_TOTAL_HDR} {
     now = o.now[i];
@@ -541,6 +1265,8 @@ struct Lane {
     th_ok = false;
     th_words = -1;
     th_t = th_s = th_slot = 0;
+    th_kept = false;
+    th_free = 0;
     j_ = 0;
     q_ = at_ = 0;
   }
@@ -634,25 +1360,32 @@ struct Lane {
 
   STT_LAW int64_t draw_seq() { return event_seq++; }
 
-  // The first free slot of a bool row (`words` words of 8; -1 if full;
-  // every slot from 8 * scan on is free).
-  static STT_LAW int64_t first_free(const uint8_t* row, int64_t words,
-                                    int64_t scan) {
-    constexpr uint64_t kOnes = 0x0101010101010101ull;
-    for (int64_t w = 0; w < scan; w++) {
-      const uint64_t v = load8(row + 8 * w);
-      if (v != kOnes)
-        for (int b = 0; b < 8; b++)
-          if (((v >> (8 * b)) & 0xff) == 0) return 8 * w + b;
-    }
-    return scan < words ? 8 * scan : -1;
+  // A row scan by the lane's tile (`serve`).
+  STT_LAW Res scan(int64_t op, int64_t a = 0, int64_t b = 0) const {
+    Req rq = {op, a, b};
+#ifdef __CUDACC__
+    return team_serve(t_, o, p, i, rq, sh_);
+#else
+    return serve(t_, o, p, i, rq, sh_);
+#endif
   }
 
   STT_LAW void th_push(int64_t t, int64_t seq, int64_t kind, int64_t tgt) {
     const int64_t row = i * p.cap_t;
     const int64_t words = p.cap_t / 8;
-    const int64_t k =
-        first_free(o.th_valid + row, words, th_words < 0 ? words : th_words);
+    const int64_t scanned = th_words < 0 ? words : th_words;
+    STT_PF_BEGIN(ff);
+    // The first free slot: th_free's word read here, the words after it
+    // by the tile; every slot from 8 * th_words on is free.
+    const int64_t w0 = th_free / 8;
+    int64_t k = -1;
+    if (w0 < scanned) {
+      k = byte_in_word(load8(o.th_valid + row + 8 * w0), w0, false);
+      if (k < 0 && w0 + 1 < scanned)
+        k = scan(SCAN_TH_FREE, scanned, w0 + 1).v[0];
+    }
+    if (k < 0) k = scanned < words ? 8 * scanned : -1;
+    STT_PF_HELPER(ff, H_FIRST_FREE);
     if (k < 0) {  // a full heap writes nothing
       abort_(AB_STRUCT, 1);
       return;
@@ -662,6 +1395,7 @@ struct Lane {
     o.th_kind[row + k] = kind;
     o.th_tgt[row + k] = tgt;
     o.th_valid[row + k] = 1;
+    th_free = k + 1;
     if (th_words >= 0 && k / 8 + 1 > th_words) th_words = k / 8 + 1;
     // (time, seq) is unique per host: the new entry is the minimum
     // exactly when it sorts before the cached one.
@@ -670,35 +1404,62 @@ struct Lane {
       th_s = seq;
       th_slot = k;
     }
+    if (th_kept) keep(Key{t, seq, k});
+  }
+
+  // A pushed entry into its rank's kept entries if within the bound (so
+  // every entry of the slice up to the bound stays kept); a full list
+  // keeps its kKeep least and lowers the bound to the largest of them.
+  STT_LAW void keep(const Key& key) {
+    const int r = (int)((key.slot / 8) % t_.size);
+    if (key_lt(Key{sh_.bt[r], sh_.bs[r], sh_.bslot[r]}, key)) return;
+    const auto at = [&](int64_t j) {
+      return Key{sh_.ht[r][j], sh_.hs[r][j], sh_.hslot[r][j]};
+    };
+    const auto put = [&](int64_t j, const Key& x) {
+      sh_.ht[r][j] = x.t;
+      sh_.hs[r][j] = x.s;
+      sh_.hslot[r][j] = x.slot;
+    };
+    const bool full = sh_.hn[r] == kKeep;
+    int64_t j = full ? kKeep - 1 : sh_.hn[r];
+    if (full && key_lt(at(j), key)) {
+      j = kKeep;  // the key itself is the one that goes
+    } else {
+      for (; j > 0 && key_lt(key, at(j - 1)); j--) put(j, at(j - 1));
+      put(j, key);
+    }
+    if (full) {
+      const Key last = at(kKeep - 1);
+      sh_.bt[r] = last.t;
+      sh_.bs[r] = last.s;
+      sh_.bslot[r] = last.slot;
+    } else {
+      sh_.hn[r] += 1;
+    }
   }
 
   // The earliest timer (time, then seq; the first slot on ties), as
   // th_min's masked argmin picks it; (I64_MAX, ...) on an empty heap,
-  // whose slot is never popped.
+  // whose slot is never popped.  With th_cache the minimum is kept
+  // between pops, and the ranks keep their slices' least entries, so a
+  // call rescans only the slices whose kept entries ran out (every
+  // slice at the lane's first call) and the least is the least of the
+  // ranks' first.  Without th_cache every call rescans every slice.
   STT_LAW void th_min() {
     if (th_ok && p.th_cache) return;
-    const int64_t row = i * p.cap_t;
-    const int64_t words = th_words < 0 ? p.cap_t / 8 : th_words;
-    int64_t bt = I64_MAX, bs = I64_MAX, slot = 0, last = 0;
-    for (int64_t w = 0; w < words; w++) {
-      uint64_t v = load8(o.th_valid + row + 8 * w);
-      if (v) last = w + 1;
-      while (v) {
-        const int b = STT_CTZ64(v) >> 3;
-        v &= ~((uint64_t)0xff << (8 * b));
-        const int64_t k = 8 * w + b;
-        const int64_t t = o.th_time[row + k];
-        if (t < bt || (t == bt && o.th_seq[row + k] < bs)) {
-          bt = t;
-          bs = o.th_seq[row + k];
-          slot = k;
-        }
-      }
-    }
-    th_words = last;
-    th_t = bt;
-    th_s = bs;
-    th_slot = slot;
+    const bool all = !p.th_cache || !th_kept;
+    STT_PF_BEGIN(tm);
+    const Res m = scan(SCAN_TH_MIN, th_words < 0 ? p.cap_t / 8 : th_words,
+                       all);
+    STT_PF_HELPER(tm, H_TH_MIN);
+    STT_PF_VISIT(V_HEAP, m.v[4]);
+    if (all) th_words = m.v[3];
+    th_kept = true;
+    const bool empty = m.v[0] == I64_MAX && m.v[1] == I64_MAX;
+    th_t = m.v[0];
+    th_s = m.v[1];
+    th_slot = empty ? 0 : m.v[2];
     th_ok = true;
   }
 
@@ -733,72 +1494,21 @@ struct Lane {
   // The first valid reassembly slot of conn c starting at `seq` (-1 if
   // none), eight slots a word: the rows are mostly empty.
   STT_LAW int64_t ra_find(int64_t c, int64_t seq) const {
-    const int64_t row = c * p.cap_ra;
-    for (int64_t w = 0; w < p.cap_ra / 8; w++) {
-      uint64_t v = load8(o.ra_valid + row + 8 * w);
-      while (v) {
-        const int b = STT_CTZ64(v) >> 3;
-        v &= ~((uint64_t)0xff << (8 * b));
-        if (o.ra_seq[row + 8 * w + b] == seq) return 8 * w + b;
-      }
-    }
-    return -1;
+    STT_PF_BEGIN(rf);
+    const int64_t k = scan(SCAN_RA_FIND, c, seq).v[0];
+    STT_PF_HELPER(rf, H_RA_FIND);
+    return k;
   }
 
-  // Merged reassembly runs of conn c (connection.py _sack_blocks): the
-  // eager loop sorts the valid entries by their distance from rcv_nxt
-  // and starts a run at an entry beyond every earlier end.  A run is so
-  // the interval [start, end] closed under "an entry starting within it
-  // extends it": its start the least distance past the previous run's
-  // end, its end the fixpoint of the entries starting inside.  The sort's
-  // order among equal starts changes neither, so none is kept.  `sk`
-  // gets (nsk, s0, e0, s1, e1, s2, e2), zeros for absent runs.
+  // Merged reassembly runs of conn c (connection.py _sack_blocks; one
+  // sorted pass by the tile, sack_sorted).  `sk` gets (nsk, s0, e0, s1,
+  // e1, s2, e2), zeros for absent runs.
   STT_LAW void sack_blocks(int64_t c, int64_t* sk) const {
-    const int64_t row = c * p.cap_ra;
-    const uint8_t* const valid = o.ra_valid + row;
-    const int64_t words = p.cap_ra / 8;
-    const int64_t rcvnxt = o.c_rcvnxt[c];
-    for (int k = 0; k < 7; k++) sk[k] = 0;
-    int64_t prev_end = 0;
-    for (int r = 0; r < 3; r++) {
-      int64_t start = I64_MAX;
-      bool found = false;
-      for (int64_t w = 0; w < words; w++) {
-        uint64_t v = load8(valid + 8 * w);
-        while (v) {
-          const int b = STT_CTZ64(v) >> 3;
-          v &= ~((uint64_t)0xff << (8 * b));
-          const int64_t rel = s_sub(o.ra_seq[row + 8 * w + b], rcvnxt);
-          if ((r == 0 || rel > prev_end) && (!found || rel < start)) {
-            start = rel;
-            found = true;
-          }
-        }
-      }
-      if (!found) break;
-      int64_t end = start;
-      for (bool grew = true; grew;) {
-        grew = false;
-        for (int64_t w = 0; w < words; w++) {
-          uint64_t v = load8(valid + 8 * w);
-          while (v) {
-            const int b = STT_CTZ64(v) >> 3;
-            v &= ~((uint64_t)0xff << (8 * b));
-            const int64_t k = row + 8 * w + b;
-            const int64_t rel = s_sub(o.ra_seq[k], rcvnxt);
-            const int64_t e = rel + o.ra_plen[k];
-            if (rel >= start && rel <= end && e > end) {
-              end = e;
-              grew = true;
-            }
-          }
-        }
-      }
-      sk[0] = r + 1;
-      sk[1 + 2 * r] = s_add(rcvnxt, start);
-      sk[2 + 2 * r] = s_add(rcvnxt, end);
-      prev_end = end;
-    }
+    STT_PF_BEGIN(sb);
+    const Res r = scan(SCAN_SACK, c);
+    for (int k = 0; k < 7; k++) sk[k] = r.v[k];
+    STT_PF_HELPER(sb, H_SACK);
+    STT_PF_VISIT(V_RA, r.v[7]);
   }
 
   // One segment from the lane's conn into its egress ring (emission
@@ -873,15 +1583,11 @@ struct Lane {
   // Pop the leading fully-acked rtx entries (a ring-order run).
   STT_LAW void clear_acked() {
     const int64_t c = crd(), w = cwr();
-    const int64_t pos = o.rtx_pos[c], n = o.rtx_len[c] - pos;
-    const int64_t una = o.c_snduna[c];
-    int64_t pops = 0;
-    for (int64_t k = 0; k < n && k < p.cap_rt; k++) {
-      const int64_t r = c * p.cap_rt + (pos + k) % p.cap_rt;
-      if (!s_leq(s_add(o.rtx_seq[r], o.rtx_plen[r]), una)) break;
-      pops += 1;
-    }
-    o.rtx_pos[w] = pos + pops;
+    STT_PF_BEGIN(ca);
+    const Res r = scan(SCAN_ACKED, c);
+    STT_PF_HELPER(ca, H_RTX);
+    STT_PF_VISIT(V_RTX, r.v[1]);
+    o.rtx_pos[w] = o.rtx_pos[c] + r.v[0];
   }
 
   // The first non-SACKed rtx entry (head fallback), re-stamped and
@@ -890,12 +1596,10 @@ struct Lane {
     const int64_t c = crd(), w = cwr();
     const int64_t pos = o.rtx_pos[c], n = o.rtx_len[c] - pos;
     if (n <= 0) return;  // nothing valid: nothing re-sent
-    int64_t first = 0;
-    for (int64_t k = 0; k < n && k < p.cap_rt; k++)
-      if (o.rtx_sacked[c * p.cap_rt + (pos + k) % p.cap_rt] == 0) {
-        first = k;
-        break;
-      }
+    STT_PF_BEGIN(ro);
+    const int64_t k = scan(SCAN_UNSACKED, c).v[0];
+    const int64_t first = k < 0 ? 0 : k;
+    STT_PF_HELPER(ro, H_RTX);
     const int64_t slot = (pos + first) % p.cap_rt;
     const int64_t seq = o.rtx_seq[c * p.cap_rt + slot];
     const int64_t plen = o.rtx_plen[c * p.cap_rt + slot];
@@ -937,17 +1641,10 @@ struct Lane {
   // cross-host outbox.
   STT_LAW void op_relay1() {
     const bool use_pend = o.r1_pk_valid[i] == 1;
-    int64_t best = I64_MAX, sel = -1;
-    for (int64_t k = o.conn_off[i]; k < o.conn_off[i + 1]; k++) {
-      const int64_t c = o.conn_rows[k];
-      const int64_t pos = o.op_pos[c];
-      if (o.c_queued[c] != 1 || o.op_len[c] <= pos) continue;
-      const int64_t hp = o.op[PK_PSEQ][c * p.cap_op + pos % p.cap_op];
-      if (hp < best || (hp == best && c > sel)) {
-        best = hp;
-        sel = c;
-      }
-    }
+    STT_PF_BEGIN(qd);
+    const Res pick = scan(SCAN_QDISC);
+    const int64_t best = pick.v[0], sel = pick.v[1];
+    STT_PF_HELPER(qd, H_QDISC);
     const bool pop = !use_pend && best < I64_MAX;
     const int64_t sel_safe = clamp64(sel, 0, p.conns - 1);
     Pk pk;
@@ -980,7 +1677,9 @@ struct Lane {
     if (r.linkdn) trace(now, TR_DRP, pk, RSN_LINKDOWN);
     if (r.fwd) {  // device_push(dev=2): dst must be a remote engine host
       const int64_t dip = pk.v[PK_DIP];
+      STT_PF_BEGIN(sl);
       const int64_t dslot = min64(search_left(o.ips_sorted, p.n, dip), p.n - 1);
+      STT_PF_HELPER(sl, H_SEARCH);
       const bool found = o.ips_sorted[dslot] == dip;
       const int64_t dst = o.ips_perm[dslot];
       at_ = 1;
@@ -1073,12 +1772,14 @@ struct Lane {
       if (pk.v[PK_DIP] != o.eth_ip[i]) abort_(AB_STRUCT, 5);
       // conn lookup: (dsthost, src-ip-host, sport) key
       const int64_t sip = pk.v[PK_SIP];
+      STT_PF_BEGIN(sl);
       const int64_t sslot = min64(search_left(o.ips_sorted, p.n, sip), p.n - 1);
       const bool sfound = o.ips_sorted[sslot] == sip;
       const int64_t sidx = o.ips_perm[sslot];
       const int64_t akey = (i * p.n + sidx) * 65536 + pk.v[PK_SPORT];
       const int64_t kslot =
           min64(search_left(o.ckeys, p.conns, akey), p.conns - 1);
+      STT_PF_HELPER(sl, H_SEARCH);
       const bool kfound = sfound && o.ckeys[kslot] == akey;
       const int64_t conn = o.ckperm[kslot];
       const bool good = kfound && o.c_lport[conn] == pk.v[PK_DPORT];
@@ -1140,23 +1841,11 @@ struct Lane {
       o.c_persistiv[w] = 0;
     }
     // SACK scoreboard marks
-    const int64_t nsk = pk.v[PK_NSK];
-    if (nsk > 0) {
-      const int64_t pos = o.rtx_pos[c], n = o.rtx_len[c] - pos;
-      int64_t newly = 0;
-      for (int64_t k = 0; k < n && k < p.cap_rt; k++) {
-        const int64_t slot = (pos + k) % p.cap_rt;
-        const int64_t seq = o.rtx_seq[c * p.cap_rt + slot];
-        const int64_t end = s_add(seq, o.rtx_plen[c * p.cap_rt + slot]);
-        bool cov = false;
-        for (int b = 0; b < 3; b++)
-          cov = cov || (nsk > b && s_leq(pk.v[PK_SK0S + 2 * b], seq) &&
-                        s_leq(end, pk.v[PK_SK0E + 2 * b]));
-        if (cov && o.rtx_sacked[c * p.cap_rt + slot] == 0) {
-          o.rtx_sacked[w * p.cap_rt + slot] = 1;
-          newly += 1;
-        }
-      }
+    if (pk.v[PK_NSK] > 0) {
+      STT_PF_BEGIN(sm);
+      const int64_t newly = scan(SCAN_SACK_MARK, c, w).v[0];
+      STT_PF_HELPER(sm, H_RTX);
+      STT_PF_VISIT(V_RTX, clamp64(o.rtx_len[c] - o.rtx_pos[c], 0, p.cap_rt));
       o.c_sackskip[w] = o.c_sackskip[c] + newly;
     }
     // ECN sender side: after the SACK marks, before the new-ack/dupack
@@ -1276,14 +1965,14 @@ struct Lane {
     const int64_t eff_len = offset > 0 ? plen - offset : plen;
     const bool future = live && s_sub(eff_seq, o.c_rcvnxt[c]) != 0;
     // reassembly setdefault (bounded by the receive buffer)
-    const int64_t row = c * p.cap_ra;
     if (future) {
       const bool exists = ra_find(c, eff_seq) >= 0;
       const bool in_win = s_sub(eff_seq, o.c_rcvnxt[c]) < o.c_rbmax[c];
       if (!in_win) drop_cause(TEL_REASM_FULL);  // receiver discard
       if (in_win && !exists) {
-        const int64_t words = p.cap_ra / 8;
-        const int64_t k = first_free(o.ra_valid + row, words, words);
+        STT_PF_BEGIN(ff);
+        const int64_t k = scan(SCAN_RA_FREE, c).v[0];
+        STT_PF_HELPER(ff, H_FIRST_FREE);
         at_ = 4;
         if (k < 0) {
           abort_(AB_STRUCT, 8);
@@ -1299,9 +1988,9 @@ struct Lane {
     // in-order delivery
     const bool inord = live && !future;
     if (inord) {  // (nothing was stored: the reassembly row as it came)
-      bool had_any = false;
-      for (int64_t k = 0; k < p.cap_ra / 8 && !had_any; k++)
-        had_any = load8(o.ra_valid + row + 8 * k) != 0;
+      STT_PF_BEGIN(hh);
+      const bool had_any = scan(SCAN_RA_ANY, c).v[0] >= 0;
+      STT_PF_HELPER(hh, H_HOLES);
       o.had_holes[i] = had_any ? 1 : 0;
       const int64_t space = o.c_rbmax[c] - o.c_rblen[c];
       const int64_t take = max64(min64(space, eff_len), 0);
@@ -1345,9 +2034,9 @@ struct Lane {
     const int64_t c = crd(), w = cwr();
     const int64_t ssa = o.c_ssa[c] + 1;
     o.c_ssa[w] = ssa;
-    bool any_ra = false;
-    for (int64_t k = 0; k < p.cap_ra / 8 && !any_ra; k++)
-      any_ra = load8(o.ra_valid + c * p.cap_ra + 8 * k) != 0;
+    STT_PF_BEGIN(hh);
+    const bool any_ra = scan(SCAN_RA_ANY, c).v[0] >= 0;
+    STT_PF_HELPER(hh, H_HOLES);
     const bool fire = o.had_holes[i] == 1 || o.c_ssa[c] >= 2 || any_ra ||
                       recv_window(c) < o.c_effmss[c];
     if (fire) {
@@ -1567,8 +2256,10 @@ struct Lane {
         o.c_dupacks[w] = 0;
         o.c_fastrec[w] = 0;
         // SACK reneging: forget every mark on RTO
-        for (int64_t k = 0; k < p.cap_rt; k++)
-          o.rtx_sacked[w * p.cap_rt + k] = 0;
+        STT_PF_BEGIN(rn);
+        scan(SCAN_RENEGE, w);
+        STT_PF_HELPER(rn, H_RTX);
+        STT_PF_VISIT(V_RTX, p.cap_rt);
         const int64_t rto = min64(2 * o.c_rto[c], MAX_RTO_NS);
         o.c_rto[w] = rto;
         o.c_rtobackoff[w] = o.c_rtobackoff[c] + 1;
@@ -1640,6 +2331,21 @@ struct Lane {
     // timer
     o.th_valid[i * p.cap_t + th_slot] = 0;
     th_ok = false;
+    if (th_slot < th_free) th_free = th_slot;
+    if (th_kept) {  // the popped entry is its rank's least kept
+      const int r = (int)((th_slot / 8) % t_.size);
+      const int64_t n = sh_.hn[r];
+      if (n > 0 && sh_.hslot[r][0] == th_slot) {
+        for (int64_t j = 1; j < n; j++) {
+          sh_.ht[r][j - 1] = sh_.ht[r][j];
+          sh_.hs[r][j - 1] = sh_.hs[r][j];
+          sh_.hslot[r][j - 1] = sh_.hslot[r][j];
+        }
+        sh_.hn[r] = n - 1;
+      } else {
+        th_kept = false;
+      }
+    }
     if (h_down) return;  // a dead host's timers discard
     const int64_t slot = i * p.cap_t + th_slot;
     const int64_t kind = o.th_kind[slot], tgt = o.th_tgt[slot];
@@ -1674,60 +2380,40 @@ struct Lane {
     for (int64_t j = 0; j <= STT_ABORT_SEEN(o.stats + ST_AB_ITER); j++) {
       j_ = j;
       if (cont == C_IDLE) {  // a busy lane does not pop
+        STT_PF_BEGIN(test);
         const int64_t safe = min64(ib_pos, p.cap_i - 1);
         const int64_t ib_t =
             ib_len > ib_pos ? o.ib_time[i * p.cap_i + safe] : I64_MAX;
         th_min();
         const int64_t et = min64(ib_t, th_t);
+        STT_PF_END(test, PF_PASS + P_TEST);
         if (et >= window_end) break;  // neither busy nor due
         const bool pick_ib = ib_t != th_t ? ib_t < th_t : ib_t < I64_MAX;
+        STT_PF_BEGIN(pop);
         mark(P_POP, j);
         op_pop_event(et, pick_ib, safe);
+        STT_PF_END(pop, PF_PASS + P_POP);
       }
-      if (cont == C_TMR) {
-        mark(P_TMR, j);
-        op_tmr();
-      }
-      if (cont == C_APP) {
-        mark(P_APP, j);
-        op_app();
-      }
-      if (cont == C_R2) {
-        mark(P_R2, j);
-        op_relay2();
-      }
-      if (cont == C_TCPIN) {
-        mark(P_TCPIN, j);
-        op_tcpin();
-      }
-      for (int k = 0; k < 2; k++) {
-        if (cont == C_DRAIN) {
-          mark(k ? P_DRAIN_B : P_DRAIN_A, j);
-          op_drain();
-        }
-      }
-      if (cont == C_ACKDATA) {
-        mark(P_ACK, j);
-        op_ackdata();
-      }
-      if (cont == C_PUSH) {
-        mark(P_PUSH, j);
-        op_push();
-      }
-      if (cont == C_FLUSH) {
-        mark(P_FLUSH, j);
-        op_flush();
-      }
-      for (int k = 0; k < 2; k++) {
-        if (cont == C_R1) {
-          mark(k ? P_R1B : P_R1A, j);
-          op_relay1();
-        }
-      }
-      if (cont == C_ARM) {
-        mark(P_ARM, j);
-        op_arm();
-      }
+#define STT_PASS(q, code, op)             \
+  if (cont == (code)) {                   \
+    STT_PF_BEGIN(pass);                   \
+    mark((q), j);                         \
+    op();                                 \
+    STT_PF_END(pass, PF_PASS + (q));      \
+  }
+      STT_PASS(P_TMR, C_TMR, op_tmr)
+      STT_PASS(P_APP, C_APP, op_app)
+      STT_PASS(P_R2, C_R2, op_relay2)
+      STT_PASS(P_TCPIN, C_TCPIN, op_tcpin)
+      STT_PASS(P_DRAIN_A, C_DRAIN, op_drain)
+      STT_PASS(P_DRAIN_B, C_DRAIN, op_drain)
+      STT_PASS(P_ACK, C_ACKDATA, op_ackdata)
+      STT_PASS(P_PUSH, C_PUSH, op_push)
+      STT_PASS(P_FLUSH, C_FLUSH, op_flush)
+      STT_PASS(P_R1A, C_R1, op_relay1)
+      STT_PASS(P_R1B, C_R1, op_relay1)
+      STT_PASS(P_ARM, C_ARM, op_arm)
+#undef STT_PASS
       s.iters = (uint32_t)(j + 1);
       // Per-round runaway valve: a continuation-cycle bug must abort,
       // not spin.
@@ -1760,13 +2446,18 @@ STT_LAW void settle_abort(const Ops& o) {
 }
 
 #ifndef __CUDACC__
-// The host build: every lane in turn, then the window's counts, as the
-// kernel's last block settles them.
-inline void window_serial(const Ops& o, const Params& p) {
+// The host build: every lane in turn, each by a team of `team` ranks
+// run in turn, then the window's counts, as the kernel's last block
+// settles them.  Returns 0, or 1 for a reassembly row wider than the
+// SACK staging or a team outside [1, kTeamMax].
+inline int window_serial(const Ops& o, const Params& p, int team = 1) {
+  if (p.cap_ra > kSackMax || team < 1 || team > kTeamMax) return 1;
+  const Team t = {team};
+  TeamScratch sh;
   int64_t win_max = 0;
   for (int64_t i = 0; i < p.n; i++) {
     LaneStats s = {};
-    Lane(o, p, i, s).run();
+    Lane(o, p, i, s, t, sh).run();
     for (int q = 0; q < kPasses; q++)
       o.stats[ST_LANES + pass_slot(q)] += s.lanes[q];
     o.stats[ST_CALLS + CALL_BUCKET] += s.calls[CALL_BUCKET];
@@ -1783,6 +2474,7 @@ inline void window_serial(const Ops& o, const Params& p) {
   }
   o.stats[ST_ITERS] += win_max;
   settle_abort(o);
+  return 0;
 }
 #endif
 

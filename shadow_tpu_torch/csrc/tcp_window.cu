@@ -15,33 +15,49 @@
 // over a lane's own rows with no reuse across lanes: by bytes, a window
 // must read each lane's last busy/due test, the slots it dequeues and
 // the packets it copies, and write the words it changes
-// (ops/tcp_window.py window_need_bytes).  What the eager loop paid
-// instead was the host: one loop-condition sync and one guard sync per
-// stage per micro-iteration, dozens of eager ops per stage each
-// rewriting all H lanes, and one fused relay-kernel launch per relay
-// stage fire (ops/tcp_span.py).  Here the whole window is one launch
-// with no host sync: a lane runs its own iterations until it is neither
-// busy nor due, so the card's time follows the slowest lane's
-// iterations, each a chain of dependent trips to memory (the conn's
-// words, its rings, the timer heap).
+// (ops/tcp_window.py window_need_bytes).  The lanes are independent, so
+// the card's time follows the slowest lane's iterations, each a chain of
+// dependent trips to memory (the conn's words, its rings, the timer
+// heap), and its row scans: at 10,000 hosts a tgen server's timer heap
+// holds ~1,300 stale RTO entries, which one thread a lane (the earlier
+// design) rescanned after every pop, one dependent load a slot, while 31
+// other lanes' branches took turns on its warp.
 //
-// Design.  One thread per lane, grid stride, blocks of kThreads.  The
-// lane's hot words (time, continuation registers, its conn, seqs, ring
-// positions) live in registers for the window and go back once, where
-// changed; conn rows, rings, the timer heap and counters are read and
-// written at the lane's own rows.  The timer heap's minimum is kept
-// between pops (Params.th_cache; its rows are scanned eight slots a
-// word, and only up to the last word that held an entry).  Outbox and
-// trace slots come from a warp-aggregated atomicAdd on out_n / tr_n
-// (tcp_lane.cuh STT_CLAIM); an abort lowers its iteration words with
-// atomicMin, and a lane stops once its iteration passes the least one.
-// The window's counters: each lane ORs its iteration bits into the
-// shared bitmaps once per 32 iterations; each warp reduces its lanes'
-// stage counts, law calls and iteration counts with __reduce_*_sync and
-// one atomic each; the last block done (a done counter after a fence, no
-// grid barrier) counts the bitmaps, clears them, settles the abort words
-// into abort_code / abort_site and leaves its scratch words as the next
-// window needs them.
+// Design.  A tile of kTeam threads (one warp at kTeam = 32) steps one
+// lane (tcp_lane.cuh, "the team"): rank 0 runs the lane law with the
+// lane's hot words in registers, and the whole tile serves its row
+// scans (the heap's least, each rank keeping its slice's least entries
+// between rescans; the first free heap slot past a kept bound; the
+// reassembly lookups; the SACK runs as one sorted pass in the tile's
+// shared memory; the rtx ring walks; the qdisc pick), each a strided
+// slice of the row and a combine by shuffles.  Tiles take lanes from a
+// queue (a counter in the
+// statistics words), the lanes that serve several conns (tgen servers,
+// the heavy ones) first, then the rest; the grid is the card's SMs times
+// the blocks the occupancy calculator fits on one.  Outbox and trace
+// slots come from an atomicAdd aggregated over the leaders that claim
+// together (tcp_lane.cuh STT_CLAIM); an abort lowers its iteration words
+// with atomicMin, and a lane stops once its iteration passes the least
+// one.  The window's counters: each leader ORs its lane's iteration bits
+// into the shared bitmaps once per 32 iterations and sums its lanes'
+// stage counts, law calls and iteration counts; each warp reduces them
+// with __reduce_*_sync and one atomic each; the last block done (a done
+// counter after a fence, no grid barrier) counts the bitmaps, clears
+// them, settles the abort words into abort_code / abort_site and leaves
+// its scratch words (the queues among them) as the next window needs
+// them.
+//
+// Shared memory: one TeamScratch a tile (the SACK staging of kSackMax
+// distances and lengths, padded, the ranks' counts and breaks, and the
+// ranks' kept heap entries), kTiles a block, dynamic.  The kernel
+// refuses cap_ra > kSackMax.  kTeam = 32, kTiles = 4 and kKeep = 4
+// are the measured best of those tried (PERF.md).
+//
+// The profiling build (-DSTT_TCP_PROFILE, its own library,
+// tools/tcp_window_profile.py) fills a row of clocks and counts per lane
+// (tcp_lane.cuh STT_TCP_PROFILE_WORDS) into the buffer
+// stt_tcp_profile_buffer() names, and rank 0's clocks of the tile's
+// scans by op (stt_tcp_serve_profile).
 //
 // Interface: a host table of operand pointers in STT_TCP_OPERANDS order
 // (ops/tcp_window.py fills it by the names stt_tcp_operands() returns)
@@ -61,11 +77,14 @@ using stt::tcp::kPasses;
 using stt::tcp::LaneStats;
 using stt::tcp::Ops;
 using stt::tcp::Params;
+using stt::tcp::Req;
+using stt::tcp::Team;
+using stt::tcp::TeamScratch;
 
-// Threads a block.  The lanes diverge from their first iteration, so a
-// block's size buys latency hiding and spread over the SMs, not
-// coalescing.
-constexpr int kThreads = 64;
+constexpr int kTeam = stt::tcp::kTeam;
+// Tiles a block: the tiles' scratch and the blocks an SM holds.
+constexpr int kTiles = 4;
+constexpr int kThreads = kTiles * kTeam;
 
 __device__ __forceinline__ void flush_warp(const Ops& o, const LaneStats& s) {
   constexpr unsigned kAll = 0xffffffffu;
@@ -91,17 +110,94 @@ __device__ __forceinline__ void flush_warp(const Ops& o, const LaneStats& s) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tcp_window_kernel(const __grid_constant__ Ops o,
-                      const __grid_constant__ Params p) {
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < p.n;
-       base += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = base + threadIdx.x;
-    LaneStats s = {};
-    if (i < p.n) stt::tcp::Lane(o, p, i, s).run();
-    __syncwarp();
-    flush_warp(o, s);
+// The next lane for a tile (p.n when none is left): a first pass over
+// the lanes takes those with several conn rows and a second the rest.
+// Lanes are independent, so the order changes no result.
+__device__ int64_t next_lane(const Ops& o, const Params& p) {
+  unsigned long long* const q =
+      (unsigned long long*)&o.stats[stt::tcp::ST_QUEUE];
+  for (int pass = 0; pass < 2; pass++)
+    for (;;) {
+      const int64_t k = (int64_t)atomicAdd(q + pass, 1ull);
+      if (k >= p.n) break;
+      if ((o.conn_off[k + 1] - o.conn_off[k] > 1) == (pass == 0)) return k;
+    }
+  return p.n;
+}
+
+#ifdef STT_TCP_PROFILE
+__device__ __forceinline__ int64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (int64_t)t;
+}
+#endif
+
+// One lane by its tile: the leader runs the law (its profile row filled
+// in the profiling build), then releases the waiting ranks.
+__device__ void leader_lane(const Ops& o, const Params& p, int64_t i,
+                            LaneStats& s, const Team& t, TeamScratch& sh,
+                            int64_t* prof) {
+  stt::tcp::Lane lane(o, p, i, s, t, sh);
+#ifdef STT_TCP_PROFILE
+  using namespace stt::tcp;
+  int64_t* const row = prof ? prof + i * PF_N : nullptr;
+  int64_t t0 = 0;
+  if (row) {
+    row[PF_START_NS] = global_ns();
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    row[PF_SM] = sm;
+    lane.prof_ = row;
+    t0 = clock64();
   }
+#endif
+  lane.run();
+#ifdef STT_TCP_PROFILE
+  if (row) {
+    row[PF_CYCLES] = clock64() - t0;
+    row[PF_ITERS] = s.iters;
+    row[PF_END_NS] = global_ns();
+  }
+#endif
+  Req done = {stt::tcp::SCAN_DONE, 0, 0};
+  stt::tcp::team_serve(t, o, p, i, done, sh);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    tcp_window_kernel(const __grid_constant__ Ops o,
+                      const __grid_constant__ Params p, int64_t* prof) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TeamScratch* const scratch = reinterpret_cast<TeamScratch*>(smem);
+  const int lane_id = threadIdx.x & 31;
+  Team t;
+  t.base = lane_id & ~(kTeam - 1);
+  t.rank = lane_id - t.base;
+  t.mask = kTeam == 32 ? 0xffffffffu : ((1u << kTeam) - 1) << t.base;
+  TeamScratch& sh = scratch[threadIdx.x / kTeam];
+  LaneStats sum = {};  // the leader's lanes, summed
+  for (;;) {
+    long long i = 0;
+    if (t.rank == 0) i = next_lane(o, p);
+    i = __shfl_sync(t.mask, i, 0, kTeam);
+    if (i >= p.n) break;
+    if (t.rank == 0) {
+      LaneStats s = {};
+      leader_lane(o, p, i, s, t, sh, prof);
+      for (int q = 0; q < kPasses; q++) sum.lanes[q] += s.lanes[q];
+      sum.calls[0] += s.calls[0];
+      sum.calls[1] += s.calls[1];
+      sum.iters = s.iters > sum.iters ? s.iters : sum.iters;
+    } else {
+      for (;;) {
+        Req rq = {0, 0, 0};
+        stt::tcp::team_serve(t, o, p, i, rq, sh);
+        if (rq.op == stt::tcp::SCAN_DONE) break;
+      }
+    }
+  }
+  __syncwarp();
+  flush_warp(o, sum);
   // The last block done settles the window's fires, iterations and
   // aborts.
   __shared__ bool last;
@@ -131,16 +227,45 @@ __global__ void __launch_bounds__(kThreads)
     o.stats[stt::tcp::ST_ITERS] += win_max;
     o.stats[stt::tcp::ST_WIN_MAX] = 0;
     o.stats[stt::tcp::ST_DONE] = 0;
+    o.stats[stt::tcp::ST_QUEUE] = 0;
+    o.stats[stt::tcp::ST_QUEUE + 1] = 0;
     stt::tcp::settle_abort(o);
   }
 }
 
-int blocks_for(int64_t n) {
-  // One lane per thread, capped so a huge lane count loops inside the
-  // grid instead (132 SMs x 16 blocks).
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  const int64_t cap = 132 * 16;
-  return (int)(b < cap ? b : cap);
+// The tiles' scratch, dynamic shared memory a block (over the 48 KB a
+// block gets without asking).
+constexpr int kSmem = kTiles * (int)sizeof(TeamScratch);
+
+// Blocks a launch on the current device: as many as it holds at once
+// (its SMs times the occupancy calculator's blocks an SM), no more than
+// the lanes need.  A device's first call also lets the kernel take
+// kSmem there; its cap is kept per device.
+constexpr int kMaxDevices = 64;
+int g_cap[kMaxDevices] = {};
+
+cudaError_t blocks_for(int64_t n, int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_cap[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(tcp_window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tcp_window_kernel, kThreads, kSmem);
+    if (e != cudaSuccess) return e;
+    if (sms <= 0 || per_sm <= 0) return cudaErrorInvalidConfiguration;
+    g_cap[dev] = sms * per_sm;
+  }
+  const int64_t b = (n + kTiles - 1) / kTiles;
+  *blocks = (int)(b < g_cap[dev] ? b : g_cap[dev]);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -155,6 +280,39 @@ extern "C" long long stt_tcp_bitmap_words() {
   return stt::tcp::kBitmapWords;
 }
 
+// The profiling build's buffer (PF_N int64 words a lane, zeroed by the
+// caller) for the launches that follow; the main build ignores it.
+static int64_t* g_prof = nullptr;
+extern "C" void stt_tcp_profile_buffer(void* prof) {
+  g_prof = (int64_t*)prof;
+}
+extern "C" const char* stt_tcp_profile_words() {
+  return stt::tcp::kProfileWords;
+}
+extern "C" int stt_tcp_profiling() {
+#ifdef STT_TCP_PROFILE
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+// The profiling build's scan clocks (calls, entry wait, scan, exit wait
+// cycles of rank 0, by scan op: 16 x 4 words) into `out`, then cleared;
+// the main build writes nothing and returns 0 ops.
+extern "C" int stt_tcp_serve_profile(unsigned long long* out) {
+#ifdef STT_TCP_PROFILE
+  using stt::tcp::g_serve_prof;
+  cudaMemcpyFromSymbol(out, g_serve_prof, sizeof(g_serve_prof));
+  static const unsigned long long zeros[stt::tcp::kScanOps][4] = {};
+  cudaMemcpyToSymbol(g_serve_prof, zeros, sizeof(zeros));
+  return stt::tcp::kScanOps;
+#else
+  (void)out;
+  return 0;
+#endif
+}
+
 extern "C" int stt_tcp_window(const void* const* ptrs, const long long* words,
                               void* stream) {
   Ops o;
@@ -162,9 +320,26 @@ extern "C" int stt_tcp_window(const void* const* ptrs, const long long* words,
   Params p;
   std::memcpy(&p, words, sizeof(p));
   if (p.n <= 0) return 0;
-  tcp_window_kernel<<<blocks_for(p.n), kThreads, 0, (cudaStream_t)stream>>>(
-      o, p);
+  if (p.cap_ra > stt::tcp::kSackMax) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = blocks_for(p.n, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  tcp_window_kernel<<<blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
+      o, p, g_prof);
   return (int)cudaGetLastError();
+}
+
+// The launch's shape on the current device, for the record: threads a
+// tile, tiles a block, blocks a launch at n lanes, dynamic shared memory
+// a block.  Returns a CUDA error code (0 when the shape was found).
+extern "C" int stt_tcp_launch_shape(long long n, long long* out) {
+  int blocks = 0;
+  const cudaError_t e = blocks_for(n, &blocks);
+  out[0] = kTeam;
+  out[1] = kTiles;
+  out[2] = blocks;
+  out[3] = kSmem;
+  return (int)e;
 }
 
 extern "C" const char* stt_tcp_error_string(int code) {

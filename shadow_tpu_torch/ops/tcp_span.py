@@ -48,8 +48,9 @@ where it is handled):
 
 The window step.  On the card (`window_factory` None) each window is one
 launch of the hand kernel `stt_tcp_window` (ops/tcp_window.py,
-csrc/tcp_window.cu): one thread per host lane runs the fused schedule
-(csrc/tcp_lane.cuh), the relay tails' bucket and CoDel-head laws inside
+csrc/tcp_window.cu): a tile of 32 threads per host lane runs the fused
+schedule (csrc/tcp_lane.cuh: one thread the law, the tile its row
+scans), the relay tails' bucket and CoDel-head laws inside
 the lane, and the round end (propagation, the inbox merge) runs eagerly
 after it.  The eager window (`run.window_plain`) is its plain version:
 the CPU runs it, and so does the card with the `window_factory`

@@ -7,11 +7,12 @@ app, relay-2, on-packet, reassembly, ack, push, flush, relay-1 and arm
 stages, over and over until no lane is busy or due.  Eager, that is a
 host sync per stage guard per micro-iteration, dozens of eager ops per
 stage, and one fused relay-kernel launch per relay stage fire
-(ops/relay.py).  The kernel steps the whole window in one launch, one
-thread per host lane, with the relay tails (csrc/queue_laws.cuh
-relay1_core / relay2_core: the token-bucket and CoDel-head laws) run in
-the lane (csrc/tcp_lane.cuh).  The round end (propagation and the inbox
-merge) stays eager after each window.
+(ops/relay.py).  The kernel steps the whole window in one launch, a
+tile of 32 threads per host lane (one runs the lane law, the tile its
+row scans), with the relay tails (csrc/queue_laws.cuh relay1_core /
+relay2_core: the token-bucket and CoDel-head laws) run in the lane
+(csrc/tcp_lane.cuh).  The round end (propagation and the inbox merge)
+stays eager after each window.
 
 - The plain version is the runner's own eager window, `window_plain`
   of the built loop (`TcpSpanRunner._build`); the runner runs it on the

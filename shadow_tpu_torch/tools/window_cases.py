@@ -115,6 +115,92 @@ def capture_tcp_export(mgr, nth: int, caps: dict | None = None):
     return runner, got["st"], got["args"]
 
 
+def _flight_grid(d: dict, s: int, n_seg: int) -> tuple:
+    """Server conn s's flight [snd_una, snd_nxt) cut into n_seg
+    segments: (seqs, lengths)."""
+    una = int(d["c_snduna"][s])
+    span = (int(d["c_sndnxt"][s]) - una) % (1 << 32)
+    length = span // n_seg
+    seq = (una + length * np.arange(n_seg)) % (1 << 32)
+    plen = np.full(n_seg, length)
+    plen[-1] = span - length * (n_seg - 1)
+    return seq, plen
+
+
+def tcp_wide_rows(st_np: dict, seed: int = 0) -> dict:
+    """A TCP export (numpy, as capture_tcp_export gives it) with its rows
+    filled to width, still a state of the stream.  The server conn with
+    the most arrivals waiting in its host's inbox, its client, and the
+    first client whose host has arrivals waiting:
+
+    - the server's rtx ring holds its flight [snd_una, snd_nxt) cut into
+      480 small segments (cap_rt 512), those of its client's first run
+      marked SACKed;
+    - each client's reassembly row holds 298 segments of its server's
+      flight so cut, in shuffled slots, behind the hole at rcv_nxt = the
+      server's snd_una: three runs with holes between them;
+    - the server host's timer heap holds 3,000 more RTO entries of its
+      conns, drawn before the export (seqs from event_seq on), stale:
+      most due after the window, a hundred inside it."""
+    rng = np.random.default_rng(seed)
+    d = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+         for k, v in st_np.items()}
+    role, host = d["c_role"], d["c_host"]
+
+    def peer(c):
+        return int(np.flatnonzero((d["c_pport"] == d["c_lport"][c])
+                                  & (d["c_pip"] == d["c_lip"][c]))[0])
+
+    # Arrivals waiting, by the server conn they are for.
+    waiting = np.zeros(len(role), dtype=np.int64)
+    for h in np.unique(host[role == 1]):
+        for k in range(int(d["ib_pos"][h]), int(d["ib_len"][h])):
+            hit = np.flatnonzero((host == h) & (d["c_pip"] == d["ib_sip"][h, k])
+                                 & (d["c_pport"] == d["ib_sport"][h, k]))
+            waiting[hit] += 1
+    s = int(np.argmax(waiting))
+    n_seg = 480
+    held = np.r_[2:100, 130:250, 300:380]  # a client's three runs
+    assert role[s] == 1 and waiting[s] > 0 and n_seg < d["rtx_seq"].shape[1] - 1
+    seq, plen = _flight_grid(d, s, n_seg)
+    for k, v in (("rtx_seq", seq), ("rtx_plen", plen), ("rtx_rtxed", 0),
+                 ("rtx_sent", d["now"][host[s]])):
+        d[k][s] = 0
+        d[k][s, :n_seg] = v
+    d["rtx_sacked"][s] = 0
+    d["rtx_sacked"][s, held[held < 100]] = 1
+    d["rtx_pos"][s], d["rtx_len"][s] = 0, n_seg
+    clients = {peer(s)}
+    arriving = np.flatnonzero((role == 0)
+                              & (d["ib_len"] > d["ib_pos"])[host])
+    clients.update(arriving[:1].tolist())
+    for c in sorted(clients):
+        seq, plen = _flight_grid(d, peer(c), n_seg)
+        slots = rng.permutation(d["ra_seq"].shape[1])[:len(held)]
+        d["ra_valid"][c] = False
+        d["ra_seq"][c] = 0
+        d["ra_plen"][c] = 0
+        d["ra_valid"][c, slots] = True
+        d["ra_seq"][c, slots] = seq[held]
+        d["ra_plen"][c, slots] = plen[held]
+        d["c_rcvnxt"][c] = seq[0]
+    # The server host's heap: stale RTO entries of its conns.
+    h = int(host[s])
+    conns = np.flatnonzero(host == h)
+    free = rng.permutation(np.flatnonzero(~d["th_valid"][h]))[:3000]
+    start, end = int(d["now"].max()), int(d["c_rtodl"][conns].max())
+    t = rng.integers(start + 10_000_000, end, len(free))
+    t[:100] = rng.integers(start, start + 10_000_000, 100)
+    es = int(d["event_seq"][h])
+    d["th_time"][h, free] = t // 1_000_000 * 1_000_000
+    d["th_seq"][h, free] = es + np.arange(len(free))
+    d["th_kind"][h, free] = 1  # TK_TCP
+    d["th_tgt"][h, free] = rng.choice(conns, len(free))
+    d["th_valid"][h, free] = True
+    d["event_seq"][h] = es + len(free)
+    return d
+
+
 def tcp_device_state(runner, st_np: dict) -> dict:
     """A captured TCP export on the runner's device, as its export_state
     makes it (the conn count kept on the runner)."""
