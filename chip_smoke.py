@@ -21,14 +21,20 @@ Six phases; any failed check raises, so the script exits non-zero:
      lanes, exactly equal; card time with every launch on a fresh copy
      of the checked state, and the bound from the bytes each lane's
      branch needs;
-   - the per-round propagation kernel (stt_propagate) at n = 1, 1,000,
-     65,536, 1,048,576 and a ragged 1,000,003 packets, with the 3-tier
-     graph's matrices (V = 3) and random V = 64 ones (unreachable pairs,
-     zero and full loss thresholds, control lanes, send times on both
-     sides of bootstrap_end): every output exactly equal; card time in a
-     CUDA graph (back to back on the card, the minima's fill included),
-     host time per wrapper call, the plain version, and the bound from
-     the bytes per packet and the matrices.
+   - the per-round propagation kernel (stt_propagate_round) at n = 1,
+     1,000, 65,536, 1,048,576 and a ragged 1,000,003 packets, with the
+     3-tier graph's matrices (V = 3) and random V = 64 ones (unreachable
+     pairs, zero and full loss thresholds, control lanes, send times on
+     both sides of bootstrap_end), through the tensor API and through
+     the per-round route's round stage on both branches (run in place in
+     the mapped buffer, and copied to the card and back): every output
+     and both minima exactly equal; card time in a CUDA graph (back to
+     back on the card), host time per tensor-API call, the plain
+     version, the bound from the bytes per packet and the matrices, and
+     the route's dispatch per round (pack, the one call, the views; the
+     kernel's events).  Then the sweep of both branches at
+     PROPAGATE_SWEEP_N packets, which COPY_MIN_PACKETS is set from, and
+     the default stage's choice either side of it.
    - the PHOLD/udp-mesh window kernel (stt_phold_window) and span
      kernel (stt_phold_span) on exported span states of phold-8k,
      mesh-codel-10 (inside its CoDel stretch) and phold-64k-ring: one
@@ -143,9 +149,9 @@ Six phases; any failed check raises, so the script exits non-zero:
    measurement, auto launches + probe launches = device rounds +
    probes, none in host-only runs, and inet-loss drops at mesh-100.
    Prints the route split, packets per round and the per-phase walls
-   per dispatch (export, upload, launch, kernel, download, scatter);
-   the kernels line's stt_propagate row is timed at the forced run's
-   median round.
+   per dispatch (export, upload, launch, kernel, download, scatter) of
+   each run, and their upload + launch + kernel + download; the kernels
+   line's stt_propagate row is timed at the forced run's median round.
 
 The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
@@ -228,6 +234,14 @@ OPS_RATE = 67e12
 # and launches the graph meanwhile.
 SLEEP_CYCLES = 4_000_000
 PROPAGATE_N = (1, 1_000, 65_536, 1_048_576, 1_000_003)
+# The per-round route's sweep of its two branches (the tier10k median
+# round, the PROPAGATE_N sizes and the powers of 4 between), and the
+# copy_min that forces each branch.
+PROPAGATE_SWEEP_N = (1, 150, 1_000, 4_096, 16_384, 65_536, 131_072,
+                     262_144, 524_288, 1_048_576)
+PROPAGATE_BRANCHES = {"zero-copy": 1 << 62, "copied": 0}
+PROPAGATE_KEYS = (0x9E3779B9, 0x7F4A7C15)
+PROPAGATE_WE = PROPAGATE_BOOT = 5_000_000_000
 # The 16-host stream's run through the eager window, the path that still
 # launches the relay kernels: the fleet enters the TCP domain near 270 ms,
 # so 400 ms gives a dozen device rounds at a few seconds each.
@@ -604,15 +618,107 @@ def propagate_bound_ms(n: int, v: int):
                                                             "operations")
 
 
+def export_bytes(cols) -> tuple:
+    """export_round's seven byte columns of propagate_inputs' columns
+    (dst_host, which the law does not read, zero)."""
+    sn, dn, sh, ps, ts, ctl = (c.cpu().numpy() for c in cols)
+    return (sn.tobytes(), dn.tobytes(), np.zeros_like(sn).tobytes(),
+            sh.tobytes(), ps.tobytes(), ts.tobytes(),
+            ctl.astype(np.uint8).tobytes())
+
+
+def stage_round(stage, export, n: int, window_end: int):
+    """One round of the per-round route: pack, one call, the views."""
+    from shadow_tpu_torch.ops.propagate import PROPAGATE
+    stage.pack(export, n)
+    PROPAGATE.round(stage, n, window_end)
+    return stage.results(n)
+
+
+def round_stage(mats, copy_min=None, time_every: int = 1):
+    """A stage over the matrices, every round timed unless `time_every`
+    says otherwise; `copy_min` forces a branch (PROPAGATE_BRANCHES)."""
+    from shadow_tpu_torch.ops.propagate import COPY_MIN_PACKETS, RoundStage
+    return RoundStage("cuda", *mats, PROPAGATE_KEYS, PROPAGATE_BOOT,
+                      time_every=time_every,
+                      copy_min=(COPY_MIN_PACKETS if copy_min is None
+                                else copy_min))
+
+
+def check_stage(n: int, v: int, mats, export, want) -> None:
+    """The per-round route on both branches, exactly against the plain
+    version's outputs `want` (deliver, keep, reachable, lossy, mins)."""
+    from shadow_tpu_torch.ops.propagate import PROPAGATE
+    want = [w.cpu().numpy() for w in want]
+    for branch, copy_min in PROPAGATE_BRANCHES.items():
+        stage = round_stage(mats, copy_min)
+        stage.pack(export, n)
+        stage.buf[stage.layout(n)["mins"]:] = 0xAB  # must be overwritten
+        PROPAGATE.round(stage, n, PROPAGATE_WE)
+        (keep, deliver, reach, lossy), md, ml = stage.results(n)
+        bad = [name for name, g, w in (
+            ("deliver", deliver, want[0]), ("keep", keep, want[1]),
+            ("reachable", reach, want[2]), ("lossy", lossy, want[3]))
+            if not np.array_equal(np.asarray(g).astype(w.dtype), w)]
+        if [md, ml] != want[4].tolist():
+            bad.append(f"mins {[md, ml]} != {want[4].tolist()}")
+        if stage.copied != (branch == "copied"):
+            bad.append(f"copied {stage.copied}")
+        if bad:
+            raise AssertionError(f"propagate round n={n} V={v} {branch}: "
+                                 f"{bad} differ")
+        del stage
+
+
+def dispatch_times(stages: dict, export, n: int, reps: int) -> dict:
+    """Host wall per round of the per-round route (pack, the one call,
+    the views) and its parts on each stage of `stages`, the stages taking
+    turns round by round after a warm-up: medians over `reps` rounds,
+    microseconds; and the kernel's mean card time over the stage's timed
+    rounds (its events; 0 on an untimed stage)."""
+    from shadow_tpu_torch.ops.propagate import PROPAGATE
+    for st in stages.values():
+        for _ in range(5):
+            stage_round(st, export, n, PROPAGATE_WE)
+    pc = time.perf_counter_ns
+    samples = {b: [] for b in stages}
+    timed0 = {b: (st.plan.timed, st.plan.kernel_ms)
+              for b, st in stages.items()}
+    for _ in range(reps):
+        for b, stage in stages.items():
+            t0 = pc()
+            stage.pack(export, n)
+            t1 = pc()
+            PROPAGATE.round(stage, n, PROPAGATE_WE)
+            t2 = pc()
+            stage.results(n)
+            t3 = pc()
+            samples[b].append((t3 - t0, t1 - t0, t2 - t1, t3 - t2))
+    out = {}
+    for b, rows in samples.items():
+        med = np.median(np.array(rows, dtype=np.float64), axis=0) / 1e3
+        plan, (k0, ms0) = stages[b].plan, timed0[b]
+        out[b] = {"round_us": med[0], "pack_us": med[1], "call_us": med[2],
+                  "views_us": med[3],
+                  "kernel_us": ((plan.kernel_ms - ms0) * 1e3
+                                / (plan.timed - k0) if plan.timed > k0
+                                else 0.0),
+                  "copied": stages[b].copied, "reps": reps}
+    return out
+
+
 def time_propagate(n: int, v: int = 3, seed: int = 5) -> dict:
-    """stt_propagate against propagate_ref on the card at one shape:
-    every output exactly equal; card time in a CUDA graph (200 launches
-    back to back on the card, each with the minima's fill), host time per
-    wrapper call, the plain version in a CUDA graph, and the bound."""
+    """stt_propagate_round against propagate_ref on the card at one
+    shape, through the tensor API and through the per-round route on
+    both branches (zero-copy and copied): every output exactly equal.
+    Card time in a CUDA graph (200 tensor-API launches back to back on
+    the card), host time per tensor-API call, the plain version in a
+    CUDA graph, the bound, and the per-round route's dispatch at this
+    size on the branch the size chooses."""
     from shadow_tpu_torch.ops.propagate import PROPAGATE, propagate_ref
     mats, cols = propagate_inputs(n, v, seed)
-    we, be = 5_000_000_000, 5_000_000_000
-    args = (*mats, 0x9E3779B9, 0x7F4A7C15, *cols, we, be)
+    we, be = PROPAGATE_WE, PROPAGATE_BOOT
+    args = (*mats, *PROPAGATE_KEYS, *cols, we, be)
     got = PROPAGATE(*args)
     want = propagate_ref(*args)
     torch.cuda.synchronize()
@@ -624,6 +730,8 @@ def time_propagate(n: int, v: int = 3, seed: int = 5) -> dict:
     if bad:
         raise AssertionError(f"propagate n={n} V={v}: {bad} differ "
                              f"(max |err| {err})")
+    export = export_bytes(cols)
+    check_stage(n, v, mats, export, want)
     keep = got[1]
     ms = graph_ms(lambda: PROPAGATE.launch(*args, out=got), 200)
     pms = graph_ms(lambda: propagate_ref(*args), 20)
@@ -635,28 +743,86 @@ def time_propagate(n: int, v: int = 3, seed: int = 5) -> dict:
     call_ms = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
     bound, by = propagate_bound_ms(n, v)
+    d = dispatch_times({"default": round_stage(mats)}, export, n,
+                       sweep_reps(n))["default"]
     row = {"ms": ms, "graph_ms": ms, "plain_ms": pms, "call_ms": call_ms,
            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "n": n,
-           "V": v}
-    print(f"[propagate] n={n} V={v}: exact ({int(keep.sum())} kept, "
+           "V": v, "dispatch": d}
+    print(f"[propagate] n={n} V={v}: exact, tensor API and the per-round "
+          f"route zero-copy and copied ({int(keep.sum())} kept, "
           f"{int((~got[2]).sum())} unreachable, {int(got[3].sum())} lost, "
           f"mins {got[4].tolist()}); {ms * 1e3:.3f} us per launch on the "
-          f"card (CUDA graph, back to back, with the minima's fill), "
-          f"{call_ms * 1e3:.2f} us host per wrapper "
-          f"call; plain PyTorch {pms * 1e3:.3f} us (CUDA graph); bound "
-          f"{bound * 1e3:.3f} us by {by}", flush=True)
+          f"card (CUDA graph, back to back), {call_ms * 1e3:.2f} us host "
+          f"per tensor-API call; plain PyTorch {pms * 1e3:.3f} us (CUDA "
+          f"graph); bound {bound * 1e3:.3f} us by {by}; per-round route "
+          f"({'copied' if d['copied'] else 'zero-copy'}) "
+          f"{d['round_us']:.2f} us a round (pack {d['pack_us']:.2f}, call "
+          f"{d['call_us']:.2f}, views {d['views_us']:.2f}; kernel "
+          f"{d['kernel_us']:.3f} us by its events)", flush=True)
     return row
 
 
+def sweep_reps(n: int) -> int:
+    return max(9, min(2000, 4_000_000 // (n + 2_000)))
+
+
+def propagate_sweep() -> dict:
+    """The per-round route's dispatch at PROPAGATE_SWEEP_N packets on
+    each branch (and, at the sizes the main path sends, an untimed
+    zero-copy stage: what the timing events cost), the stages taking
+    turns round by round (V = 3), and the least swept size from which on
+    the copied branch's median round is faster: what COPY_MIN_PACKETS is
+    set from.  Then the default stage's choice either side of
+    COPY_MIN_PACKETS."""
+    from shadow_tpu_torch.ops.propagate import COPY_MIN_PACKETS
+    mats, _ = propagate_inputs(1, 3, 1)
+    stages = {b: round_stage(mats, c) for b, c in PROPAGATE_BRANCHES.items()}
+    untimed = round_stage(mats, PROPAGATE_BRANCHES["zero-copy"], 0)
+    rows = {}
+    for n in PROPAGATE_SWEEP_N:
+        _, cols = propagate_inputs(n, 3, n % 9973)
+        legs = dict(stages)
+        if n <= 1_000:
+            legs["zero-copy untimed"] = untimed
+        rows[n] = dispatch_times(legs, export_bytes(cols), n, sweep_reps(n))
+        print(f"[propagate] sweep n={n} (medians of {sweep_reps(n)}): "
+              + "; ".join(
+                  f"{b} {r['round_us']:.2f} us a round (pack "
+                  f"{r['pack_us']:.2f}, call {r['call_us']:.2f}, kernel "
+                  f"{r['kernel_us']:.3f})" for b, r in rows[n].items()),
+              flush=True)
+    faster = [n for n in PROPAGATE_SWEEP_N
+              if all(rows[m]["copied"]["round_us"]
+                     < rows[m]["zero-copy"]["round_us"]
+                     for m in PROPAGATE_SWEEP_N if m >= n)]
+    print(f"[propagate] sweep: the copied branch is faster from "
+          f"{faster[0] if faster else 'no swept size'} on; "
+          f"COPY_MIN_PACKETS = {COPY_MIN_PACKETS}", flush=True)
+    stage = round_stage(mats)
+    for n in (COPY_MIN_PACKETS - 1, COPY_MIN_PACKETS):
+        _, cols = propagate_inputs(n, 3, 3)
+        stage_round(stage, export_bytes(cols), n, PROPAGATE_WE)
+        if stage.copied != (n >= COPY_MIN_PACKETS):
+            raise AssertionError(f"propagate: a {n}-packet round copied "
+                                 f"{stage.copied}")
+    del stages, stage, untimed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_propagate() -> dict:
-    """Phase 2's stt_propagate leg: exact and timed at every shape
+    """Phase 2's stt_propagate_round leg: exact and timed at every shape
     with both matrices (the 3-tier graph's, staged in shared memory, and
-    a random V = 64, read through the read-only cache)."""
+    a random V = 64, read through the read-only cache), then the sweep
+    of the per-round route's two branches."""
     stats = {}
     for v in (3, 64):
         for n in PROPAGATE_N:
             stats[(n, v)] = time_propagate(n, v, seed=n % 9973 + v)
+        gc.collect()
         torch.cuda.empty_cache()
+    stats["sweep"] = propagate_sweep()
     return stats
 
 
@@ -2055,6 +2221,12 @@ def tier10k_runs() -> dict:
     if host["launches"]["propagate"] or host["probe_launches"] \
             or host["block"]["rounds_device"]:
         raise AssertionError(f"{tag} host-only: {host['block']}")
+    for name, run in runs.items():
+        us = run["block"]["per_device_round_us"]
+        mid = sum(us[k] for k in ("upload", "launch", "kernel", "download"))
+        print(f"{tag} {name}: device route per device round (us): "
+              f"{json.dumps(us)}; upload + launch + kernel + download "
+              f"{mid:.2f}", flush=True)
     print(f"{tag} PASS: one trace in all three runs; forced "
           f"{runs['forced']['block']['rounds_device']} rounds, each one "
           f"stt_propagate launch; auto {b['rounds_device']} device rounds "
@@ -2229,6 +2401,7 @@ def main(argv=None) -> int:
                 "ms_uncached": s.get("ms_uncached"),
                 "phase_clocks": s.get("clocks"),
                 "launch_shape": s.get("launch"),
+                "round_dispatch": s.get("dispatch"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]
                                      for p, n in by_path.items()}}

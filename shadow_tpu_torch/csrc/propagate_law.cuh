@@ -3,8 +3,9 @@
 // crossing the network (ops/propagate.py propagate_ref is its plain
 // PyTorch version; the engine's C++ twin is netplane.cpp finish_round).
 //
-//   propagate.cu  stt_propagate  calls propagate_lane on every packet
-//                 of a round, one launch per round.
+//   propagate.cu  stt_propagate_round  calls propagate_lane on every
+//                 packet of a round, one launch per round, and settles
+//                 the round's minima with combine_minima.
 //
 // Integer-exact against the plain version: uint32 threefry words, int64
 // times and thresholds, bools as 1-byte 0/1 (torch.bool).  Plain C++
@@ -96,6 +97,34 @@ STT_LAW PropagateOut propagate_lane(int64_t lat, int64_t thr, uint32_t k0,
   o.deliver = arrive > window_end ? arrive : window_end;
   o.keep = o.reachable && !o.lossy;
   return o;
+}
+
+// The round's two minima over kept packets (deliver, latency), INT64_MAX
+// where none is kept.  fold_minima folds one pair into a running pair;
+// combine_minima folds the per-block partials part[2b], part[2b + 1] for
+// b = rank, rank + ranks, ... < blocks: what one thread of the kernel's
+// last block does before the block's own reduction, and, with rank 0 of
+// one rank, the whole combine.  STT_LOAD_CG reads a partial through L2
+// on the card (other blocks wrote it), plainly on the host.
+#ifdef __CUDA_ARCH__
+#define STT_LOAD_CG(p) ((int64_t)__ldcg((const long long*)(p)))
+#else
+#define STT_LOAD_CG(p) (*(p))
+#endif
+
+STT_LAW void fold_minima(int64_t& min_d, int64_t& min_l, int64_t d,
+                         int64_t l) {
+  min_d = d < min_d ? d : min_d;
+  min_l = l < min_l ? l : min_l;
+}
+
+STT_LAW void combine_minima(const int64_t* part, int64_t blocks,
+                            int64_t rank, int64_t ranks, int64_t& min_d,
+                            int64_t& min_l) {
+  for (int64_t b = rank; b < blocks; b += ranks) {
+    fold_minima(min_d, min_l, STT_LOAD_CG(part + 2 * b),
+                STT_LOAD_CG(part + 2 * b + 1));
+  }
 }
 
 }  // namespace stt

@@ -23,14 +23,21 @@ by `DeviceRouteModel` (a copy of the reference's, decisions unchanged).
   only for tensors that lie on the CPU (the tier-1 tests, and a Manager
   run with `device="cpu"`); `chip_smoke.py` holds the kernel against it
   on the card.
-- `Propagate` is the wrapper of `csrc/propagate.cu` `stt_propagate`,
-  and `PROPAGATE` its one instance.  For CUDA tensors it launches the
-  kernel or raises: there is no fallback.  It keeps two plain launch
-  counters, bumped only where it launches: `launches` (the critical
-  path) and `probe_launches` (the route model's measurement probes).
-- `TpuPropagator` runs one round: the route model's decision, then
-  the engine's twin, or export -> one upload -> the kernel -> one
-  download -> scatter.  Object-path hosts (`send`) are ROADMAP A2b.
+- `Propagate` is the wrapper of `csrc/propagate.cu`
+  `stt_propagate_round`, and `PROPAGATE` its one instance.  On the card
+  it launches the kernel or raises: there is no fallback.  It keeps two
+  plain launch counters, bumped only where it launches: `launches` (the
+  critical path) and `probe_launches` (the route model's measurement
+  probes).
+- `RoundStage` is a round's buffer: on the card pinned host memory
+  mapped into the card's address space, and the plan of the one C call
+  a round makes (`csrc/propagate_plan.h`).
+- `TpuPropagator` runs one round: the route model's decision, then the
+  engine's twin, or export -> the columns written into the stage's
+  buffer -> one call (the kernel reads and writes the buffer in place
+  over the bus, or, for a round of at least `COPY_MIN_PACKETS`, through
+  one copy each way) -> scatter.  Object-path hosts (`send`) are ROADMAP
+  A2b.
 
 The kernel builds at first use with nvcc for sm_90a into the gitignored
 `shadow_tpu_torch/csrc/build/` and binds through a plain C interface
@@ -42,8 +49,10 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import struct
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -339,14 +348,56 @@ def propagate_ref(lat, thr, k0: int, k1: int, src_node, dst_node,
 
 
 def _declare_propagate(lib) -> None:
-    p, i64, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint
-    lib.stt_propagate.argtypes = [p, p, i64, u32, u32, p, p, p, p, p, p,
-                                  i64, i64, i64, i64, p, p, p, p, p, p]
-    lib.stt_propagate.restype = ctypes.c_int
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.stt_propagate_round.argtypes = [p, i64, i64]
+    lib.stt_propagate_host_alloc.argtypes = [i64, p, p]
+    lib.stt_propagate_host_free.argtypes = [p]
+    lib.stt_propagate_events_create.argtypes = [p]
+    lib.stt_propagate_events_destroy.argtypes = [p]
+    for fn in (lib.stt_propagate_round, lib.stt_propagate_host_alloc,
+               lib.stt_propagate_host_free, lib.stt_propagate_events_create,
+               lib.stt_propagate_events_destroy):
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("propagate.cu", "libstt_propagate.so",
                         _declare_propagate, "stt_propagate_error_string")
+
+# csrc/propagate_plan.h: the grid cap (and so the partial minima a plan's
+# scratch holds) and the columns of a plan over the caller's tensors.
+MAX_BLOCKS = 2112
+N_COLS = 11
+# Rounds of at least this many packets are copied to the card and back
+# around the launch; smaller ones run in place in the mapped round
+# buffer.  chip_smoke.py phase 2's sweep of both branches: the copied
+# branch's call is the faster one from 131,072 packets on, the zero-copy
+# one's up to 65,536 (PERF.md section 6).
+COPY_MIN_PACKETS = 131_072
+# The longest a round's call waits for the card before it fails.
+WAIT_LIMIT_NS = 60 * 10**9
+# The propagator's stage times one round in this many (the events cost
+# ~8 us of host a round; chip_smoke.py phase 2's sweep).
+TIME_EVERY = 16
+
+
+class Plan(ctypes.Structure):
+    """csrc/propagate_plan.h `SttPropagatePlan`, field by field."""
+    _fields_ = [("lat", ctypes.c_void_p), ("thr", ctypes.c_void_p),
+                ("v", ctypes.c_int64), ("k0", ctypes.c_uint32),
+                ("k1", ctypes.c_uint32), ("bootstrap_end", ctypes.c_int64),
+                ("time_never", ctypes.c_int64),
+                ("buf_host", ctypes.c_void_p),
+                ("buf_mapped", ctypes.c_void_p),
+                ("buf_dev", ctypes.c_void_p), ("cap", ctypes.c_int64),
+                ("copy_min", ctypes.c_int64),
+                ("cols", ctypes.c_void_p * N_COLS),
+                ("scratch", ctypes.c_void_p), ("stream", ctypes.c_void_p),
+                ("events", ctypes.c_void_p * 2), ("wait_ns", ctypes.c_int64),
+                ("device", ctypes.c_int32), ("time_every", ctypes.c_int32),
+                ("calls", ctypes.c_int64), ("timed", ctypes.c_int64),
+                ("kernel_ms", ctypes.c_double), ("copied", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
 
 # (name, dtypes the kernel takes) of the per-packet inputs, in call order.
 _LANES = (("src_node", (torch.int32,)), ("dst_node", (torch.int32,)),
@@ -366,16 +417,40 @@ def _cuda_operand(name: str, t, dtypes, shape) -> None:
                          f"{tuple(t.shape)}")
 
 
+def _law_plan(lat, thr, k0, k1, bootstrap_end: int) -> Plan:
+    """A plan holding the law's constants, the matrices validated."""
+    v = lat.shape[0] if lat.dim() == 2 else -1
+    for name, t in (("lat", lat), ("thr", thr)):
+        _cuda_operand(name, t, (torch.int64,), (v, v))
+    p = Plan()
+    p.lat, p.thr, p.v = lat.data_ptr(), thr.data_ptr(), v
+    p.k0, p.k1 = int(k0) & _M32, int(k1) & _M32
+    p.bootstrap_end, p.time_never = int(bootstrap_end), TIME_NEVER
+    idx = lat.device.index
+    p.device = torch.cuda.current_device() if idx is None else idx
+    return p
+
+
 class Propagate:
-    """Wrapper of `stt_propagate` (replaces the reference's jitted
-    `build_propagate_kernel.kernel`).  Call:
-    (lat, thr, k0, k1, src_node, dst_node, src_host, pkt_seq, t_send,
-    is_ctl, window_end, bootstrap_end) -> (deliver, keep, reachable,
-    lossy, mins); `out` may give the five output tensors to write."""
+    """Wrapper of `stt_propagate_round` (replaces the reference's jitted
+    `build_propagate_kernel.kernel`).
+
+    - `round(stage, n, window_end)`: the per-round route, one C call over
+      a `RoundStage`'s plan (on a CPU stage, the plain law through
+      `__call__`).
+    - The tensor API, `__call__` and `launch`: (lat, thr, k0, k1,
+      src_node, dst_node, src_host, pkt_seq, t_send, is_ctl, window_end,
+      bootstrap_end) -> (deliver, keep, reachable, lossy, mins); `out`
+      may give the five output tensors to write.  On CUDA tensors it
+      launches the same kernel through a plan over them, on the current
+      stream, without waiting (so a CUDA graph can capture it).  Its
+      launches on one card share one scratch, so they must be ordered on
+      one stream at a time."""
 
     def __init__(self):
         self.launches = 0        # critical-path launches
         self.probe_launches = 0  # route-model probes (worker thread)
+        self._scratch = {}       # the tensor API's, by device
 
     def __call__(self, lat, thr, k0, k1, src_node, dst_node, src_host,
                  pkt_seq, t_send, is_ctl, window_end, bootstrap_end,
@@ -397,16 +472,14 @@ class Propagate:
     def launch(self, lat, thr, k0, k1, src_node, dst_node, src_host,
                pkt_seq, t_send, is_ctl, window_end, bootstrap_end,
                out=None, probe=False, events=None):
-        """Validate, fill the minima with I64_MAX and launch on the
+        """Validate, build a plan over the tensors and launch on the
         current stream.  `events`, two CUDA events, are recorded just
         before and after the launch."""
         n = src_node.shape[0] if src_node.dim() == 1 else -1
-        v = lat.shape[0] if lat.dim() == 2 else -1
-        for name, t in (("lat", lat), ("thr", thr)):
-            _cuda_operand(name, t, (torch.int64,), (v, v))
         lanes = (src_node, dst_node, src_host, pkt_seq, t_send, is_ctl)
         for (name, dtypes), t in zip(_LANES, lanes):
             _cuda_operand(name, t, dtypes, (n,))
+        plan = _law_plan(lat, thr, k0, k1, bootstrap_end)
         dev = src_node.device
         if out is None:
             out = (torch.empty(n, dtype=torch.int64, device=dev),
@@ -420,23 +493,49 @@ class Propagate:
             _cuda_operand(name, t, (torch.bool, torch.uint8), (n,))
         _cuda_operand("mins", mins, (torch.int64,), (2,))
         lib = LIBRARY.build()
-        mins.fill_(I64_MAX)
-        args = (lat.data_ptr(), thr.data_ptr(), v, int(k0) & _M32,
-                int(k1) & _M32, *(t.data_ptr() for t in lanes), n,
-                int(window_end), int(bootstrap_end), TIME_NEVER,
-                *(t.data_ptr() for t in out))
-        stream = _stream_ptr(dev)
+        plan.cols[:] = [t.data_ptr() for t in (*lanes, *out)]
+        key = plan.device
+        if key not in self._scratch:
+            self._scratch[key] = _scratch(dev)
+        plan.scratch = self._scratch[key].data_ptr()
+        plan.stream = _stream_ptr(dev)
         if events is not None:
             events[0].record()
-        code = lib.stt_propagate(*args, stream)
-        if probe:
-            self.probe_launches += 1
-        else:
-            self.launches += 1
+        code = lib.stt_propagate_round(ctypes.byref(plan), n,
+                                       int(window_end))
+        self._count(probe)
         if events is not None:
             events[1].record()
         LIBRARY.check(code, "propagate")
         return out
+
+    def round(self, stage: "RoundStage", n: int, window_end: int,
+              probe: bool = False) -> None:
+        """Propagate the n-packet round packed in `stage`: on the card one
+        call of `stt_propagate_round` over the stage's plan, which returns
+        when the results are in the stage's buffer; on the CPU the plain
+        law over views of it."""
+        if not stage.cuda:
+            ins, outs = stage.tensors(n)
+            self(stage.lat, stage.thr, *stage.keys, *ins, window_end,
+                 stage.bootstrap_end, out=outs)
+            return
+        code = stage.lib.stt_propagate_round(stage.plan_ptr, n, window_end)
+        self._count(probe)
+        if code:
+            LIBRARY.check(code, "propagate")
+
+    def _count(self, probe: bool) -> None:
+        if probe:
+            self.probe_launches += 1
+        else:
+            self.launches += 1
+
+
+def _scratch(device) -> torch.Tensor:
+    """A plan's scratch on the card: the partial minima and the ticket,
+    zero."""
+    return torch.zeros(2 * MAX_BLOCKS + 1, dtype=torch.int64, device=device)
 
 
 # The one wrapper of the kernel: chip_smoke.py zeroes its launch
@@ -445,7 +544,7 @@ PROPAGATE = Propagate()
 
 
 # ---------------------------------------------------------------------
-# The round's columns: one upload, one download
+# The round buffer and its plan
 # ---------------------------------------------------------------------
 
 # export_round's byte columns in its order; dst_host only serves the
@@ -467,35 +566,71 @@ _INS = ("src_host", "t_send", "src_node", "dst_node", "pkt_seq", "is_ctl")
 _OUTS = ("deliver", "keep", "reachable", "lossy")
 _CALL_ORDER = ("src_node", "dst_node", "src_host", "pkt_seq", "t_send",
                "is_ctl")
+_MIN_CAP = 4096  # packets of a stage's first buffer
+_TWO_I64 = struct.Struct("<qq")
+
+
+def _free_host(lib, owned: dict) -> None:
+    if owned["host"]:
+        lib.stt_propagate_host_free(owned["host"])
+        owned["host"] = None
+
+
+def _release(lib, owned: dict) -> None:
+    """Free a card stage's mapped buffer and events (its finalizer)."""
+    _free_host(lib, owned)
+    lib.stt_propagate_events_destroy(owned["events"])
 
 
 class RoundStage:
-    """One pinned host buffer and one device buffer that a round's
-    columns and results share, so a round costs one upload and one
-    download:
+    """One round's columns and results in one buffer (the layout of
+    csrc/propagate_plan.h stt_round_layout):
 
         [src_host | t_send | src_node | dst_node | pkt_seq | is_ctl]
         [pad to 8 | mins (2 x i64) | deliver | keep | reachable | lossy]
 
-    On the CPU the two buffers are one.  Grows by doubling."""
+    On the card the buffer is pinned host memory mapped into the card's
+    address space, allocated by the kernel's library, and the stage owns
+    a plan of `stt_propagate_round` (the matrices, keys and constants,
+    the buffer, a buffer on the card for rounds of at least `copy_min`
+    packets, its scratch, its own stream, and timing events recorded on
+    every `time_every`-th round, none if 0): a round is `pack`, one C
+    call (`Propagate.round`) and `results`, the views that scatter_round
+    takes.  On the CPU the buffer is a numpy array and the plain law runs
+    over views of it.  Grows by doubling; the plan follows."""
 
-    def __init__(self, device):
+    def __init__(self, device, lat, thr, keys, bootstrap_end: int,
+                 time_every: int = 0, copy_min: int = COPY_MIN_PACKETS):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        self.lat, self.thr = lat, thr
+        self.keys = keys
+        self.bootstrap_end = bootstrap_end
         self.cap = 0
-        self.host = self.dev = self.host_np = None
-        self.off = {}  # the last upload's layout, which download reads
-
-    def _ensure(self, nbytes: int) -> None:
-        if nbytes <= self.cap:
+        self.buf = self._mem = None  # numpy uint8 and a memoryview of it
+        if not self.cuda:
             return
-        self.cap = max(nbytes, 2 * self.cap, 1 << 16)
-        self.host = torch.empty(self.cap, dtype=torch.uint8,
-                                pin_memory=self.cuda)
-        self.host_np = self.host.numpy()
-        self.dev = (torch.empty(self.cap, dtype=torch.uint8,
-                                device=self.device) if self.cuda
-                    else self.host)
+        self.lib = LIBRARY.build()
+        plan = _law_plan(lat, thr, *keys, bootstrap_end)
+        self.stream = torch.cuda.Stream(self.device)
+        self._scratch = _scratch(self.device)
+        self._dev = None
+        plan.copy_min = copy_min
+        plan.scratch = self._scratch.data_ptr()
+        plan.stream = self.stream.cuda_stream
+        plan.wait_ns = WAIT_LIMIT_NS
+        self._owned = {"host": None, "events": plan.events}
+        weakref.finalize(self, _release, self.lib,
+                         self._owned).atexit = False
+        if time_every:
+            LIBRARY.check(self.lib.stt_propagate_events_create(plan.events),
+                          "propagate events")
+            plan.time_every = time_every
+        # The matrices and the scratch's zeros are written on the caller's
+        # stream; the stage's own stream reads them.
+        torch.cuda.current_stream(self.device).synchronize()
+        self.plan = plan
+        self.plan_ptr = ctypes.addressof(plan)
 
     @staticmethod
     def layout(n: int) -> dict:
@@ -513,56 +648,96 @@ class RoundStage:
         off["total"] = at
         return off
 
-    def upload(self, cols, n: int):
-        """Copy export_round's byte columns into the staging buffer and
-        issue one host-to-device copy on the current stream.  Returns
-        the kernel's input views on the device, in call order, and the
-        output views (deliver, keep, reachable, lossy, mins)."""
-        off = self.off = self.layout(n)
-        self._ensure(off["total"])
-        hnp, d = self.host_np, self.dev
-        for name, col in zip(_EXPORT, cols):
-            if name in _WIDTH:  # a short column raises here
-                hnp[off[name]:off[name] + _WIDTH[name] * n] = np.frombuffer(
-                    col, np.uint8)
-        if self.cuda:
-            end = off["mins"]
-            d[:end].copy_(self.host[:end], non_blocking=True)
+    def _ensure(self, n: int) -> None:
+        if n <= self.cap and self.buf is not None:
+            return
+        cap = max(n, 2 * self.cap, _MIN_CAP)
+        total = self.layout(cap)["total"]
+        if not self.cuda:
+            self.buf = np.empty(total, np.uint8)
+            self._mem = memoryview(self.buf)
+            self.cap = cap
+            return
+        lib, plan = self.lib, self.plan
+        self.buf = self._mem = None
+        _free_host(lib, self._owned)
+        host, mapped = ctypes.c_void_p(), ctypes.c_void_p()
+        LIBRARY.check(lib.stt_propagate_host_alloc(
+            total, ctypes.byref(host), ctypes.byref(mapped)),
+            "propagate round buffer")
+        self._owned["host"] = host.value
+        self.buf = np.ctypeslib.as_array(
+            (ctypes.c_uint8 * total).from_address(host.value))
+        self._mem = memoryview(self.buf)
+        self._dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+        plan.buf_host, plan.buf_mapped = host.value, mapped.value
+        plan.buf_dev, plan.cap = self._dev.data_ptr(), cap
+        self.cap = cap
 
-        def view(name):
-            return d[off[name]:off[name] + _WIDTH[name] * n].view(
-                _DTYPE[name])
+    def pack(self, cols, n: int) -> None:
+        """Copy export_round's byte columns into the buffer at the
+        n-packet layout (a column of another length raises here).  The
+        offsets are stt_round_layout's, written out: this and `results`
+        run every round."""
+        self._ensure(n)
+        m = self._mem
+        m[16 * n:20 * n] = cols[0]       # src_node
+        m[20 * n:24 * n] = cols[1]       # dst_node
+        m[0:8 * n] = cols[3]             # src_host
+        m[24 * n:28 * n] = cols[4]       # pkt_seq
+        m[8 * n:16 * n] = cols[5]        # t_send
+        m[28 * n:29 * n] = cols[6]       # is_ctl
 
-        mins = d[off["mins"]:off["mins"] + 16].view(torch.int64)
-        return (tuple(view(c) for c in _CALL_ORDER),
-                (*(view(c) for c in _OUTS), mins))
+    def results(self, n: int):
+        """The last round's results as scatter_round takes them: views of
+        the buffer, (keep u8, deliver i64, reachable u8, lossy u8), and
+        the two minima as ints."""
+        m = self._mem
+        mins = (29 * n + 7) & ~7
+        d = mins + 16
+        k = d + 8 * n
+        r = k + n
+        lo = r + n
+        min_d, min_l = _TWO_I64.unpack_from(m, mins)
+        return (m[k:r], m[d:k].cast("q"), m[r:lo], m[lo:lo + n]), min_d, min_l
 
-    def download(self, n: int):
-        """One device-to-host copy of the last upload's results on the
-        current stream, then wait for it.  Returns numpy views of the
-        pinned buffer: (keep u8, deliver i64, reachable u8, lossy u8) as
-        scatter_round takes them, and the two minima as ints."""
-        off, hnp = self.off, self.host_np
-        lo, hi = off["mins"], off["total"]
-        if self.cuda:
-            self.host[lo:hi].copy_(self.dev[lo:hi], non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
+    def tensors(self, n: int):
+        """CPU tensors over the buffer: the law's inputs in call order and
+        its outputs (deliver, keep, reachable, lossy, mins)."""
+        off, buf = self.layout(n), self.buf
 
-        def col(name):
-            return hnp[off[name]:off[name] + _WIDTH[name] * n]
+        def view(name, at, nbytes):
+            return torch.from_numpy(buf[at:at + nbytes]).view(_DTYPE[name])
 
-        mins = hnp[lo:lo + 16].view(np.int64)
-        return ((col("keep"), col("deliver").view(np.int64),
-                 col("reachable"), col("lossy")),
-                int(mins[0]), int(mins[1]))
+        ins = tuple(view(c, off[c], _WIDTH[c] * n) for c in _CALL_ORDER)
+        outs = tuple(view(c, off[c], _WIDTH[c] * n) for c in _OUTS)
+        mins = torch.from_numpy(buf[off["mins"]:off["mins"] + 16]).view(
+            torch.int64)
+        return ins, (*outs, mins)
+
+    def kernel_ns(self) -> float | None:
+        """The mean card time of the timed rounds (their launches'
+        events), None before one."""
+        p = self.plan
+        return p.kernel_ms * 1e6 / p.timed if p.timed else None
+
+    @property
+    def copied(self) -> bool:
+        """Did the last round go through the buffer on the card?"""
+        return bool(self.plan.copied)
 
 
 # ---------------------------------------------------------------------
 # The per-round propagator (engine half)
 # ---------------------------------------------------------------------
 
-# The device route's phases: host walls, except `kernel`, the launch's
-# CUDA-event time on the card (on the CPU, the plain law's wall).
+# The device route's phases, host walls but `kernel`: export_round;
+# upload, the columns written into the round buffer; launch, the one call
+# of the kernel's library (the copies of a large round, the launch and
+# the wait for the results); kernel, the launch's CUDA-event time on the
+# card, the mean of the timed rounds (one in TIME_EVERY) for every round
+# (on the CPU, the plain law's wall); download, the results' views;
+# scatter_round.
 _PHASES = ("export", "upload", "launch", "kernel", "download", "scatter")
 
 
@@ -572,10 +747,11 @@ class TpuPropagator:
 
     Each round: the route model decides; ROUTE_HOST runs the engine's
     C++ twin (`finish_round`), ROUTE_DEVICE exports the round's columns,
-    runs `stt_propagate` on the card and scatters the decisions back;
-    ROUTE_PROBE runs the twin and measures the kernel on copied columns
-    on a worker thread with its own CUDA stream.  `tpu_min_device_batch
-    <= 0` forces every round through the kernel."""
+    runs `stt_propagate_round` on the card over its `RoundStage` and
+    scatters the decisions back; ROUTE_PROBE runs the twin and measures
+    the kernel on the exported columns on a worker thread, through a
+    stage of its own (its own buffer, plan and CUDA stream).
+    `tpu_min_device_batch <= 0` forces every round through the kernel."""
 
     def __init__(self, latency_ns, loss_thresholds, seed: int,
                  bootstrap_end_ns: int, runahead=None,
@@ -605,8 +781,7 @@ class TpuPropagator:
         # its CUDA-event time on the card), and of the twin's rounds.
         self.phase_ns = dict.fromkeys(_PHASES, 0)
         self.host_route_ns = 0
-        self._stage = RoundStage(self.device)
-        self._events = None
+        self._stage = None  # built at the first device round
         # The async probe: one in flight; its failure is re-raised by
         # the next finish_round (or close).  The route model is shared
         # with the probe's thread: every call to it holds this lock.
@@ -616,7 +791,6 @@ class TpuPropagator:
         self._probe_closed = False
         self._probe_error = None
         self._probe_stage = None
-        self._probe_stream = None
         self.probes_async = 0
         # Last engine-round size: the span gate's typical round.
         self._last_engine_n = 0
@@ -687,34 +861,28 @@ class TpuPropagator:
             self._deliver_exports(exports)
         return md, ml
 
+    def _new_stage(self, time_every: int) -> RoundStage:
+        return RoundStage(self.device, self._lat, self._thr, self._keys,
+                          self.bootstrap_end, time_every=time_every)
+
     def _dispatch(self, stage: RoundStage, cols, n: int, window_end: int,
                   probe: bool, walls: dict | None):
-        """Upload the columns, launch the kernel on the current stream,
-        download the results and wait.  Adds each phase's time to
-        `walls` where given: upload (pack + issue the copy), launch (the
-        wrapper call), kernel (card time between events recorded just
-        around the launch), download (issue the copy and wait for the
-        queued copy, kernel and copy back)."""
+        """Pack the columns into the stage's buffer, propagate the round
+        (one call on the card, which returns when the results are in the
+        buffer) and return their views.  Adds each phase's time to
+        `walls` where given (see _PHASES)."""
         t0 = time.perf_counter_ns()
-        ins, outs = stage.upload(cols, n)
+        stage.pack(cols, n)
         t1 = time.perf_counter_ns()
-        ev = None
-        if stage.cuda and walls is not None:
-            if self._events is None:
-                self._events = tuple(torch.cuda.Event(enable_timing=True)
-                                     for _ in range(2))
-            ev = self._events
-        k0, k1 = self._keys
-        PROPAGATE(self._lat, self._thr, k0, k1, *ins, window_end,
-                  self.bootstrap_end, out=outs, probe=probe, events=ev)
+        PROPAGATE.round(stage, n, window_end, probe)
         t2 = time.perf_counter_ns()
-        res = stage.download(n)
+        res = stage.results(n)
         t3 = time.perf_counter_ns()
         if walls is not None:
             walls["upload"] += t1 - t0
             walls["launch"] += t2 - t1
-            walls["kernel"] += (int(ev[0].elapsed_time(ev[1]) * 1e6)
-                                if ev is not None else t2 - t1)
+            if not stage.cuda:
+                walls["kernel"] += t2 - t1
             walls["download"] += t3 - t2
         return res
 
@@ -724,6 +892,8 @@ class TpuPropagator:
         TIME_NEVER placeholders: the kernel's are the round's."""
         eng = self.engine
         walls = self.phase_ns
+        if self._stage is None:
+            self._stage = self._new_stage(TIME_EVERY)
         t0 = time.perf_counter_ns()
         cols = eng.export_round()
         walls["export"] += time.perf_counter_ns() - t0
@@ -737,18 +907,17 @@ class TpuPropagator:
 
     def _submit_probe(self, cols, n: int, b: int) -> None:
         """Measure a device dispatch off the critical path: the kernel
-        runs on a worker thread, with its own CUDA stream and staging
-        buffers, on the exported copies (results discarded: the twin
-        served the round), and the timing feeds the route model."""
+        runs on a worker thread through the probe's own stage (buffer,
+        plan and CUDA stream) on the exported copies (results discarded:
+        the twin served the round), and the timing feeds the route
+        model."""
         if self._probe_pending or self._probe_closed:
             return  # one in flight: decline; decide() asks again
         self._probe_pending = True
         with self._route_lock:
             self.route.probe_started(b, n)
         if self._probe_stage is None:
-            self._probe_stage = RoundStage(self.device)
-            if self.device.type == "cuda":
-                self._probe_stream = torch.cuda.Stream(self.device)
+            self._probe_stage = self._new_stage(0)
         window_end = self.window_end
         threads = torch.get_num_threads()
 
@@ -756,13 +925,8 @@ class TpuPropagator:
             try:
                 torch.set_num_threads(threads)
                 t0 = time.perf_counter_ns()
-                if self._probe_stream is not None:
-                    with torch.cuda.stream(self._probe_stream):
-                        self._dispatch(self._probe_stage, cols, n,
-                                       window_end, True, None)
-                else:
-                    self._dispatch(self._probe_stage, cols, n, window_end,
-                                   True, None)
+                self._dispatch(self._probe_stage, cols, n, window_end, True,
+                               None)
                 with self._route_lock:
                     self.route.record_device(b, time.perf_counter_ns() - t0,
                                              n)
@@ -812,6 +976,11 @@ class TpuPropagator:
         and the walls of each phase in ms, totals and per device round."""
         sizes = sorted(self.round_sizes)
         per = max(self.rounds_device, 1)
+        phase_ns = dict(self.phase_ns)
+        stage = self._stage
+        if stage is not None and stage.cuda and stage.kernel_ns():
+            # The timed rounds' mean card time, for every device round.
+            phase_ns["kernel"] = stage.kernel_ns() * self.rounds_device
         return {
             "forced": self.forced,
             "rounds_dispatched": self.rounds_dispatched,
@@ -825,8 +994,8 @@ class TpuPropagator:
             "packets_per_round": ({"min": sizes[0],
                                    "median": sizes[len(sizes) // 2],
                                    "max": sizes[-1]} if sizes else None),
-            "walls_ms": {**{p: self.phase_ns[p] / 1e6 for p in _PHASES},
+            "walls_ms": {**{p: phase_ns[p] / 1e6 for p in _PHASES},
                          "host_route": self.host_route_ns / 1e6},
-            "per_device_round_us": {p: self.phase_ns[p] / 1e3 / per
+            "per_device_round_us": {p: phase_ns[p] / 1e3 / per
                                     for p in _PHASES},
         }

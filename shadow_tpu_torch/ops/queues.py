@@ -107,7 +107,7 @@ class KernelLibrary:
         if not os.path.exists(out):
             return True
         deps = [src] + [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-                        if f.endswith(".cuh")]
+                        if f.endswith((".cuh", ".h"))]
         return os.path.getmtime(out) < max(map(os.path.getmtime, deps))
 
     def build(self) -> ctypes.CDLL:
