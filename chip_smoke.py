@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--stop-time 1.25s]
+    python3 chip_smoke.py [--stop-time 1.31s]
 
 Six phases; any failed check raises, so the script exits non-zero:
 
@@ -81,25 +81,45 @@ Six phases; any failed check raises, so the script exits non-zero:
      build's window (equal to the kernel's) and its five slowest lanes,
      cycles by stage pass and by row scan
      (tools/tcp_window_profile.py); nvcc's register and spill report of
-     both builds.
+     both builds;
+   - the TCP span kernel (stt_tcp_span: every round's windows with the
+     window kernel's lane law and tile, the propagation, drops, inbox
+     merge and round scalars, one cooperative launch a span) on the same
+     exports (the 10,000-host one after phase 3's run): spans of one and
+     of four rounds against its plain version (the runner's eager loop:
+     the eager window, then the eager round end; at 10,000 hosts the
+     four-round span's windows by stt_tcp_window, an eager window taking
+     ~18 s there), every state column, the outbox and trace in canonical
+     order, the stage fires and lanes, the run's scalars and the abort
+     bits exactly equal; card time per one- and four-round span (single
+     launches on fresh copies, the card asleep while the host issues
+     each: a cooperative launch is not captured in a CUDA graph), its
+     host issue, launch to end, the plain loop's time, the bound from
+     the bytes the span must move (ops/tcp_span_kernel.py
+     tcp_span_need_bytes), its phase clocks and launch shape; nvcc's
+     register and spill report.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
-   port's Manager on the card with forced device spans, every window
-   one stt_tcp_window launch, and require the trace, packets and events
-   that the C++ engine serving every round (`tpu_device_spans: off`)
-   gives (recorded in STREAM_10K for the default stop time; run again
-   for another), device spans, one window-kernel launch per window
-   stepped in every dispatch (one per round of the committed spans) and
-   no relay, law or PHOLD kernel (the relay laws run in the lanes);
-   print the per-stage fire/lane counters and the wall of the router's
-   one PHOLD probe.  The run's first in-domain export, cloned before
-   its launch, feeds phase 2's 10,000-host TCP window leg.  Then the
-   same stream at 16 hosts, spans off and forced (the C++ run in the
-   same call), where at least half the rounds must run on the card,
-   with the router's first window at 4 rounds so that the device
-   stretch takes several spans; then to EAGER_STOP (400 ms) off and
+   port's Manager on the card with forced device spans, every span one
+   stt_tcp_span launch, to 1.31 s (the fleet enters the span domain at
+   1.23 s, so a span of 8 rounds), and require the trace, packets and
+   events that the C++ engine serving every round (`tpu_device_spans:
+   off`) gives (recorded in STREAM_10K for 1.25 s and 1.31 s; run
+   again for another stop time), device spans, one span-kernel launch
+   and one read of its words per dispatch, every committed round inside
+   it, no eager round end and no window, relay, law or PHOLD kernel (the
+   relay laws run in the lanes); print the per-stage fire/lane counters
+   and the wall of the router's one PHOLD probe.  The run's first
+   in-domain export, cloned before its launch, feeds phase 2's
+   10,000-host TCP legs.  Then the same stream at 16 hosts to 500 ms,
+   spans off and forced (the C++ run in the same call), where at least
+   half the rounds must run on the card, with the router's first window
+   at 4 rounds so that the device stretch takes several spans: through
+   the span kernel, then through the window kernel and the eager round
+   ends (`tcp_window.TCP_WINDOW.bind`: one window-kernel launch per
+   window stepped, no span kernel); then to EAGER_STOP (400 ms) off and
    forced through the eager window (`tcp_window.eager_window`), the
    path that still launches the relay kernels: each once per fire of
-   its stage, and no window kernel.
+   its stage, and no window or span kernel.
 4. Run the PHOLD/udp-mesh family the same way, spans off and forced
    (every span one stt_phold_span launch): phold-8k (the reference
    ladder's 8,192-LP rung), mesh-24 (the reference's 24-host paced
@@ -192,7 +212,8 @@ REPLACES = {"bucket_step": "shadow_tpu/ops/pallas_queues.py:80",
             "propagate": "shadow_tpu/ops/propagate.py:391",
             "phold_window": "shadow_tpu/ops/phold_span.py:1675",
             "phold_span": "shadow_tpu/ops/phold_span.py:1675",
-            "tcp_window": "shadow_tpu/ops/tcp_span.py:2373"}
+            "tcp_window": "shadow_tpu/ops/tcp_span.py:2373",
+            "tcp_span": "shadow_tpu/ops/tcp_span.py:2142"}
 SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "codel_head": "shadow_tpu_torch/csrc/queues.cu",
           "relay1_law": "shadow_tpu_torch/csrc/relay.cu",
@@ -200,7 +221,8 @@ SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
           "propagate": "shadow_tpu_torch/csrc/propagate.cu",
           "phold_window": "shadow_tpu_torch/csrc/phold_window.cu",
           "phold_span": "shadow_tpu_torch/csrc/phold_span.cu",
-          "tcp_window": "shadow_tpu_torch/csrc/tcp_window.cu"}
+          "tcp_window": "shadow_tpu_torch/csrc/tcp_window.cu",
+          "tcp_span": "shadow_tpu_torch/csrc/tcp_span.cu"}
 # Each PHOLD-family cell's trace sha256 (its first 16 hex digits) as the
 # C++-only run and the device runs gave it before the window kernel: a
 # device run through the kernel must give the same trace.  mesh-24 runs
@@ -216,7 +238,10 @@ PREFIX_DIGESTS = {"mesh-24": (1_000_000_000, "7e888cfb90af5447")}
 # ~100 s are not spent again on each run.
 STREAM_10K = {"1.25s": {"digest": "c235e5ef74032058", "lines": 21447834,
                         "packets_sent": 10771536, "packets_dropped": 32988,
-                        "events": 19194042}}
+                        "events": 19194042},
+              "1.31s": {"digest": "b36f54b95ec66fa3", "lines": 22709713,
+                        "packets_sent": 11402091, "packets_dropped": 34870,
+                        "events": 20539955}}
 MESH_CODEL_DROPS = 3350  # every CoDel drop of mesh-codel-10's 60 s
 DENSITIES = (0.001, 0.1, 1.0)
 # stt_propagate: bytes per packet (in: src_node, dst_node i32, src_host,
@@ -269,7 +294,8 @@ def build_all():
     started together."""
     from shadow_tpu_torch.native import plane
     from shadow_tpu_torch.ops import (phold_span_kernel, phold_window,
-                                      propagate, queues, relay, tcp_window)
+                                      propagate, queues, relay,
+                                      tcp_span_kernel, tcp_window)
     from shadow_tpu_torch.tools.tcp_window_profile import PROFILE_LIBRARY
     errs = []
     walls = {}
@@ -294,6 +320,7 @@ def build_all():
                          ("phold_window.cu", phold_window.LIBRARY.build),
                          ("phold_span.cu", phold_span_kernel.LIBRARY.build),
                          ("tcp_window.cu", tcp_window.LIBRARY.build),
+                         ("tcp_span.cu", tcp_span_kernel.LIBRARY.build),
                          ("tcp_window.cu profiling",
                           PROFILE_LIBRARY.build))]
     for t in threads:
@@ -315,13 +342,16 @@ def build_all():
           f"{phold_span_kernel.LIBRARY.build_s:.1f}s), tcp_window.cu "
           f"{walls['tcp_window.cu']:.1f}s (nvcc "
           f"{tcp_window.LIBRARY.build_s:.1f}s; its profiling build "
-          f"{PROFILE_LIBRARY.build_s:.1f}s)", flush=True)
+          f"{PROFILE_LIBRARY.build_s:.1f}s), tcp_span.cu "
+          f"{walls['tcp_span.cu']:.1f}s (nvcc "
+          f"{tcp_span_kernel.LIBRARY.build_s:.1f}s)", flush=True)
     # nvcc -Xptxas=-v: the window and span kernels' registers, stack and
     # spills.
     for src, lib in (("phold_window.cu", phold_window.LIBRARY),
                      ("phold_span.cu", phold_span_kernel.LIBRARY),
                      ("tcp_window.cu", tcp_window.LIBRARY),
-                     ("tcp_window.cu profiling", PROFILE_LIBRARY)):
+                     ("tcp_window.cu profiling", PROFILE_LIBRARY),
+                     ("tcp_span.cu", tcp_span_kernel.LIBRARY)):
         for ln in lib.log.splitlines():
             if ln.strip():
                 print(f"[build] {src}: {ln.strip()}", flush=True)
@@ -893,20 +923,25 @@ def window_graph_ms(fn, base: dict, pay: int, window_end: int,
     return out
 
 
-def span_card_ms(fn, base: dict, pay: int, args: tuple, n: int) -> tuple:
-    """Card time and host issue of the built loop `fn`'s span step, one
-    launch at a time on a fresh copy of `base`: the card sleeps while the
-    host records the start event and issues the launch, so the event
-    pair holds the kernel alone (a cooperative launch is not captured in
-    a CUDA graph here), and the host clock around the launch call holds
-    its issue alone.  Returns (card ms, host issue ms) per launch, each
-    over `n` launches."""
+def span_card_ms(fn, base: dict, args: tuple, n: int, *pay) -> tuple:
+    """Card time and host issue of the built loop `fn`'s span step (the
+    PHOLD runner's takes its payload `pay`), one launch at a time on a
+    fresh copy of `base` (the written operands cloned, the rest shared):
+    the card sleeps while the host records the start event and issues
+    the launch, so the event pair holds the kernel alone (a cooperative
+    launch is not captured in a CUDA graph here), and the host clock
+    around the launch call holds its issue alone.  Returns (card ms,
+    host issue ms) per launch, each over `n` launches."""
     from shadow_tpu_torch.tools.relay_cases import clone_state
+    ref = clone_state(base)
+    fn.prepare(ref, *pay)
+    fn.span.begin(ref, *pay)
+    written = [o.key for o in fn.span.table.ops
+               if o.written and o.key in ref]
     card_ms, issue_ms = [], []
     for _ in range(n):
-        c = clone_state(base)
-        fn.prepare(c, pay)
-        fn.span.begin(c, pay)
+        c = dict(ref, **{k: ref[k].clone() for k in written})
+        fn.span.begin(c, *pay)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -919,6 +954,7 @@ def span_card_ms(fn, base: dict, pay: int, args: tuple, n: int) -> tuple:
         e1.synchronize()
         card_ms.append(e0.elapsed_time(e1))
         del c
+    del ref
     return card_ms, issue_ms
 
 
@@ -1097,8 +1133,8 @@ def check_phold_window() -> tuple:
               flush=True)
         # The span kernel's times (one and four rounds), bound and phase
         # clocks (four rounds).
-        card1, _ = span_card_ms(span, base, pay, args[1], 5)
-        card, issue = span_card_ms(span, base, pay, args[4], 5)
+        card1, _ = span_card_ms(span, base, args[1], 5, pay)
+        card, issue = span_card_ms(span, base, args[4], 5, pay)
         c = clone_state(base)
         span.prepare(c, pay)
         got = span.span(c, pay, *args[4])
@@ -1189,29 +1225,38 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     first window `k_init` rounds where given); with a `reference` (the
     C++ run's trace digest, lines, packets and events, as
     stream_results gives them, recorded from earlier runs) the C++ run
-    is not repeated.  The forced run's windows go through `path`:
-    "kernel" (the main path: one stt_tcp_window launch a window) or
-    "eager" (the eager window: the relay kernels).  Requires identical
-    results, a device span, at least `min_share` of the rounds on the
-    card, a resident hit on every span after the first (less stale
-    drops), and the path's launch gates: through the kernel, one
-    stt_tcp_window launch per window stepped in every dispatch, one per
-    round of the committed spans and no relay or law kernel; through the
-    eager window, each relay kernel launched once per fire of its stage
-    and no window or law kernel; never a PHOLD kernel.  With `capture`,
+    is not repeated.  The forced run's spans go through `path`:
+    "kernel" (the main path: one stt_tcp_span launch a span), "window"
+    (the eager loop with one stt_tcp_window launch a window and the
+    eager round ends) or "eager" (the eager loop with the eager window:
+    the relay kernels).  Requires identical results, a device span, at
+    least `min_share` of the rounds on the card, a resident hit on every
+    span after the first (less stale drops), and the path's launch
+    gates: through the span kernel, one stt_tcp_span launch and one read
+    of its words per dispatch (aborted and refused ones too), every
+    committed round stepped inside it, no eager round end and no window,
+    relay or law kernel; through the window kernel, one stt_tcp_window
+    launch per window stepped in every dispatch, one per round of the
+    committed spans and no span, relay or law kernel; through the eager
+    window, each relay kernel launched once per fire of its stage and no
+    window, span or law kernel; never a PHOLD kernel.  With `capture`,
     the forced run's first in-domain export is cloned into it
     (log_spans).  Returns the forced run's kernel launch counts and lanes
     per fire of each relay stage."""
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import tcp_span
-    from shadow_tpu_torch.ops.tcp_window import eager_window
+    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW, eager_window
     from shadow_tpu_torch.tools.span_loop_bench import (run_stream,
                                                         stream_config)
 
     tag = f"[stream {n_hosts}{'' if path == 'kernel' else ' ' + path}]"
+    factory = {"kernel": None, "window": TCP_WINDOW.bind,
+               "eager": eager_window}[path]
     print(f"{tag} {n_hosts} hosts ({max(1, n_hosts // 8)} tgen servers), "
-          f"stop_time {stop_time}, forced windows through "
-          + ("stt_tcp_window" if path == "kernel" else "the eager window"),
+          f"stop_time {stop_time}, forced spans through "
+          + {"kernel": "stt_tcp_span",
+             "window": "stt_tcp_window and the eager round ends",
+             "eager": "the eager window and round ends"}[path],
           flush=True)
     runs = {}
     for spans in ("off", "force")[reference is not None:]:
@@ -1220,8 +1265,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
             cfg.experimental.dev_span_k_init = k_init
         mgr = Manager(cfg, device="cuda")
         if spans == "force":
-            log_spans(mgr, eager_window if path == "eager" else None,
-                      capture)
+            log_spans(mgr, factory, capture)
         wrappers = kernel_wrappers()
         # Counts cover this run only: zeroed just before it.
         zero_counts(wrappers)
@@ -1230,6 +1274,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
         torch.cuda.reset_peak_memory_stats()
         run = run_stream(mgr)
         run["launches"] = {name: w.launches for name, w in wrappers.items()}
+        run["host_reads"] = wrappers["tcp_span"].host_reads
         run["phold"] = mgr._dev_span
         runs[spans] = run
         summary, r, wall = run["summary"], run["runner"], run["wall"]
@@ -1254,8 +1299,10 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                   f"{r.export_wall_ns / 1e9:.1f}s / import "
                   f"{r.import_bytes / 2**30:.2f} GiB in "
                   f"{r.import_wall_ns / 1e9:.1f}s, law calls in the lanes "
-                  f"{r.ks_calls.tolist()}, launches {run['launches']}",
-                  flush=True)
+                  f"{r.ks_calls.tolist()}, launches {run['launches']}, "
+                  f"span launches {r.spans_all} (launch to end "
+                  f"{r.ks_span_ms:.3f} ms over {r.ks_spans} committed), "
+                  f"eager round ends {r.eager_round_ends}", flush=True)
             print_residency(tag, r)
             print_stages(tag, r)
         if not summary.ok:
@@ -1285,6 +1332,22 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                              f"{r.spans} spans ({r.stale_drops} stale)")
     launches = dev["launches"]
     if path == "kernel":
+        # One span-kernel launch and one read of its words per dispatch
+        # (aborted spans and refused speculative windows launched too),
+        # every committed round inside it, no eager round end.
+        n = launches["tcp_span"]
+        if n <= 0 or n != r.spans_all or dev["host_reads"] != n \
+                or r.ks_spans != r.spans or r.ks_windows != r.rounds \
+                or r.eager_round_ends:
+            raise AssertionError(f"{tag} tcp_span launched {n} times "
+                                 f"({dev['host_reads']} host reads) for "
+                                 f"{r.spans_all} dispatches ({r.ks_spans} "
+                                 f"committed of {r.spans} spans; "
+                                 f"{r.ks_windows} rounds inside of "
+                                 f"{r.rounds}); eager round ends "
+                                 f"{r.eager_round_ends}")
+        never = ("tcp_window", "relay1_law", "relay2_law")
+    elif path == "window":
         # One window-kernel launch per window stepped, over every
         # dispatch (aborted spans and refused speculative windows
         # launched too), one per round of the committed spans.
@@ -1294,7 +1357,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                                  f"for {r.windows_all} windows "
                                  f"({r.ks_windows} committed, {r.rounds} "
                                  f"rounds)")
-        never = ("relay1_law", "relay2_law")
+        never = ("tcp_span", "relay1_law", "relay2_law")
     else:
         # One launch per fire of the relay stage, over every dispatch.
         for name, code in (("relay1_law", tcp_span.KS_INET_OUT),
@@ -1306,7 +1369,7 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
                                      f"{launches[name]} times for "
                                      f"{fires_all} fires of its stage "
                                      f"({fires} committed)")
-        never = ("tcp_window",)
+        never = ("tcp_window", "tcp_span")
     # The relay laws run inside the lanes or the relay kernels: the span
     # loop launches no standalone law kernel (nor a PHOLD kernel).
     for name in never + ("bucket_step", "codel_head", "phold_window",
@@ -1323,10 +1386,14 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
           f"{ph.export_wall_ns / 1e6:.3f} ms", flush=True)
     print(f"{tag} PASS: identical traces, {r.rounds}/{sd.rounds} rounds "
           f"on the card, "
-          + (f"one stt_tcp_window launch per window ({launches['tcp_window']}"
-             f"), no relay kernel" if path == "kernel" else
-             f"one relay launch per relay fire ({launches['relay1_law']} / "
-             f"{launches['relay2_law']})"), flush=True)
+          + {"kernel": f"one stt_tcp_span launch per dispatch "
+                       f"({launches['tcp_span']}), no eager round end, no "
+                       f"window or relay kernel",
+             "window": f"one stt_tcp_window launch per window "
+                       f"({launches['tcp_window']}), no relay kernel",
+             "eager": f"one relay launch per relay fire "
+                      f"({launches['relay1_law']} / "
+                      f"{launches['relay2_law']})"}[path], flush=True)
     lanes = {code: r.ks_lanes[code] / max(r.ks_fires[code], 1)
              for code in (tcp_span.KS_INET_OUT, tcp_span.KS_CODEL)}
     return launches, lanes
@@ -1414,7 +1481,7 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
         runner.window_factory = factory
         return runner._build()
 
-    plain, kern = build(tw.eager_window), build(None)
+    plain, kern = build(tw.eager_window), build(tw.TCP_WINDOW.bind)
     assert plain.step is None and kern.step is not None
     print(f"{tag} export at {start / 1e9:.4f}s ({runner._H} lanes, "
           f"{runner._n_conns} conns, window {runahead / 1e6:.3f} ms)",
@@ -1518,6 +1585,132 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
           + f"); launch: {shape['team']} threads a lane, {shape['tiles']} "
           f"lanes a block, {shape['blocks']} blocks, {shape['smem']} B "
           f"shared a block", flush=True)
+    runner.window_factory = None
+    return row
+
+
+def check_tcp_span(name: str, runner, base: dict, args: tuple,
+                   plain4: str = "eager", reps: int = 5) -> dict:
+    """Phase 2's TCP span leg on one export: stt_tcp_span against its
+    plain version (the runner's eager loop: a window, then the eager
+    round end) on copies of the same state, spans of one and of four
+    rounds: every state column (conn-major ones without their trash
+    row), the outbox and the trace in canonical order, ks_fires,
+    ks_lanes, the run's scalars (start, runahead, rounds, busy rounds,
+    packets, busy end, micro-iterations) and the abort bits and site
+    exactly equal.  The plain loop's windows are the eager window's,
+    except for the four-round span with `plain4` "kernel", whose windows
+    are stt_tcp_window's (itself held exact against the eager window on
+    the same export by check_tcp_window; at 10,000 hosts an eager window
+    takes ~18 s).  Times: the span kernel per one- and four-round span
+    and per round (single launches on fresh copies, the card asleep while
+    the host issues each: a cooperative launch is not captured in a CUDA
+    graph), its host issue per launch, its launch to end, the plain
+    loop's time (host wall of its calls), the bound from the bytes the
+    span must move (ops/tcp_span_kernel.py tcp_span_need_bytes: each
+    window's reads, each round end's packets and moved entries, the
+    span's changed words once), the phase clocks and the launch's shape.
+    Returns the kernels line's row: the one-round span's card time,
+    plain loop and bound (the plain loop there is the eager window's on
+    every export), and the four-round span's beside them."""
+    from shadow_tpu_torch.ops import tcp_span_kernel as tsk
+    from shadow_tpu_torch.ops import tcp_window as tw
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    from shadow_tpu_torch.tools.window_cases import tcp_window_mismatch
+    tag = f"[tcp span {name}]"
+    start, stop, limit, runahead = args
+
+    def build(factory):
+        runner.window_factory = factory
+        return runner._build()
+
+    span = build(None)
+    assert span.span is not None and span.step is None
+    rows = {}
+    for mr in (1, 4):
+        plain = build(tw.TCP_WINDOW.bind if mr == 4 and plain4 == "kernel"
+                      else tw.eager_window)
+        assert plain.span is None
+        b = clone_state(base)
+        got = span(b, *args, mr)
+        a = clone_state(base)
+        need = tsk.tcp_span_need_bytes(plain, span.span.table.ops, a,
+                                       *args, mr)
+        bad = tcp_window_mismatch(a, b) + [
+            k for k in ("ks_fires", "ks_lanes")
+            if not np.array_equal(a[k], b[k])]
+        if bad or tuple(got[1:]) != need["run"] or need["rounds"] != mr \
+                or int(a["abort_code"]) or int(b["abort_code"]) \
+                or b["ks_windows"] != mr or b["ks_spans"] != 1:
+            raise AssertionError(f"{tag} {mr} rounds: {bad} differ, "
+                                 f"scalars {need['run']} (plain) vs "
+                                 f"{tuple(got[1:])}, abort "
+                                 f"{int(a['abort_code'])} / "
+                                 f"{int(b['abort_code'])}")
+        rows[mr] = dict(need, trace=int(b["tr_n"]),
+                        dropped=int((b["pkts_dropped"]
+                                     - base["pkts_dropped"]).sum()),
+                        plain_window=("stt_tcp_window" if mr == 4
+                                      and plain4 == "kernel"
+                                      else "eager"))
+        del a, b, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{tag} export at {start / 1e9:.4f}s ({runner._H} lanes, "
+          f"{runner._n_conns} conns, window {runahead / 1e6:.3f} ms): "
+          f"stt_tcp_span exact against the plain loop over 1 and 4 rounds "
+          f"(4 rounds: {rows[4]['run'][4]} packets, {rows[4]['dropped']} "
+          f"drops, trace {rows[4]['trace']}, {rows[4]['run'][6]} "
+          f"micro-iterations; plain windows {rows[4]['plain_window']})",
+          flush=True)
+    card1, _ = span_card_ms(span, base, args + (1,), reps)
+    card, issue = span_card_ms(span, base, args + (4,), reps)
+    c = clone_state(base)
+    span.prepare(c)
+    got = span.span(c, *args, 4)
+    del c
+    shape = tsk.launch_shape(span.span.table.lib, runner._H)
+    need = rows[4]
+    clk = got["clocks"]
+    row = {"ms": float(np.median(card1)),
+           "plain_ms": rows[1]["loop_s"] * 1e3,
+           "bound_ms": rows[1]["total"] / BANDWIDTH * 1e3,
+           "bytes": rows[1]["total"],
+           "ms_4_rounds": float(np.median(card)), "ms_min": min(card),
+           "ms_max": max(card), "rounds": 4,
+           "ms_per_round": float(np.median(card)) / 4,
+           "call_ms": float(np.median(issue)),
+           "launch_to_end_ms": got["span_ms"],
+           "plain_4_rounds_ms": need["loop_s"] * 1e3,
+           "plain_4_rounds_window": need["plain_window"],
+           "bound_4_rounds_ms": need["total"] / BANDWIDTH * 1e3,
+           "bytes_4_rounds": need["total"],
+           "bound_parts": {k: need[k] for k in ("window", "round_end",
+                                                 "state")},
+           "max_abs_err": 0, "H": runner._H, "clocks": clk,
+           "launch": shape}
+    share = {k: clk[k] / max(clk["span"], 1)
+             for k in ("window", "propagate", "settle", "wait")}
+    print(f"{tag} {row['ms_4_rounds'] * 1e3:.3f} us per 4-round span on "
+          f"the card ({row['ms_per_round'] * 1e3:.3f} us a round; median of "
+          f"{reps} launches on fresh copies, {row['ms_min'] * 1e3:.3f}-"
+          f"{row['ms_max'] * 1e3:.3f}; a 1-round span "
+          f"{row['ms'] * 1e3:.3f} us), host issue "
+          f"{row['call_ms'] * 1e3:.1f} us per launch, launch to end "
+          f"{got['span_ms'] * 1e3:.1f} us; plain loop "
+          f"{row['plain_4_rounds_ms']:.3f} ms over 4 rounds (windows "
+          f"{row['plain_4_rounds_window']}), {row['plain_ms']:.3f} ms over "
+          f"1 (eager); bound {row['bound_4_rounds_ms'] * 1e3:.3f} us by "
+          f"bytes over 4 rounds ({need['total']} B: window reads "
+          f"{need['window']}, round ends {need['round_end']}, changed words "
+          f"{need['state']}), {row['bound_ms'] * 1e3:.3f} us over 1; "
+          f"launch: "
+          f"{shape['team']} threads a lane, {shape['tiles']} lanes a "
+          f"block, {shape['blocks']} blocks, {shape['smem']} B shared a "
+          f"block; phase clocks (cycles: each phase to its barrier's exit,"
+          f" wait the part inside the barriers) {clk}, shares of the span "
+          + ", ".join(f"{k} {v:.3f}" for k, v in share.items()),
+          flush=True)
     runner.window_factory = None
     return row
 
@@ -2136,6 +2329,7 @@ def kernel_wrappers() -> dict:
     from shadow_tpu_torch.ops.phold_span_kernel import PHOLD_SPAN
     from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
     from shadow_tpu_torch.ops.propagate import PROPAGATE
+    from shadow_tpu_torch.ops.tcp_span_kernel import TCP_SPAN
     from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
     return {"bucket_step": queues.BUCKET_STEP,
             "codel_head": queues.CODEL_HEAD,
@@ -2144,15 +2338,17 @@ def kernel_wrappers() -> dict:
             "propagate": PROPAGATE,
             "phold_window": PHOLD_WINDOW,
             "phold_span": PHOLD_SPAN,
-            "tcp_window": TCP_WINDOW}
+            "tcp_window": TCP_WINDOW,
+            "tcp_span": TCP_SPAN}
 
 
 def zero_counts(wrappers: dict) -> None:
-    """Every wrapper's launch count, and the span kernel's host reads, to
+    """Every wrapper's launch count, and the span kernels' host reads, to
     0 (just before a run)."""
     for w in wrappers.values():
         w.launches = 0
-    wrappers["phold_span"].host_reads = 0
+    for name in ("phold_span", "tcp_span"):
+        wrappers[name].host_reads = 0
 
 
 def check_forced(tag: str, run: dict) -> None:
@@ -2262,7 +2458,7 @@ def mesh100_runs() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-time", default="1.25s",
+    ap.add_argument("--stop-time", default="1.31s",
                     help="simulated time of the 10,000-host TCP stream")
     args = ap.parse_args(argv)
     kind = card()
@@ -2273,12 +2469,12 @@ def main(argv=None) -> int:
     relay_stats = check_relay_kernels()
     check_propagate()
     window_stats, span_stats = check_phold_window()
-    # The TCP window kernel on the 16-host stream's exports and the
-    # wide-rows edit of the lossy one (the 10,000-host one follows phase
-    # 3's run, which captures it).
+    # The TCP window and span kernels on the 16-host stream's exports and
+    # the wide-rows edit of the lossy one (the 10,000-host one follows
+    # phase 3's run, which captures it).
     from shadow_tpu_torch.tools.window_cases import (tcp_device_state,
                                                      tcp_wide_rows)
-    tcp_stats = {}
+    tcp_stats, tcp_span_stats = {}, {}
     for name, loss in (("stream-16", 0.0), ("stream-16-lossy", 0.02)):
         runner, st_np, span_args = tcp_export(loss)
         legs = [(name, st_np)]
@@ -2288,19 +2484,22 @@ def main(argv=None) -> int:
             tcp_stats[leg] = check_tcp_window(
                 leg, runner, tcp_device_state(runner, st), span_args,
                 profile=leg == "stream-16-lossy")
+            tcp_span_stats[leg] = check_tcp_span(
+                leg, runner, tcp_device_state(runner, st), span_args)
         del runner, st_np, legs
         gc.collect()
         torch.cuda.empty_cache()
     by_path: dict = {}
-    # The main path of the relay kernels: the 10,000-host stream.  Its
+    # The main path: the 10,000-host stream through the span kernel.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
     # (every client's GET acked, every rtx/reassembly ring under half its
-    # cap), and the eager loop takes minutes per simulated 10 ms at this
-    # width, so the run ends a few rounds into the device stretch: the
-    # device share here is small by construction (PERF.md).
+    # cap), and the C++ prefix takes most of the run, so the run ends a
+    # span of 8 rounds into the device stretch: the device share here is
+    # small by construction (PERF.md).
     print(f"[main] stop_time {args.stop_time}: cut from 1s upward to "
-          f"reach the device-span domain (entered at 1.23 s) and kept "
-          f"short for the time limit", flush=True)
+          f"reach the device-span domain (entered at 1.23 s; a span of "
+          f"8 rounds to 1.31 s) and kept short for the time limit",
+          flush=True)
     capture: dict = {}
     by_path["tcp-stream-10k"], occupancy = stream_pair(
         H_MAIN, args.stop_time, min_share=0.0,
@@ -2313,16 +2512,27 @@ def main(argv=None) -> int:
     runner._res_st = None  # the run's resident carry
     gc.collect()
     torch.cuda.empty_cache()
+    base = capture.pop("st")
     tcp_stats["stream-10k"] = check_tcp_window(
-        "stream-10k", runner, capture.pop("st"), capture["args"],
-        graph=False, profile=True)
-    del runner
+        "stream-10k", runner, base, capture["args"], graph=False,
+        profile=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcp_span_stats["stream-10k"] = check_tcp_span(
+        "stream-10k", runner, base, capture["args"], plain4="kernel",
+        reps=3)
+    del runner, base
     gc.collect()
     torch.cuda.empty_cache()
     # The device share at a width the eager loop finishes in time; the
     # router's first window is 4 rounds, so the device stretch takes
     # several spans and TCP residency and the overlap show on the card.
-    stream_pair(16, "500ms", min_share=0.5, k_init=4)
+    by_path["tcp-stream-16"], _ = stream_pair(16, "500ms", min_share=0.5,
+                                              k_init=4)
+    # The window kernel's path: the same stream through stt_tcp_window and
+    # the eager round ends.
+    by_path["tcp-stream-16/window"], _ = stream_pair(
+        16, "500ms", min_share=0.5, k_init=4, path="window")
     # The relay kernels' path: the same stream through the eager window,
     # to EAGER_STOP.
     by_path["tcp-stream-16/eager-window"], _ = stream_pair(
@@ -2371,12 +2581,17 @@ def main(argv=None) -> int:
     # span kernel's over four rounds).
     stats["phold_window"] = window_stats["phold-64k-ring"]
     stats["phold_span"] = span_stats["phold-64k-ring"]
-    # The TCP window kernel's row: the 10,000-host export.
+    # The TCP kernels' rows: the 10,000-host export (the span kernel's
+    # over one round, its plain loop there the eager window's; four
+    # rounds beside).
     stats["tcp_window"] = tcp_stats["stream-10k"]
+    stats["tcp_span"] = tcp_span_stats["stream-10k"]
     # `launches`: the count on each kernel's main path (tcp-stream-10k
-    # for the TCP window kernel; the 16-host stream through the eager
-    # window for the relay kernels, 0 on tcp-stream-10k since the window
-    # kernel; phold-64k-ring with residency alone, through
+    # for the TCP span kernel; the 16-host stream through the window
+    # kernel for it, off the main path since the span kernel; the 16-host
+    # stream through the eager window for the relay kernels, 0 on
+    # tcp-stream-10k since the window kernel; phold-64k-ring with
+    # residency alone, through
     # the plain window, for the law kernels; phold-64k-ring with the
     # overlap for the span kernel; phold-8k through the window kernel
     # for it, off the main path since the span kernel); `launches_by_path`:
@@ -2388,7 +2603,8 @@ def main(argv=None) -> int:
                  "propagate": "tier10k/forced",
                  "phold_window": "phold-8k/window",
                  "phold_span": "phold-64k-ring/overlap",
-                 "tcp_window": "tcp-stream-10k"}
+                 "tcp_window": "tcp-stream-16/window",
+                 "tcp_span": "tcp-stream-10k"}
     # library_ms: no single PyTorch call computes any of these laws.
     kernels = [{"name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name],
@@ -2398,6 +2614,7 @@ def main(argv=None) -> int:
                 "bound_by": s.get("bound_by", "bytes"), "library_ms": None,
                 "graph_ms": s.get("graph_ms"), "call_ms": s["call_ms"],
                 "ms_per_round": s.get("ms_per_round"),
+                "ms_4_rounds": s.get("ms_4_rounds"),
                 "ms_uncached": s.get("ms_uncached"),
                 "phase_clocks": s.get("clocks"),
                 "launch_shape": s.get("launch"),

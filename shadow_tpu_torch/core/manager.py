@@ -519,9 +519,11 @@ class Manager:
             out["device_span_phold"].update(span_launches=r.spans_all,
                                             kernel_windows=r.windows_all)
         if self._dev_span_tcp is not None:
-            # The TCP family's window-kernel launches over every dispatch.
-            out["device_span_tcp"].update(
-                kernel_windows=self._dev_span_tcp.windows_all)
+            # The TCP family's kernel launches over every dispatch: span
+            # launches, and the windows a kernel stepped.
+            r = self._dev_span_tcp
+            out["device_span_tcp"].update(span_launches=r.spans_all,
+                                          kernel_windows=r.windows_all)
         return out
 
     # ------------------------------------------------------------------

@@ -1247,8 +1247,14 @@ struct Lane {
 
   STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
                const Team& t, TeamScratch& sh)
+      : Lane(o_, p_, i_, s_, t, sh, p_.window_end) {}
+
+  // The same lane with its window's end given apart from the table (a
+  // span kernel's rounds each end elsewhere, the table stays constant).
+  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
+               const Team& t, TeamScratch& sh, int64_t window_end_)
       : o(o_), p(p_), i(i_), s(s_), t_(t), sh_(sh),
-        window_end(p_.window_end),
+        window_end(window_end_),
         rp{p_.n, 0, p_.conns, TEL_N, p_.refill_ns, p_.target_ns, p_.mtu,
            p_.interval_ns, TCP_TOTAL_HDR} {
     now = o.now[i];
@@ -2447,17 +2453,22 @@ STT_LAW void settle_abort(const Ops& o) {
 
 #ifndef __CUDACC__
 // The host build: every lane in turn, each by a team of `team` ranks
-// run in turn, then the window's counts, as the kernel's last block
+// run in turn (`after(lane)` right after each lane's window, with the
+// team's scratch), then the window's counts, as the kernel's last block
 // settles them.  Returns 0, or 1 for a reassembly row wider than the
 // SACK staging or a team outside [1, kTeamMax].
-inline int window_serial(const Ops& o, const Params& p, int team = 1) {
+template <class After>
+inline int window_serial(const Ops& o, const Params& p, int team,
+                         After after) {
   if (p.cap_ra > kSackMax || team < 1 || team > kTeamMax) return 1;
   const Team t = {team};
   TeamScratch sh;
   int64_t win_max = 0;
   for (int64_t i = 0; i < p.n; i++) {
     LaneStats s = {};
-    Lane(o, p, i, s, t, sh).run();
+    Lane lane(o, p, i, s, t, sh);
+    lane.run();
+    after(lane, sh);
     for (int q = 0; q < kPasses; q++)
       o.stats[ST_LANES + pass_slot(q)] += s.lanes[q];
     o.stats[ST_CALLS + CALL_BUCKET] += s.calls[CALL_BUCKET];
@@ -2475,6 +2486,10 @@ inline int window_serial(const Ops& o, const Params& p, int team = 1) {
   o.stats[ST_ITERS] += win_max;
   settle_abort(o);
   return 0;
+}
+
+inline int window_serial(const Ops& o, const Params& p, int team = 1) {
+  return window_serial(o, p, team, [](Lane&, TeamScratch&) {});
 }
 #endif
 

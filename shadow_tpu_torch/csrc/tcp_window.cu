@@ -69,7 +69,7 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
-#include "tcp_lane.cuh"
+#include "tcp_tile.cuh"
 
 namespace {
 
@@ -82,48 +82,11 @@ using stt::tcp::Team;
 using stt::tcp::TeamScratch;
 
 constexpr int kTeam = stt::tcp::kTeam;
-// Tiles a block: the tiles' scratch and the blocks an SM holds.
-constexpr int kTiles = 4;
-constexpr int kThreads = kTiles * kTeam;
-
-__device__ __forceinline__ void flush_warp(const Ops& o, const LaneStats& s) {
-  constexpr unsigned kAll = 0xffffffffu;
-  const bool leader = (threadIdx.x & 31) == 0;
-#pragma unroll
-  for (int q = 0; q < kPasses; q++) {
-    const unsigned n = __reduce_add_sync(kAll, s.lanes[q]);
-    if (leader && n)
-      atomicAdd((unsigned long long*)&o.stats[stt::tcp::ST_LANES +
-                                               stt::tcp::pass_slot(q)],
-                (unsigned long long)n);
-  }
-  const unsigned cb = __reduce_add_sync(kAll, s.calls[0]);
-  const unsigned cc = __reduce_add_sync(kAll, s.calls[1]);
-  const unsigned it = __reduce_max_sync(kAll, s.iters);
-  if (leader) {
-    if (cb) atomicAdd((unsigned long long*)&o.stats[stt::tcp::ST_CALLS], cb);
-    if (cc)
-      atomicAdd((unsigned long long*)&o.stats[stt::tcp::ST_CALLS + 1], cc);
-    if (it)
-      atomicMax((unsigned long long*)&o.stats[stt::tcp::ST_WIN_MAX],
-                (unsigned long long)it);
-  }
-}
-
-// The next lane for a tile (p.n when none is left): a first pass over
-// the lanes takes those with several conn rows and a second the rest.
-// Lanes are independent, so the order changes no result.
-__device__ int64_t next_lane(const Ops& o, const Params& p) {
-  unsigned long long* const q =
-      (unsigned long long*)&o.stats[stt::tcp::ST_QUEUE];
-  for (int pass = 0; pass < 2; pass++)
-    for (;;) {
-      const int64_t k = (int64_t)atomicAdd(q + pass, 1ull);
-      if (k >= p.n) break;
-      if ((o.conn_off[k + 1] - o.conn_off[k] > 1) == (pass == 0)) return k;
-    }
-  return p.n;
-}
+constexpr int kTiles = stt::tcp::kTiles;
+constexpr int kThreads = stt::tcp::kThreads;
+constexpr int kSmem = stt::tcp::kSmem;
+using stt::tcp::flush_warp;
+using stt::tcp::next_lane;
 
 #ifdef STT_TCP_PROFILE
 __device__ __forceinline__ int64_t global_ns() {
@@ -184,10 +147,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (t.rank == 0) {
       LaneStats s = {};
       leader_lane(o, p, i, s, t, sh, prof);
-      for (int q = 0; q < kPasses; q++) sum.lanes[q] += s.lanes[q];
-      sum.calls[0] += s.calls[0];
-      sum.calls[1] += s.calls[1];
-      sum.iters = s.iters > sum.iters ? s.iters : sum.iters;
+      stt::tcp::add_stats(sum, s);
     } else {
       for (;;) {
         Req rq = {0, 0, 0};
@@ -232,10 +192,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     stt::tcp::settle_abort(o);
   }
 }
-
-// The tiles' scratch, dynamic shared memory a block (over the 48 KB a
-// block gets without asking).
-constexpr int kSmem = kTiles * (int)sizeof(TeamScratch);
 
 // Blocks a launch on the current device: as many as it holds at once
 // (its SMs times the occupancy calculator's blocks an SM), no more than

@@ -42,23 +42,27 @@ where it is handled):
   cost on the card as on the CPU.  The loop conditions cost one sync
   per micro-iteration and one per round.
 - Speed.  This eager form pays the host per stage and per
-  micro-iteration; on the card the window is one kernel launch instead
-  (below), and the round end stays eager (a persistent span kernel is
-  ROADMAP B5b).
+  micro-iteration; on the card the whole span is one kernel launch
+  instead (below).
 
-The window step.  On the card (`window_factory` None) each window is one
-launch of the hand kernel `stt_tcp_window` (ops/tcp_window.py,
-csrc/tcp_window.cu): a tile of 32 threads per host lane runs the fused
-schedule (csrc/tcp_lane.cuh: one thread the law, the tile its row
-scans), the relay tails' bucket and CoDel-head laws inside
-the lane, and the round end (propagation, the inbox merge) runs eagerly
-after it.  The eager window (`run.window_plain`) is its plain version:
-the CPU runs it, and so does the card with the `window_factory`
-`tcp_window.eager_window`.  There the relay micro-ops launch the fused
-hand kernels `RELAY1_LAW` and `RELAY2_LAW` (ops/relay.py, csrc/relay.cu)
-for their lane-local tails, which hold the bucket and CoDel-head laws at
-the sites where the JAX code calls the Pallas kernels; those kernels
-write the span state in place on the stage's lanes.
+The span step.  On the card (`span_factory` and `window_factory` None)
+each span is one cooperative launch of the hand kernel `stt_tcp_span`
+(ops/tcp_span_kernel.py, csrc/tcp_span.cu): every round's window (a
+tile of 32 threads per host lane runs the fused schedule,
+csrc/tcp_lane.cuh: one thread the law, the tile its row scans, the relay
+tails' bucket and CoDel-head laws inside the lane), propagation, drops,
+inbox merge and round scalars between grid barriers, and one read of the
+span's words at the end.  The eager loop (`run` with `run.span` None:
+a window step, then the eager round end `run.round_end`) is its plain
+version: the CPU runs it, and so does the card with a `window_factory`:
+`tcp_window.TCP_WINDOW.bind` steps each window with one launch of the
+window kernel `stt_tcp_window` (ops/tcp_window.py, csrc/tcp_window.cu),
+`tcp_window.eager_window` with the eager window (`run.window_plain`).
+There the relay micro-ops launch the fused hand kernels `RELAY1_LAW` and
+`RELAY2_LAW` (ops/relay.py, csrc/relay.cu) for their lane-local tails,
+which hold the bucket and CoDel-head laws at the sites where the JAX
+code calls the Pallas kernels; those kernels write the span state in
+place on the stage's lanes.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ from shadow_tpu_torch.ops.relay import RelayConsts, RelayLaw
 from shadow_tpu_torch.ops.span_common import I64_MAX, merge_inbox
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
-from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
+from shadow_tpu_torch.ops.tcp_span_kernel import TCP_SPAN
 
 SEQ_HALF = 1 << 31
 SEQ_MOD = 1 << 32
@@ -414,10 +418,15 @@ class TcpSpanRunner(SpanMeshMixin):
         # one relay-kernel launch per fire of a relay stage on the eager
         # window.
         self.fires_all = np.zeros(KS_N, np.int64)
-        # The window step.  None: one stt_tcp_window launch a window on
-        # the card, else the eager window; a hook `window_factory(shape,
-        # params)` makes it instead (tcp_window.eager_window: None, the
-        # eager window; the tests' host build of the lane law).
+        # The span step.  None: one stt_tcp_span launch a span on the
+        # card with no window_factory, else the eager loop.  A hook
+        # `span_factory(shape, params)` makes the step instead (the
+        # tests' host build of the span).
+        self.span_factory = None
+        # The eager loop's window step: None the eager window; a hook
+        # `window_factory(shape, params)` makes it (TCP_WINDOW.bind: one
+        # stt_tcp_window launch a window; the tests' host build of the
+        # lane law; tcp_window.eager_window: None, the eager window).
         self.window_factory = None
         # The law calls made in the window kernel's lanes (CALL_* slots:
         # bucket, CoDel head) of committed spans and of every dispatch;
@@ -429,6 +438,13 @@ class TcpSpanRunner(SpanMeshMixin):
         self.ks_windows = 0
         self.ks_window_ms = 0.0
         self.windows_all = 0
+        # Span-kernel launches and their launch-to-end time (ms) of
+        # committed spans, and the launches of every dispatch (aborted
+        # and refused ones too); the eager round ends run, every dispatch.
+        self.ks_spans = 0
+        self.ks_span_ms = 0.0
+        self.spans_all = 0
+        self.eager_round_ends = 0
         self._n_conns = 0     # live connections (set from export)
         self.last_abort_code = 0
         self.last_was_cold = False
@@ -708,7 +724,7 @@ class TcpSpanRunner(SpanMeshMixin):
     def _cached_build(self):
         key = (self._H, self._CC, self._caps(), self.cap_out,
                self.cap_tr, self.tracing, self.dctcp_k, str(self.device),
-               self.window_factory)
+               self.window_factory, self.span_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
 
     def _window_shape(self) -> tuple:
@@ -727,14 +743,32 @@ class TcpSpanRunner(SpanMeshMixin):
         return shape, params
 
     def _window_step(self):
-        """A build's window step: the hook's, else the window kernel's on
-        the card; None runs the eager window."""
-        factory = self.window_factory
+        """The eager loop's window step: the hook's; None runs the eager
+        window."""
+        if self.window_factory is None:
+            return None
+        return self.window_factory(*self._window_shape())
+
+    def _span_shape(self) -> tuple:
+        """The span kernel's table dimensions and build parameters: the
+        window kernel's, with the graph's nodes and the round end's
+        words."""
+        shape, params = self._window_shape()
+        shape["v"] = len(self._lat)
+        params.update(n_nodes=len(self._lat), k0=self._k[0], k1=self._k[1],
+                      bootstrap_end=self.bootstrap_end,
+                      time_never=TIME_NEVER)
+        return shape, params
+
+    def _span_step(self):
+        """A build's span step: the hook's, else the span kernel's on the
+        card with no window hook; None runs the eager loop."""
+        factory = self.span_factory
         if factory is None:
-            if self.device.type != "cuda":
+            if self.device.type != "cuda" or self.window_factory is not None:
                 return None
-            factory = TCP_WINDOW.bind
-        return factory(*self._window_shape())
+            factory = TCP_SPAN.bind
+        return factory(*self._span_shape())
 
     def _build(self):
         """Return `run(st, start, stop, limit, runahead, max_rounds)`,
@@ -742,7 +776,8 @@ class TcpSpanRunner(SpanMeshMixin):
         hang on it: `run.prepare(st)` makes a span's local buffers and
         indexes, `run.window_plain(st, window_end)` steps one window
         eagerly (the window kernel's plain version), `run.round_end(st,
-        window_end)` the eager round end, and `run.step` is the build's
+        window_end)` the eager round end, `run.span` is the build's span
+        step (None: the eager loop) and `run.step` the eager loop's
         window step (None: the eager window).  `run` updates its input
         state in place (the reference's donation semantics), so a retry
         re-exports."""
@@ -754,7 +789,8 @@ class TcpSpanRunner(SpanMeshMixin):
         tracing = self.tracing
         k_pkts, k_bytes = self.dctcp_k
         dev = self.device
-        step = self._window_step()
+        span = self._span_step()
+        step = None if span is not None else self._window_step()
         i64 = torch.int64
         hidx = torch.arange(H, dtype=i64, device=dev)
         # Out-of-bounds scatters: conn-major masked lanes write the
@@ -1971,11 +2007,14 @@ class TcpSpanRunner(SpanMeshMixin):
             st["ks_calls"] = np.zeros(2, np.int64)
             st["ks_windows"] = 0
             st["ks_window_ms"] = 0.0
+            st["ks_spans"] = 0
+            st["ks_span_ms"] = 0.0
 
         def round_end(st, window_end):
             """Propagation and the inbox merge after a window, then the
             round's scalars in one host sync: (packets, least kept
             latency, next start, abort word)."""
+            self.eager_round_ends += 1
             n_out, min_lat = propagate(st, window_end)
             ib_t, th_t = next_event_time(st)
             return torch.stack([
@@ -1984,6 +2023,17 @@ class TcpSpanRunner(SpanMeshMixin):
 
         def run(st, start, stop, limit, runahead, max_rounds):
             prepare(st)
+            if span is not None:
+                # The whole loop in one launch and one read.
+                got = span(st, start, stop, limit, runahead, max_rounds)
+                for k in ("fires", "lanes", "calls"):
+                    st[f"ks_{k}"] += got[k]
+                st["ks_windows"] = got["rounds"]
+                st["ks_spans"] = 1
+                st["ks_span_ms"] = got["span_ms"]
+                return (st, got["start"], got["runahead"], got["rounds"],
+                        got["busy_rounds"], got["packets"],
+                        got["busy_end"], got["iters"])
             if step is not None:
                 step.begin(st)
             rounds = busy_rounds = packets = iters = 0
@@ -2019,7 +2069,7 @@ class TcpSpanRunner(SpanMeshMixin):
         run.prepare, run.window_plain, run.round_end = (prepare,
                                                         window_plain,
                                                         round_end)
-        run.step = step
+        run.span, run.step = span, step
         return run
 
     # ------------------------------------------------------------------

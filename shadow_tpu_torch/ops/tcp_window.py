@@ -11,8 +11,11 @@ stage, and one fused relay-kernel launch per relay stage fire
 tile of 32 threads per host lane (one runs the lane law, the tile its
 row scans), with the relay tails (csrc/queue_laws.cuh relay1_core /
 relay2_core: the token-bucket and CoDel-head laws) run in the lane
-(csrc/tcp_lane.cuh).  The round end (propagation and the inbox merge)
-stays eager after each window.
+(csrc/tcp_lane.cuh).  Through this kernel the round end (propagation
+and the inbox merge) stays eager after each window: the runner takes it
+with the `window_factory` `TCP_WINDOW.bind`; on the main path the span
+kernel (ops/tcp_span_kernel.py) runs the windows with the same lane law
+and tile, and the round ends, in one launch a span.
 
 - The plain version is the runner's own eager window, `window_plain`
   of the built loop (`TcpSpanRunner._build`); the runner runs it on the

@@ -346,14 +346,40 @@ def _tier_run(min_batch: int):
                     s.busy_end_ns), m, s
 
 
-def test_torch_tier_shape_through_the_stages():
+# The auto run's measurements, fixed: the C++ twin at 1 ns a packet and
+# every device dispatch at 1 s, so the stage loses at every round size
+# whatever the machine's load.  The first probe of a run is allowed
+# whatever the clock (an unmeasured cost counts as free, and nothing is
+# spent yet); no measurement can route a round to the stage.
+FIXED_HOST_NS_PER_PKT = 1
+FIXED_DEVICE_NS = 1_000_000_000
+
+
+def _fixed_measurements(monkeypatch):
+    record_host = prop.DeviceRouteModel.record_host
+    record_device = prop.DeviceRouteModel.record_device
+
+    def host(self, dt_ns, n):
+        record_host(self, FIXED_HOST_NS_PER_PKT * max(n, 1), n)
+
+    def device(self, b, dt_ns, n, fresh_compile=None):
+        record_device(self, b, FIXED_DEVICE_NS, n, fresh_compile)
+
+    monkeypatch.setattr(prop.DeviceRouteModel, "record_host", host)
+    monkeypatch.setattr(prop.DeviceRouteModel, "record_device", device)
+
+
+def test_torch_tier_shape_through_the_stages(monkeypatch):
     """bench.py config_10k's graph and apps at 200 hosts to 2 s: the
     twin alone, forced (every round packed into the propagator's stage,
     the law run over it and the decisions scattered from its views) and
     auto at a minimum batch of 1 (the route model probes through the
-    probe's own stage) give one trace."""
+    probe's own stage) give one trace.  The auto run's route is
+    deterministic: its measurements are fixed (_fixed_measurements), so
+    it probes and never routes a round to the stage."""
     host = _tier_run(prop.HOST_ONLY)
     forced = _tier_run(0)
+    _fixed_measurements(monkeypatch)
     auto = _tier_run(1)
     assert forced[:2] == host[:2]
     assert auto[:2] == host[:2]
