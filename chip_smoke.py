@@ -59,12 +59,15 @@ Six phases; any failed check raises, so the script exits non-zero:
      register and spill
      report of both;
    - the TCP window kernel (stt_tcp_window: a tile of 32 threads a
-     host lane) on the 16-host stream's first in-domain exports at 0%
-     and 2% loss, the wide-rows edit of the 2%-loss one
+     host lane, the lane's host and conn words in the tile's lane frame
+     in shared memory) on the 16-host stream's first in-domain exports
+     at 0% and 2% loss, the wide-rows edit of the 2%-loss one
      (tools/window_cases.tcp_wide_rows: a 298-entry reassembly row in
      three SACK runs, a 480-entry rtx ring with marks, 3,000 stale
-     timer-heap entries) and, after phase 3's run captured it, the
-     10,000-host stream's: one window against its plain version (the
+     timer-heap entries), its over-cap edit
+     (tools/window_cases.tcp_over_cap: a tgen server with one conn row
+     more than the lane frame holds, its busiest conn past the frame)
+     and, after phase 3's run captured it, the 10,000-host stream's: one window against its plain version (the
      runner's eager window) on copies of the same state, every state
      column (conn-major ones without their trash row), the outbox and
      trace in canonical order, the stage fires and lanes, the
@@ -75,11 +78,14 @@ Six phases; any failed check raises, so the script exits non-zero:
      launches on a restored copy, the card asleep while the host issues
      each), with and without the kept heap minimum, host time per
      wrapper call, the plain window's time, the bound from the bytes
-     the window must move (ops/tcp_window.py window_need_bytes) and the
+     the window must move (ops/tcp_window.py window_need_bytes), the
      launch's shape (threads a lane, lanes a block, blocks, shared
-     memory); on the 2%-loss and 10,000-host exports the profiling
-     build's window (equal to the kernel's) and its five slowest lanes,
-     cycles by stage pass and by row scan
+     memory a block, the lane frame's bytes a tile) and nvcc's
+     registers, stack and spills by function; on the 2%-loss and
+     10,000-host exports the profiling build's window (equal to the
+     kernel's) and its five slowest lanes, cycles by stage pass and by
+     row scan, cycles a micro-iteration, and the law's word accesses by
+     class with its device-memory trips before the frame and now
      (tools/tcp_window_profile.py); nvcc's register and spill report of
      both builds;
    - the TCP span kernel (stt_tcp_span: every round's windows with the
@@ -96,8 +102,10 @@ Six phases; any failed check raises, so the script exits non-zero:
      each: a cooperative launch is not captured in a CUDA graph), its
      host issue, launch to end, the plain loop's time, the bound from
      the bytes the span must move (ops/tcp_span_kernel.py
-     tcp_span_need_bytes), its phase clocks and launch shape; nvcc's
-     register and spill report.
+     tcp_span_need_bytes), its phase clocks and launch shape (the lane
+     frame's bytes a tile among it), nvcc's registers, stack and spills
+     by function (the kernel, its window phase, its row settle, the
+     tile's scans); the over-cap edit too.
 3. Run the main path: the 10,000-host tgen TCP bulk stream through the
    port's Manager on the card with forced device spans, every span one
    stt_tcp_span launch, to 1.31 s (the fleet enters the span domain at
@@ -185,6 +193,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -1399,6 +1408,47 @@ def stream_pair(n_hosts: int, stop_time: str, min_share: float,
     return launches, lanes
 
 
+def ptxas_props(log: str) -> dict:
+    """nvcc -Xptxas=-v's report by function (mangled name): registers
+    and shared bytes (entry functions), stack frame, spill stores and
+    spill loads."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Function properties for|Compiling entry "
+                      r"function) '?([\w$]+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            if m:
+                cur["static_smem"] = int(m.group(1))
+    return out
+
+
+def kernel_props(lib, parts: tuple) -> dict:
+    """ptxas_props of the functions of `lib` whose names hold one of
+    `parts`, by part."""
+    props = ptxas_props(lib.log)
+    return {part: v for part in parts for k, v in props.items()
+            if part in k and v}
+
+
+def frame_text(shape: dict) -> str:
+    """The lane frame's shape as a launch_shape gives it."""
+    return (f"lane frame {shape['frame_bytes']} B a tile "
+            f"({shape['frame_host_words']} host words and "
+            f"{shape['frame_conn_words']} words a conn row for up to "
+            f"{shape['frame_conns']} conn rows)")
+
+
 def tcp_export(loss: float) -> tuple:
     """The 16-host stream's (tools/netgen.tcp_stream_yaml: 50 MB per
     client, seed 11, the tier-1 tests' stream) first in-domain export on
@@ -1560,6 +1610,7 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
         del c
     nbytes = need["total"]
     shape = tcp_window_profile.launch_shape(kern.step.table.lib, runner._H)
+    props = kernel_props(tw.LIBRARY, ("tcp_window_kernel", "team_serve"))
     row = {"ms": float(np.median(ms[1])), "ms_min": min(ms[1]),
            "ms_max": max(ms[1]), "ms_uncached": float(np.median(ms[0])),
            "call_ms": float(np.median(call)) * 1e3,
@@ -1568,7 +1619,7 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
            "bytes": nbytes, "bound_parts": need, "max_abs_err": 0,
            "iters": it, "H": runner._H, "lanes": got["lanes"].tolist(),
            "fires": got["fires"].tolist(), "calls": got["calls"].tolist(),
-           "launch": shape, "slowest_lane": slowest}
+           "launch": shape, "ptxas": props, "slowest_lane": slowest}
     how = ("CUDA graph of 10, fresh state each; median of 3 replays" if graph
            else "single launches on a restored copy; median of 3")
     print(f"{tag} stt_tcp_window exact against the eager window: {it} "
@@ -1584,7 +1635,8 @@ def check_tcp_window(name: str, runner, base: dict, args: tuple,
           + ", ".join(f"{k} {v}" for k, v in need.items() if k != "total")
           + f"); launch: {shape['team']} threads a lane, {shape['tiles']} "
           f"lanes a block, {shape['blocks']} blocks, {shape['smem']} B "
-          f"shared a block", flush=True)
+          f"shared a block; {frame_text(shape)}; ptxas {props}",
+          flush=True)
     runner.window_factory = None
     return row
 
@@ -1670,6 +1722,8 @@ def check_tcp_span(name: str, runner, base: dict, args: tuple,
     got = span.span(c, *args, 4)
     del c
     shape = tsk.launch_shape(span.span.table.lib, runner._H)
+    props = kernel_props(tsk.LIBRARY, ("tcp_span_kernel", "tile_windows",
+                                       "tile_settle", "team_serve"))
     need = rows[4]
     clk = got["clocks"]
     row = {"ms": float(np.median(card1)),
@@ -1688,7 +1742,7 @@ def check_tcp_span(name: str, runner, base: dict, args: tuple,
            "bound_parts": {k: need[k] for k in ("window", "round_end",
                                                  "state")},
            "max_abs_err": 0, "H": runner._H, "clocks": clk,
-           "launch": shape}
+           "launch": shape, "ptxas": props}
     share = {k: clk[k] / max(clk["span"], 1)
              for k in ("window", "propagate", "settle", "wait")}
     print(f"{tag} {row['ms_4_rounds'] * 1e3:.3f} us per 4-round span on "
@@ -1707,7 +1761,8 @@ def check_tcp_span(name: str, runner, base: dict, args: tuple,
           f"launch: "
           f"{shape['team']} threads a lane, {shape['tiles']} lanes a "
           f"block, {shape['blocks']} blocks, {shape['smem']} B shared a "
-          f"block; phase clocks (cycles: each phase to its barrier's exit,"
+          f"block; {frame_text(shape)}; ptxas {props}; phase clocks "
+          f"(cycles: each phase to its barrier's exit,"
           f" wait the part inside the barriers) {clk}, shares of the span "
           + ", ".join(f"{k} {v:.3f}" for k, v in share.items()),
           flush=True)
@@ -2472,14 +2527,23 @@ def main(argv=None) -> int:
     # The TCP window and span kernels on the 16-host stream's exports and
     # the wide-rows edit of the lossy one (the 10,000-host one follows
     # phase 3's run, which captures it).
+    from shadow_tpu_torch.ops.tcp_window import LIBRARY as TCP_WINDOW_LIB
+    from shadow_tpu_torch.tools.tcp_window_profile import launch_shape
     from shadow_tpu_torch.tools.window_cases import (tcp_device_state,
+                                                     tcp_over_cap,
                                                      tcp_wide_rows)
+    frame_conns = launch_shape(TCP_WINDOW_LIB.build(), 16)["frame_conns"]
     tcp_stats, tcp_span_stats = {}, {}
     for name, loss in (("stream-16", 0.0), ("stream-16-lossy", 0.02)):
         runner, st_np, span_args = tcp_export(loss)
         legs = [(name, st_np)]
         if loss:
+            # The wide-rows edit, and the over-cap edit: a tgen server
+            # with one conn row more than the lane frame holds, its
+            # busiest conn past the frame (in device memory).
             legs.append(("stream-16-wide", tcp_wide_rows(st_np)))
+            legs.append(("stream-16-over-cap",
+                         tcp_over_cap(st_np, frame_conns + 1)))
         for leg, st in legs:
             tcp_stats[leg] = check_tcp_window(
                 leg, runner, tcp_device_state(runner, st), span_args,

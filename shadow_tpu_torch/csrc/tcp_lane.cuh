@@ -60,6 +60,7 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
 
@@ -79,6 +80,7 @@
 #define STT_CTZ64(v) (__ffsll((long long)(v)) - 1)
 // A word other threads wrote with atomics, read past the L1.
 #define STT_LOAD(ptr) (*(volatile const int64_t*)(ptr))
+#define STT_HD __host__ __device__
 #else
 #define STT_CLAIM(ctr) ((*(ctr))++)
 #define STT_ABORT(word, key) \
@@ -87,6 +89,7 @@
 #define STT_ABORT_SEEN(word) (*(word))
 #define STT_CTZ64(v) __builtin_ctzll(v)
 #define STT_LOAD(ptr) (*(ptr))
+#define STT_HD
 #endif
 
 namespace stt {
@@ -95,15 +98,20 @@ namespace tcp {
 // The profiling build (-DSTT_TCP_PROFILE, its own library; the main
 // kernel carries no timers): each lane accumulates clock64() cycles by
 // stage pass (and the idle test that precedes the pop) and by row-scan
-// helper, the helpers' calls and the entries its scans visited, into its
-// row of a buffer of PF_N words a lane.
+// helper, the helpers' calls and the entries its scans visited, and the
+// law's word accesses by class (W_HOST host words and W_CONN conn words,
+// all of them device-memory trips before the frame; W_CONN_DEV the conn
+// words still read or written in device memory; W_ROW the row words the
+// law itself moves, outside the tile's scans), into its row of a buffer
+// of PF_N words a lane.
 #define STT_TCP_PROFILE_WORDS(X)                                        \
   X(PF_CYCLES, 0) X(PF_ITERS, 1) X(PF_START_NS, 2) X(PF_END_NS, 3)      \
   X(PF_SM, 4) X(PF_PASS, 5) X(PF_HELPER, 19) X(PF_CALLS, 27)            \
-  X(PF_VISIT, 35) X(PF_N, 38) X(P_TEST, 13) X(H_TH_MIN, 0)              \
-  X(H_FIRST_FREE, 1) X(H_RA_FIND, 2) X(H_SACK, 3) X(H_RTX, 4)           \
-  X(H_QDISC, 5) X(H_HOLES, 6) X(H_SEARCH, 7) X(V_HEAP, 0) X(V_RA, 1)    \
-  X(V_RTX, 2)
+  X(PF_VISIT, 35) X(PF_WORDS, 38) X(PF_N, 42) X(P_TEST, 13)            \
+  X(H_TH_MIN, 0) X(H_FIRST_FREE, 1) X(H_RA_FIND, 2) X(H_SACK, 3)        \
+  X(H_RTX, 4) X(H_QDISC, 5) X(H_HOLES, 6) X(H_SEARCH, 7) X(V_HEAP, 0)   \
+  X(V_RA, 1) X(V_RTX, 2) X(W_HOST, 0) X(W_CONN, 1) X(W_CONN_DEV, 2)     \
+  X(W_ROW, 3) X(W_N, 4)
 
 #if defined(STT_TCP_PROFILE) && defined(__CUDACC__)
 __device__ __forceinline__ int64_t pf_clock() { return clock64(); }
@@ -491,6 +499,72 @@ static_assert(sizeof(Ops) == operand_pointers(kOperands) * sizeof(void*),
 // Both tables go to the kernel as __grid_constant__ parameters.
 static_assert(sizeof(Ops) + sizeof(Params) <= 4096, "kernel parameters");
 
+// -------- the lane frame ----------------------------------------------
+//
+// The lane's host and conn words, staged in its tile's shared memory for
+// the window (see "the frame" at Lane).  Its words are groups of
+// consecutive operand pointers of Ops, one word each at the lane's row:
+//
+//   host, read-only   h_fault .. r2_unlimited           (row i)
+//   host, written     eflag .. ar[kPk - 1]              (row i; the three
+//                     matrix pointers' places unused), then the lane's
+//                     rows of drop_causes, mark_causes and app_sys
+//   conn, read-only   c_role .. c_cc                    (each conn row)
+//   conn, written     c_queued .. rtx_pos, op_len, op_pos
+//
+// up to kFrameConns of the lane's conn rows (its first in _conn_rows
+// order).  A word's place follows from its operand's index in Ops, so
+// the groups are checked to be consecutive there.
+#define STT_OPI(field) \
+  ((int)(offsetof(::stt::tcp::Ops, field) / sizeof(void*)))
+
+constexpr int kHR0 = STT_OPI(h_fault);
+constexpr int kHRn = STT_OPI(r2_unlimited) + 1 - kHR0;
+constexpr int kHW0 = STT_OPI(eflag), kHWn = STT_OPI(cq) - kHW0;
+constexpr int kCR0 = STT_OPI(c_role), kCRn = STT_OPI(c_cc) + 1 - kCR0;
+constexpr int kCW0 = STT_OPI(c_queued), kCWn = STT_OPI(rtx_pos) + 1 - kCW0;
+constexpr int kCO0 = STT_OPI(op_len), kCOn = 2;
+static_assert(kHRn == 9 && STT_OPI(ar) + kPk == STT_OPI(cq) &&
+                  kCRn == 14 && STT_OPI(c_queued) == STT_OPI(th_valid) + 1 &&
+                  STT_OPI(rtx_pos) + 1 == STT_OPI(rtx_seq) &&
+                  STT_OPI(op_pos) == kCO0 + 1,
+              "the frame's operand groups are consecutive in Ops");
+// The host words: the read-only group, the written group, the matrices.
+constexpr int kFhDrop = kHRn + kHWn;
+constexpr int kFhMark = kFhDrop + TEL_N;
+constexpr int kFhAsys = kFhMark + MARK_N;
+constexpr int kHostWords = kFhAsys + ASYS_N;
+constexpr int kConnWords = kCRn + kCWn + kCOn;
+// The conn rows a frame holds: a tgen server serves 7 (one per client).
+constexpr int kFrameConns = 8;
+constexpr int kFrameWords = kHostWords + kFrameConns * kConnWords;
+
+// A host word's place from its operand's index (a group's pointer).
+STT_HD constexpr int host_col(int opi) {
+  return opi < kHW0 ? opi - kHR0 : kHRn + opi - kHW0;
+}
+// A conn word's place in its row's slot, and the operand's index of
+// place j (the inverse).
+STT_HD constexpr int conn_col(int opi) {
+  return opi < kCW0   ? opi - kCR0
+         : opi < kCO0 ? kCRn + opi - kCW0
+                      : kCRn + kCWn + opi - kCO0;
+}
+STT_HD constexpr int conn_opi(int j) {
+  return j < kCRn          ? kCR0 + j
+         : j < kCRn + kCWn ? kCW0 + j - kCRn
+                           : kCO0 + j - kCRn - kCWn;
+}
+static_assert(conn_col(conn_opi(kConnWords - 1)) == kConnWords - 1 &&
+                  host_col(STT_OPI(ar) + kPk - 1) == kFhDrop - 1,
+              "frame places");
+
+struct Frame {
+  int64_t w[kFrameWords];  // host words, then kConnWords a conn slot
+  int64_t row[kFrameConns];  // the conn row in each slot
+  int64_t n;                 // slots in use
+};
+
 struct Pk {
   int64_t v[kPk];
 };
@@ -624,6 +698,7 @@ struct TeamScratch {
   int64_t ht[kTeamMax][kKeep], hs[kTeamMax][kKeep], hslot[kTeamMax][kKeep];
   int64_t hn[kTeamMax];
   int64_t bt[kTeamMax], bs[kTeamMax], bslot[kTeamMax];
+  Frame fr;  // the lane's frame
 };
 
 #ifdef __CUDACC__
@@ -753,6 +828,161 @@ STT_LAW int popcount8(uint64_t v) {
 #else
   return __builtin_popcountll(v & 0x0101010101010101ull);
 #endif
+}
+
+// ---- the lane's frame, by the tile ----
+
+// Operand pointer k of the table (Ops is an array of pointers).
+STT_LAW int64_t* op_ptr(const Ops& o, int k) {
+  int64_t* ptr;
+  memcpy(&ptr, reinterpret_cast<const char*>(&o) + k * sizeof(void*),
+         sizeof ptr);
+  return ptr;
+}
+
+// Each word of lane i's frame with its device word: f(k, the device
+// word of frame word k), a rank's share of them, host words a rank a
+// word and conn words a rank a column (the column's pointer read once
+// for every slot).  With `written`, only the words the window can
+// change (the poison build: every word, the read-only ones it
+// overwrote included).
+template <class F>
+STT_LAW void frame_for(const Team& t, const Ops& o, const Frame& fr,
+                       int64_t i, bool written, F f) {
+#ifdef STT_TCP_FRAME_POISON
+  written = false;
+#endif
+  team_for(t, kHostWords, [&](int64_t k) {
+    if (written && k < kHRn) return;
+    if (k < kFhDrop) {
+      const int opi = k < kHRn ? kHR0 + (int)k : kHW0 + (int)k - kHRn;
+      if (opi != STT_OPI(drop_causes) && opi != STT_OPI(mark_causes) &&
+          opi != STT_OPI(app_sys))
+        f(k, op_ptr(o, opi) + i);
+    } else if (k < kFhMark) {
+      f(k, o.drop_causes + i * TEL_N + (k - kFhDrop));
+    } else if (k < kFhAsys) {
+      f(k, o.mark_causes + i * MARK_N + (k - kFhMark));
+    } else {
+      f(k, o.app_sys + i * ASYS_N + (k - kFhAsys));
+    }
+  });
+  team_for(t, kConnWords, [&](int64_t j) {
+    if (written && j < kCRn) return;
+    int64_t* const col = op_ptr(o, conn_opi((int)j));
+    for (int64_t s = 0; s < fr.n; s++)
+      f(kHostWords + s * kConnWords + j, col + fr.row[s]);
+  });
+}
+
+// One word from device memory into shared memory: on the card an 8-byte
+// cp.async (LDGSTS: no trip through registers; the words are single
+// scattered cells, under TMA's 16-byte minimum), waited for by
+// frame_copy_wait.
+STT_LAW void frame_copy(int64_t* dst, const int64_t* src) {
+#ifdef __CUDACC__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+STT_LAW void frame_copy_wait() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+#ifdef STT_TCP_FRAME_POISON
+// What the poison build (tier-1's host build only) leaves in every
+// gathered device word for the lane's window.
+constexpr int64_t kPoison = 0x7EADBEEF0BADF00DLL;
+#endif
+
+// Lane i's frame gathered by the tile: its conn rows (the first
+// kFrameConns of _conn_rows[_conn_off[i]:]), then its words.
+STT_LAW void frame_gather(const Team& t, const Ops& o, int64_t i,
+                          Frame& fr) {
+  const int64_t k0 = o.conn_off[i];
+  const int64_t n = min64(o.conn_off[i + 1] - k0, kFrameConns);
+  team_for(t, n, [&](int64_t s) { fr.row[s] = o.conn_rows[k0 + s]; });
+  team_for(t, 1, [&](int64_t) { fr.n = n; });
+  team_sync(t);
+  frame_for(t, o, fr, i, false,
+            [&](int64_t k, const int64_t* dev) { frame_copy(&fr.w[k], dev); });
+  frame_copy_wait();
+#ifdef STT_TCP_FRAME_POISON
+  frame_for(t, o, fr, i, false,
+            [&](int64_t, int64_t* dev) { *dev = kPoison; });
+#endif
+}
+
+// A place for word k of a frame-sized staging: the tile's SACK staging,
+// free outside a SACK scan.
+static_assert(kFrameWords <= 2 * kSackPad, "the SACK staging holds a frame");
+STT_LAW int64_t& frame_stage(TeamScratch& sh, int64_t k) {
+  return k < kSackPad ? sh.key[k] : sh.val[k - kSackPad];
+}
+
+// Each frame word that changed, back to device memory by the tile: the
+// device words (still what the gather read: within a window no other
+// lane writes the lane's words) copied beside the frame first, all of a
+// rank's at once, then each changed word stored.
+STT_LAW void frame_writeback(const Team& t, const Ops& o, int64_t i,
+                             TeamScratch& sh) {
+  const Frame& fr = sh.fr;
+  frame_for(t, o, fr, i, true, [&](int64_t k, const int64_t* dev) {
+    frame_copy(&frame_stage(sh, k), dev);
+  });
+  frame_copy_wait();
+  frame_for(t, o, fr, i, true, [&](int64_t k, int64_t* dev) {
+    if (frame_stage(sh, k) != fr.w[k]) *dev = fr.w[k];
+  });
+}
+
+// The frame slot of conn row c, or -1 (a row past the frame's cap, or
+// not the lane's: the trash row, the clamped read of a lane with no
+// conn).
+STT_LAW int frame_slot(const Frame& fr, int64_t c) {
+  for (int s = 0; s < fr.n; s++)
+    if (fr.row[s] == c) return s;
+  return -1;
+}
+
+// Conn word `field` of row c as the tile's scans read it: the frame's
+// copy where it holds the row, else device memory.
+#define STT_SCAN_CW(fr, field, c) \
+  ::stt::tcp::frame_cw(fr, conn_col(STT_OPI(field)), o.field, c)
+STT_LAW int64_t frame_cw(const Frame& fr, int j, const int64_t* col,
+                         int64_t c) {
+  const int s = frame_slot(fr, c);
+  return s >= 0 ? fr.w[kHostWords + s * kConnWords + j] : col[c];
+}
+
+// A conn row as the law holds it: the row, and its words in the frame
+// (null: device memory), found once where the law picks the row.  It
+// reads as the row's index where an index is wanted.
+struct Conn {
+  int64_t row;
+  int64_t* f;
+  STT_LAW operator int64_t() const { return row; }
+};
+
+// Conn row c's words in the frame, or null.  Not inlined on the card:
+// the law looks rows up at a few places only (where it picks a row),
+// and a search inlined at every conn word it reads ran a 10,000-host
+// window ~45% slower (PERF.md).
+#ifdef __CUDACC__
+__device__ __noinline__
+#else
+inline
+#endif
+int64_t* frame_words(Frame& fr, int64_t c) {
+  const int s = frame_slot(fr, c);
+  return s >= 0 ? fr.w + kHostWords + s * kConnWords : nullptr;
 }
 
 // ---- the scans' partials and joins ----
@@ -996,6 +1226,8 @@ enum ScanOp : int64_t {
   SCAN_SACK_MARK,  // a: conn, b: its written row -> entries newly marked
   SCAN_RENEGE,     // a: written row: every SACK mark cleared
   SCAN_QDISC,      // the qdisc pick over the lane's conns -> (best, sel)
+  SCAN_GATHER,     // the lane's frame filled from device memory
+  SCAN_WRITEBACK,  // the frame's changed words back to device memory
 };
 
 struct Req {
@@ -1012,6 +1244,7 @@ STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
                   const Req& rq, TeamScratch& sh) {
   Res res = {{0, 0, 0, 0, 0, 0, 0, 0}};
   const int64_t c = rq.a;
+  Frame& fr = sh.fr;
   switch (rq.op) {
     case SCAN_TH_MIN: {
       // Each rank keeps its slice's least entries (TeamScratch ht/hs/
@@ -1087,18 +1320,19 @@ STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
       res.v[7] = sack_sorted(t, sh, o.ra_seq + c * p.cap_ra,
                              o.ra_plen + c * p.cap_ra,
                              o.ra_valid + c * p.cap_ra, p.cap_ra,
-                             o.c_rcvnxt[c], res.v);
+                             STT_SCAN_CW(fr, c_rcvnxt, c), res.v);
       break;
     case SCAN_ACKED:
     case SCAN_UNSACKED:
     case SCAN_SACK_MARK: {
-      const int64_t pos = o.rtx_pos[c], len = o.rtx_len[c] - pos;
+      const int64_t pos = STT_SCAN_CW(fr, rtx_pos, c);
+      const int64_t len = STT_SCAN_CW(fr, rtx_len, c) - pos;
       const int64_t n = len < p.cap_rt ? len : p.cap_rt;
       const int64_t* const seq = o.rtx_seq + c * p.cap_rt;
       const int64_t* const plen = o.rtx_plen + c * p.cap_rt;
       const int64_t* const sacked = o.rtx_sacked + c * p.cap_rt;
       if (rq.op == SCAN_ACKED) {
-        const int64_t una = o.c_snduna[c];
+        const int64_t una = STT_SCAN_CW(fr, c_snduna, c);
         const int64_t first = team_first(t, n, [&](int64_t k) -> int64_t {
           const int64_t s = (pos + k) % p.cap_rt;
           return s_leq(s_add(seq[s], plen[s]), una) ? -1 : k;
@@ -1113,7 +1347,8 @@ STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
         // The SACK blocks the packet in C_TCPIN carries.
         int64_t blk[7];
         STT_UNROLL
-        for (int k = 0; k < 7; k++) blk[k] = o.ar[PK_NSK + k][i];
+        for (int k = 0; k < 7; k++)
+          blk[k] = fr.w[host_col(STT_OPI(ar)) + PK_NSK + k];
         int64_t* const out = o.rtx_sacked + rq.b * p.cap_rt;
         res.v[0] = team_reduce<int64_t>(
             t,
@@ -1149,9 +1384,19 @@ STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
           [&](int r, int size) {
             Pick m = {I64_MAX, -1};
             for (int64_t k = k0 + r; k < k1; k += size) {
-              const int64_t cc = o.conn_rows[k];
-              const int64_t pos = o.op_pos[cc];
-              if (o.c_queued[cc] != 1 || o.op_len[cc] <= pos) continue;
+              // The first kFrameConns rows from the frame, the rest
+              // from device memory.
+              const int64_t s = k - k0;
+              const int64_t* const w =
+                  s < fr.n ? fr.w + kHostWords + s * kConnWords : nullptr;
+              const int64_t cc = w ? fr.row[s] : o.conn_rows[k];
+              const int64_t pos =
+                  w ? w[conn_col(STT_OPI(op_pos))] : o.op_pos[cc];
+              const int64_t queued =
+                  w ? w[conn_col(STT_OPI(c_queued))] : o.c_queued[cc];
+              const int64_t len =
+                  w ? w[conn_col(STT_OPI(op_len))] : o.op_len[cc];
+              if (queued != 1 || len <= pos) continue;
               m = pick_join(m, {o.op[PK_PSEQ][cc * p.cap_op + pos % p.cap_op],
                                 cc});
             }
@@ -1162,6 +1407,12 @@ STT_LAW Res serve(const Team& t, const Ops& o, const Params& p, int64_t i,
       res.v[1] = pick.sel;
       break;
     }
+    case SCAN_GATHER:
+      frame_gather(t, o, i, fr);
+      break;
+    case SCAN_WRITEBACK:
+      frame_writeback(t, o, i, sh);
+      break;
     default:
       break;
   }
@@ -1214,8 +1465,29 @@ __device__ __noinline__ Res team_serve(const Team& t, const Ops& o,
 #endif
 
 // One host lane: `o` and `p` are the window's tables, `i` the lane.  The
-// hot words live in members for the window; every other column is read
-// and written in memory at the lane's own rows.
+// hot words live in members for the window, the host and conn words in
+// the lane's frame, and the rows (the timer heap, the CoDel ring, the
+// inbox, the rtx, reassembly and egress rings) in device memory.
+//
+// The frame.  The law is one thread's chain of dependent steps: a
+// micro-iteration of a tgen server reads a conn word, branches on it,
+// reads the next.  The tile gathers the lane's host words and the conn
+// words of its first kFrameConns conn rows into the frame in its shared
+// memory (SCAN_GATHER: a rank a word, cp.async), the law reads and
+// writes them there through STT_H / STT_C (a conn row's frame words
+// found once where the law picks the row: `Conn`), and the tile writes
+// each changed word back when the lane's window ends (SCAN_WRITEBACK,
+// on every way out of run()).  Conn rows past the cap, the trash row
+// and rows of no slot stay in device memory behind the same accessor:
+// every lane runs in the same kernel, exactly.  By lane independence
+// (above) no other lane reads or writes these words within a window, so
+// the gathered copy stays the only live one until the write-back, which
+// ends before the tile compacts the lane's row.  What it buys is
+// measured (PERF.md): a lane reads the same few hundred words again and
+// again, so in device memory they were mostly L1 hits already; the
+// frame takes two thirds of the law's device accesses away, speeds the
+// 16-host spans by a few per cent and leaves a 10,000-host window where
+// it was, set by the law's instruction chain and its row scans.
 struct Lane {
   const Ops& o;
   const Params& p;
@@ -1223,10 +1495,12 @@ struct Lane {
   LaneStats& s;
   const Team& t_;    // the tile stepping the lane (the law runs on rank 0)
   TeamScratch& sh_;  // its scratch
+  Frame& fr_;        // the lane's frame, in the scratch
   const int64_t window_end;
   const RelayParams rp;  // the relay cores' constants
   int64_t now, cont, then, ret, cur, event_seq, packet_seq;
   int64_t ib_len, ib_pos, cq_pos, cq_len;
+  int64_t* cur_f_;  // cur's words in the frame (null: not there)
   // The timer heap's minimum (time, seq, slot), valid while th_ok; and
   // the count of 8-slot words of the row that may hold a valid entry
   // (-1 until the first scan).
@@ -1243,6 +1517,14 @@ struct Lane {
   int q_, at_;
 #ifdef STT_TCP_PROFILE
   int64_t* prof_ = nullptr;  // the lane's profile words (profiling build)
+  // The law's word accesses by class (W_*), two counts of 32 bits a
+  // word (so that counting costs the law an add, not a trip), flushed
+  // into prof_ at the window's end.
+  mutable uint64_t pfw_[W_N / 2] = {};
+#define STT_PF_WORDS(w, n) \
+  (pfw_[(w) >> 1] += (uint64_t)(n) << (32 * ((w) & 1)))
+#else
+#define STT_PF_WORDS(w, n) ((void)0)
 #endif
 
   STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
@@ -1253,7 +1535,7 @@ struct Lane {
   // span kernel's rounds each end elsewhere, the table stays constant).
   STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
                const Team& t, TeamScratch& sh, int64_t window_end_)
-      : o(o_), p(p_), i(i_), s(s_), t_(t), sh_(sh),
+      : o(o_), p(p_), i(i_), s(s_), t_(t), sh_(sh), fr_(sh.fr),
         window_end(window_end_),
         rp{p_.n, 0, p_.conns, TEL_N, p_.refill_ns, p_.target_ns, p_.mtu,
            p_.interval_ns, TCP_TOTAL_HDR} {
@@ -1268,6 +1550,7 @@ struct Lane {
     ib_pos = o.ib_pos[i];
     cq_pos = o.cq_pos[i];
     cq_len = o.cq_len[i];
+    cur_f_ = nullptr;  // set once the frame is gathered
     th_ok = false;
     th_words = -1;
     th_t = th_s = th_slot = 0;
@@ -1287,6 +1570,37 @@ struct Lane {
     STT_PUT(o.cq_pos, cq_pos) STT_PUT(o.cq_len, cq_len)
 #undef STT_PUT
   }
+
+  // -------- the frame's words -------------------------------------
+
+  // Host word j of the lane (its place in the frame).
+  STT_LAW int64_t& hw_(int j) const {
+    STT_PF_WORDS(W_HOST, 1);
+    return fr_.w[j];
+  }
+
+  // Conn row c as a handle (its frame words looked up).
+  STT_LAW Conn conn_at(int64_t c) const { return {c, frame_words(fr_, c)}; }
+
+  // Conn word j (its place; `col` its column) of the row: the frame's
+  // copy, or device memory for a row the frame does not hold.
+  STT_LAW int64_t& cw_(int j, int64_t* col, const Conn& c) const {
+    STT_PF_WORDS(W_CONN, 1);
+    STT_PF_WORDS(W_CONN_DEV, !c.f);
+    return *(c.f ? c.f + j : col + c.row);
+  }
+  STT_LAW int64_t cw_(int j, const int64_t* col, const Conn& c) const {
+    STT_PF_WORDS(W_CONN, 1);
+    STT_PF_WORDS(W_CONN_DEV, !c.f);
+    return *(c.f ? c.f + j : col + c.row);
+  }
+
+#define STT_H(field) hw_(host_col(STT_OPI(field)))
+#define STT_HP(field, k) hw_(host_col(STT_OPI(field)) + (int)(k))
+#define STT_H_DROP(tel) hw_(kFhDrop + (int)(tel))
+#define STT_H_MARK(m) hw_(kFhMark + (int)(m))
+#define STT_H_ASYS(a) hw_(kFhAsys + (int)(a))
+#define STT_C(field, c) cw_(conn_col(STT_OPI(field)), o.field, (c))
 
   // -------- counters and aborts ----------------------------------
 
@@ -1327,39 +1641,49 @@ struct Lane {
 
   // The lane's conn: read at `cur` clamped into [0, CC) (the eager
   // gathers clamp), written at `cur` (the trash row CC for cur < 0).
-  STT_LAW int64_t crd() const { return clamp64(cur, 0, p.conns - 1); }
-  STT_LAW int64_t cwr() const { return cur >= 0 ? cur : p.conns; }
-
-  STT_LAW bool rtx_nonempty(int64_t c) const {
-    return o.rtx_len[c] > o.rtx_pos[c];
+  STT_LAW Conn crd() const {
+    return cur >= 0 && cur < p.conns ? Conn{cur, cur_f_}
+                                     : conn_at(clamp64(cur, 0, p.conns - 1));
+  }
+  STT_LAW Conn cwr() const {
+    return cur >= 0 ? Conn{cur, cur_f_} : Conn{p.conns, nullptr};
+  }
+  STT_LAW void set_cur(const Conn& c) {
+    cur = c.row;
+    cur_f_ = c.f;
   }
 
-  STT_LAW int64_t recv_window(int64_t c) const {
-    const int64_t cap = shl(MAX_WINDOW, o.c_ourws[c]);
-    const int64_t space = max64(o.c_rbmax[c] - o.c_rblen[c], 0);
+  STT_LAW bool rtx_nonempty(const Conn& c) const {
+    return STT_C(rtx_len, c) > STT_C(rtx_pos, c);
+  }
+
+  STT_LAW int64_t recv_window(const Conn& c) const {
+    const int64_t cap = shl(MAX_WINDOW, STT_C(c_ourws, c));
+    const int64_t space = max64(STT_C(c_rbmax, c) - STT_C(c_rblen, c), 0);
     return min64(cap, space);
   }
 
-  STT_LAW int64_t wire_window(int64_t c) const {
+  STT_LAW int64_t wire_window(const Conn& c) const {
     // non-SYN segments only in-domain: always scaled
-    return min64(shr(recv_window(c), o.c_ourws[c]), MAX_WINDOW);
+    return min64(shr(recv_window(c), STT_C(c_ourws, c)), MAX_WINDOW);
   }
 
-  STT_LAW int64_t next_deadline(int64_t c) const {
+  STT_LAW int64_t next_deadline(const Conn& c) const {
     int64_t nxt = I64_MAX;
-    const int64_t d[3] = {o.c_rtodl[c], o.c_delackdl[c], o.c_persistdl[c]};
+    const int64_t d[3] = {STT_C(c_rtodl, c), STT_C(c_delackdl, c),
+                          STT_C(c_persistdl, c)};
     for (int k = 0; k < 3; k++)
       if (d[k] >= 0 && d[k] < nxt) nxt = d[k];
     return nxt;
   }
 
   STT_LAW void fct_touch(int64_t nbytes, bool inbound) {
-    const int64_t c = crd(), w = cwr();
-    const int64_t fb = o.c_fbyte[c];
-    const int64_t b = (inbound ? o.c_bin : o.c_bout)[c] + nbytes;
-    o.c_fbyte[w] = fb < 0 ? now : fb;
-    o.c_lbyte[w] = now;
-    (inbound ? o.c_bin : o.c_bout)[w] = b;
+    const Conn c = crd(), w = cwr();
+    const int64_t fb = STT_C(c_fbyte, c);
+    const int64_t b = (inbound ? STT_C(c_bin, c) : STT_C(c_bout, c)) + nbytes;
+    STT_C(c_fbyte, w) = fb < 0 ? now : fb;
+    STT_C(c_lbyte, w) = now;
+    (inbound ? STT_C(c_bin, w) : STT_C(c_bout, w)) = b;
   }
 
   // -------- primitive helpers -------------------------------------
@@ -1387,6 +1711,7 @@ struct Lane {
     int64_t k = -1;
     if (w0 < scanned) {
       k = byte_in_word(load8(o.th_valid + row + 8 * w0), w0, false);
+      STT_PF_WORDS(W_ROW, 1);
       if (k < 0 && w0 + 1 < scanned)
         k = scan(SCAN_TH_FREE, scanned, w0 + 1).v[0];
     }
@@ -1396,6 +1721,7 @@ struct Lane {
       abort_(AB_STRUCT, 1);
       return;
     }
+    STT_PF_WORDS(W_ROW, 5);
     o.th_time[row + k] = t;
     o.th_seq[row + k] = seq;
     o.th_kind[row + k] = kind;
@@ -1493,7 +1819,7 @@ struct Lane {
     if (k + 1 > p.cap_tr - p.n) abort_(AB_TRACE, 0);
   }
 
-  STT_LAW void drop_cause(int tel) { o.drop_causes[i * TEL_N + tel] += 1; }
+  STT_LAW void drop_cause(int tel) { STT_H_DROP(tel) += 1; }
 
   // -------- TCP helpers (connection.py twins) ---------------------
 
@@ -1522,57 +1848,59 @@ struct Lane {
   // ECE, and fresh data consumes a pending one-shot CWR.
   STT_LAW void emit(int64_t tseq, int64_t plen, int64_t flags,
                     bool with_sacks, bool track, bool fresh) {
-    const int64_t c = crd(), w = cwr();
+    const Conn c = crd(), w = cwr();
     const int64_t win = wire_window(c);
     int64_t sk[7] = {0, 0, 0, 0, 0, 0, 0};
     if (with_sacks) sack_blocks(c, sk);
-    const int64_t tse = o.c_tsrecent[c];
-    o.c_tsrecent[w] = 0;
-    int64_t fl = flags | (o.c_ece[c] == 1 ? F_ECE : 0);
-    if (fresh && plen > 0 && o.c_cwrp[c] == 1 && o.c_ecnact[c] == 1) {
+    const int64_t tse = STT_C(c_tsrecent, c);
+    STT_C(c_tsrecent, w) = 0;
+    int64_t fl = flags | (STT_C(c_ece, c) == 1 ? F_ECE : 0);
+    if (fresh && plen > 0 && STT_C(c_cwrp, c) == 1 && STT_C(c_ecnact, c) == 1) {
       fl |= F_CWR;
-      o.c_cwrp[w] = 0;
+      STT_C(c_cwrp, w) = 0;
     }
-    const int64_t ecn = (o.c_ecnact[c] == 1 && plen > 0) ? ECN_ECT0 : 0;
+    const int64_t ecn = (STT_C(c_ecnact, c) == 1 && plen > 0) ? ECN_ECT0 : 0;
     const int64_t pseq = packet_seq++;
-    const int64_t len = o.op_len[c];
-    if (len - o.op_pos[c] >= p.cap_op - 1) abort_(AB_STRUCT, 2);
+    const int64_t len = STT_C(op_len, c);
+    if (len - STT_C(op_pos, c) >= p.cap_op - 1) abort_(AB_STRUCT, 2);
     const int64_t slot = w * p.cap_op + len % p.cap_op;
     const int64_t vals[kPk] = {
-        i,      pseq,   o.c_lip[c], o.c_lport[c], o.c_pip[c],
-        o.c_pport[c], tseq, o.c_rcvnxt[c], fl, win,
+        i,      pseq,   STT_C(c_lip, c), STT_C(c_lport, c), STT_C(c_pip, c),
+        STT_C(c_pport, c), tseq, STT_C(c_rcvnxt, c), fl, win,
         now + 1, tse,   plen,   sk[0],  sk[1],
         sk[2],  sk[3],  sk[4],  sk[5],  sk[6],
         ecn};
     for (int k = 0; k < kPk; k++) o.op[k][slot] = vals[k];
-    o.op_len[w] += 1;
-    o.c_segssent[w] += 1;
+    STT_PF_WORDS(W_ROW, kPk);
+    STT_C(op_len, w) += 1;
+    STT_C(c_segssent, w) += 1;
     // note_ack_sent: segs_since_ack=0, delack cleared
-    o.c_ssa[w] = 0;
-    o.c_delackdl[w] = -1;
-    o.eflag[i] = 1;
+    STT_C(c_ssa, w) = 0;
+    STT_C(c_delackdl, w) = -1;
+    STT_H(eflag) = 1;
     if (track) {
-      const int64_t rlen = o.rtx_len[c];
-      if (rlen - o.rtx_pos[c] >= p.cap_rt - 1) abort_(AB_STRUCT, 3);
+      const int64_t rlen = STT_C(rtx_len, c);
+      if (rlen - STT_C(rtx_pos, c) >= p.cap_rt - 1) abort_(AB_STRUCT, 3);
       const int64_t r = w * p.cap_rt + rlen % p.cap_rt;
+      STT_PF_WORDS(W_ROW, 5);
       o.rtx_seq[r] = tseq;
       o.rtx_plen[r] = plen;
       o.rtx_rtxed[r] = 0;
       o.rtx_sacked[r] = 0;
       o.rtx_sent[r] = now;
-      o.rtx_len[w] += 1;
-      if (o.c_rtodl[c] < 0) o.c_rtodl[w] = now + o.c_rto[c];
+      STT_C(rtx_len, w) += 1;
+      if (STT_C(c_rtodl, c) < 0) STT_C(c_rtodl, w) = now + STT_C(c_rto, c);
     }
   }
 
   STT_LAW void emit_ack() {
-    emit(o.c_sndnxt[crd()], 0, F_ACK, true, false, false);
+    emit(STT_C(c_sndnxt, crd()), 0, F_ACK, true, false, false);
   }
 
   STT_LAW void update_rtt(int64_t sample) {
-    const int64_t c = crd(), w = cwr();
+    const Conn c = crd(), w = cwr();
     sample = max64(sample, 1);
-    const int64_t srtt = o.c_srtt[c], rttvar = o.c_rttvar[c];
+    const int64_t srtt = STT_C(c_srtt, c), rttvar = STT_C(c_rttvar, c);
     const bool first = srtt == 0;
     const int64_t n_srtt =
         first ? sample : floor_div_pos(7 * srtt + sample, 8);
@@ -1581,26 +1909,26 @@ struct Lane {
         first ? floor_div_pos(sample, 2) : floor_div_pos(3 * rttvar + err, 4);
     const int64_t rto =
         clamp64(n_srtt + max64(4 * n_var, 1000000), MIN_RTO_NS, MAX_RTO_NS);
-    o.c_srtt[w] = n_srtt;
-    o.c_rttvar[w] = n_var;
-    o.c_rto[w] = rto;
+    STT_C(c_srtt, w) = n_srtt;
+    STT_C(c_rttvar, w) = n_var;
+    STT_C(c_rto, w) = rto;
   }
 
   // Pop the leading fully-acked rtx entries (a ring-order run).
   STT_LAW void clear_acked() {
-    const int64_t c = crd(), w = cwr();
+    const Conn c = crd(), w = cwr();
     STT_PF_BEGIN(ca);
     const Res r = scan(SCAN_ACKED, c);
     STT_PF_HELPER(ca, H_RTX);
     STT_PF_VISIT(V_RTX, r.v[1]);
-    o.rtx_pos[w] = o.rtx_pos[c] + r.v[0];
+    STT_C(rtx_pos, w) = STT_C(rtx_pos, c) + r.v[0];
   }
 
   // The first non-SACKed rtx entry (head fallback), re-stamped and
   // re-emitted with the current scoreboard attached.
   STT_LAW void retransmit_one() {
-    const int64_t c = crd(), w = cwr();
-    const int64_t pos = o.rtx_pos[c], n = o.rtx_len[c] - pos;
+    const Conn c = crd(), w = cwr();
+    const int64_t pos = STT_C(rtx_pos, c), n = STT_C(rtx_len, c) - pos;
     if (n <= 0) return;  // nothing valid: nothing re-sent
     STT_PF_BEGIN(ro);
     const int64_t k = scan(SCAN_UNSACKED, c).v[0];
@@ -1611,34 +1939,34 @@ struct Lane {
     const int64_t plen = o.rtx_plen[c * p.cap_rt + slot];
     o.rtx_sent[w * p.cap_rt + slot] = now;
     o.rtx_rtxed[w * p.cap_rt + slot] = 1;
-    o.c_rtxcount[w] += 1;
+    STT_PF_WORDS(W_ROW, 4);
+    STT_C(c_rtxcount, w) += 1;
     emit(seq, plen, F_ACK | F_PSH, true, false, false);
   }
 
   // -------- relays ------------------------------------------------
 
   STT_LAW Relay1Words r1_words() const {
-    return {o.r1_pk_valid[i], o.r1_bal[i],       o.r1_next[i],
-            o.r1_stalls[i],   o.r1_pending[i],   o.r1_fwd_pkts[i],
-            o.r1_fwd_bytes[i], o.pkts_sent[i],   o.pkts_dropped[i],
-            o.eth_psent[i],   o.eth_bsent[i],
-            o.drop_causes[i * TEL_N + TEL_LINK_DOWN]};
+    return {STT_H(r1_pk_valid), STT_H(r1_bal),       STT_H(r1_next),
+            STT_H(r1_stalls),   STT_H(r1_pending),   STT_H(r1_fwd_pkts),
+            STT_H(r1_fwd_bytes), STT_H(pkts_sent),   STT_H(pkts_dropped),
+            STT_H(eth_psent),   STT_H(eth_bsent),
+            STT_H_DROP(TEL_LINK_DOWN)};
   }
 
-  STT_LAW void r1_store(const Relay1Words& a, const Relay1Words& b) const {
-    STT_PUT_CHANGED(o.r1_pk_valid, i, a.pk_valid, b.pk_valid)
-    STT_PUT_CHANGED(o.r1_bal, i, a.bal, b.bal)
-    STT_PUT_CHANGED(o.r1_next, i, a.nxt, b.nxt)
-    STT_PUT_CHANGED(o.r1_stalls, i, a.stalls, b.stalls)
-    STT_PUT_CHANGED(o.r1_pending, i, a.pending, b.pending)
-    STT_PUT_CHANGED(o.r1_fwd_pkts, i, a.fwd_pkts, b.fwd_pkts)
-    STT_PUT_CHANGED(o.r1_fwd_bytes, i, a.fwd_bytes, b.fwd_bytes)
-    STT_PUT_CHANGED(o.pkts_sent, i, a.pkts_sent, b.pkts_sent)
-    STT_PUT_CHANGED(o.pkts_dropped, i, a.pkts_dropped, b.pkts_dropped)
-    STT_PUT_CHANGED(o.eth_psent, i, a.eth_psent, b.eth_psent)
-    STT_PUT_CHANGED(o.eth_bsent, i, a.eth_bsent, b.eth_bsent)
-    STT_PUT_CHANGED(o.drop_causes, i * TEL_N + TEL_LINK_DOWN, a.drop_cause,
-                    b.drop_cause)
+  STT_LAW void r1_store(const Relay1Words& b) const {
+    STT_H(r1_pk_valid) = b.pk_valid;
+    STT_H(r1_bal) = b.bal;
+    STT_H(r1_next) = b.nxt;
+    STT_H(r1_stalls) = b.stalls;
+    STT_H(r1_pending) = b.pending;
+    STT_H(r1_fwd_pkts) = b.fwd_pkts;
+    STT_H(r1_fwd_bytes) = b.fwd_bytes;
+    STT_H(pkts_sent) = b.pkts_sent;
+    STT_H(pkts_dropped) = b.pkts_dropped;
+    STT_H(eth_psent) = b.eth_psent;
+    STT_H(eth_bsent) = b.eth_bsent;
+    STT_H_DROP(TEL_LINK_DOWN) = b.drop_cause;
   }
 
   // inet-out drain: iface_pop over the host's queued conns (min head
@@ -1646,34 +1974,35 @@ struct Lane {
   // row, as the eager scatter's amax), SND trace, token bucket,
   // cross-host outbox.
   STT_LAW void op_relay1() {
-    const bool use_pend = o.r1_pk_valid[i] == 1;
+    const bool use_pend = STT_H(r1_pk_valid) == 1;
     STT_PF_BEGIN(qd);
     const Res pick = scan(SCAN_QDISC);
     const int64_t best = pick.v[0], sel = pick.v[1];
     STT_PF_HELPER(qd, H_QDISC);
     const bool pop = !use_pend && best < I64_MAX;
-    const int64_t sel_safe = clamp64(sel, 0, p.conns - 1);
+    // The picked conn, read and written only when one is popped (then
+    // sel is a row of the lane).
+    const Conn sc = pop ? conn_at(sel) : Conn{sel, nullptr};
     Pk pk;
     if (use_pend) {
-      for (int c = 0; c < kPk; c++) pk.v[c] = o.r1_pk[c][i];
+      for (int c = 0; c < kPk; c++) pk.v[c] = STT_HP(r1_pk, c);
     } else if (pop) {
-      const int64_t slot = sel_safe * p.cap_op + o.op_pos[sel_safe] % p.cap_op;
+      const int64_t slot = sc * p.cap_op + STT_C(op_pos, sc) % p.cap_op;
       for (int c = 0; c < kPk; c++) pk.v[c] = o.op[c][slot];
+      STT_PF_WORDS(W_ROW, kPk);
     }
-    const Relay1Words w0 = r1_words();
-    Relay1Words w = w0;
+    Relay1Words w = r1_words();
     const RelayOut r =
-        relay1_core(w, use_pend, pop, pk.v, now, o.h_fault[i],
-                    o.r1_refill[i], o.r1_cap[i], o.r1_unlimited[i] == 1,
+        relay1_core(w, use_pend, pop, pk.v, now, STT_H(h_fault),
+                    STT_H(r1_refill), STT_H(r1_cap), STT_H(r1_unlimited) == 1,
                     p.refill_ns, TCP_TOTAL_HDR);
     s.calls[CALL_BUCKET] += r.bucket_call;
-    r1_store(w0, w);
+    r1_store(w);
     if (r.stash)
-      for (int c = 0; c < kPk; c++) o.r1_pk[c][i] = pk.v[c];
+      for (int c = 0; c < kPk; c++) STT_HP(r1_pk, c) = pk.v[c];
     if (pop) {  // iface_pop: dequeue + requeue-if-more + SND trace
-      const int64_t wr = sel;
-      o.op_pos[wr] += 1;
-      o.c_queued[wr] = o.op_len[sel_safe] > o.op_pos[sel_safe] ? 1 : 0;
+      STT_C(op_pos, sc) += 1;
+      STT_C(c_queued, sc) = STT_C(op_len, sc) > STT_C(op_pos, sc) ? 1 : 0;
       trace(now, TR_SND, pk, 0);
     }
     if (r.throttled) {
@@ -1699,75 +2028,74 @@ struct Lane {
   }
 
   STT_LAW Relay2Words r2_words() const {
-    return {o.r2_pk_valid[i],
+    return {STT_H(r2_pk_valid),
             cq_pos,
-            o.codel_bytes[i],
-            {o.first_above[i], o.dropping[i], o.chain[i], o.sniff[i],
-             o.count[i], o.last_count[i], o.drop_next[i]},
-            o.cd_dropped[i],
-            o.cd_drop_bytes[i],
-            o.pkts_dropped[i],
-            o.drop_causes[i * TEL_N + TEL_CODEL],
-            o.r2_bal[i],
-            o.r2_next[i],
-            o.r2_stalls[i],
-            o.r2_pending[i],
-            o.r2_fwd_pkts[i],
-            o.r2_fwd_bytes[i],
-            o.eth_precv[i],
-            o.eth_brecv[i]};
+            STT_H(codel_bytes),
+            {STT_H(first_above), STT_H(dropping), STT_H(chain), STT_H(sniff),
+             STT_H(count), STT_H(last_count), STT_H(drop_next)},
+            STT_H(cd_dropped),
+            STT_H(cd_drop_bytes),
+            STT_H(pkts_dropped),
+            STT_H_DROP(TEL_CODEL),
+            STT_H(r2_bal),
+            STT_H(r2_next),
+            STT_H(r2_stalls),
+            STT_H(r2_pending),
+            STT_H(r2_fwd_pkts),
+            STT_H(r2_fwd_bytes),
+            STT_H(eth_precv),
+            STT_H(eth_brecv)};
   }
 
-  STT_LAW void r2_store(const Relay2Words& a, const Relay2Words& b) {
+  STT_LAW void r2_store(const Relay2Words& b) {
     cq_pos = b.cq_pos;
-    STT_PUT_CHANGED(o.r2_pk_valid, i, a.pk_valid, b.pk_valid)
-    STT_PUT_CHANGED(o.codel_bytes, i, a.codel_bytes, b.codel_bytes)
-    STT_PUT_CHANGED(o.first_above, i, a.cw.first_above, b.cw.first_above)
-    STT_PUT_CHANGED(o.dropping, i, a.cw.dropping, b.cw.dropping)
-    STT_PUT_CHANGED(o.chain, i, a.cw.chain, b.cw.chain)
-    STT_PUT_CHANGED(o.sniff, i, a.cw.sniff, b.cw.sniff)
-    STT_PUT_CHANGED(o.count, i, a.cw.count, b.cw.count)
-    STT_PUT_CHANGED(o.last_count, i, a.cw.last_count, b.cw.last_count)
-    STT_PUT_CHANGED(o.drop_next, i, a.cw.drop_next, b.cw.drop_next)
-    STT_PUT_CHANGED(o.cd_dropped, i, a.dropped, b.dropped)
-    STT_PUT_CHANGED(o.cd_drop_bytes, i, a.drop_bytes, b.drop_bytes)
-    STT_PUT_CHANGED(o.pkts_dropped, i, a.pkts_dropped, b.pkts_dropped)
-    STT_PUT_CHANGED(o.drop_causes, i * TEL_N + TEL_CODEL, a.drop_cause,
-                    b.drop_cause)
-    STT_PUT_CHANGED(o.r2_bal, i, a.bal, b.bal)
-    STT_PUT_CHANGED(o.r2_next, i, a.nxt, b.nxt)
-    STT_PUT_CHANGED(o.r2_stalls, i, a.stalls, b.stalls)
-    STT_PUT_CHANGED(o.r2_pending, i, a.pending, b.pending)
-    STT_PUT_CHANGED(o.r2_fwd_pkts, i, a.fwd_pkts, b.fwd_pkts)
-    STT_PUT_CHANGED(o.r2_fwd_bytes, i, a.fwd_bytes, b.fwd_bytes)
-    STT_PUT_CHANGED(o.eth_precv, i, a.eth_precv, b.eth_precv)
-    STT_PUT_CHANGED(o.eth_brecv, i, a.eth_brecv, b.eth_brecv)
+    STT_H(r2_pk_valid) = b.pk_valid;
+    STT_H(codel_bytes) = b.codel_bytes;
+    STT_H(first_above) = b.cw.first_above;
+    STT_H(dropping) = b.cw.dropping;
+    STT_H(chain) = b.cw.chain;
+    STT_H(sniff) = b.cw.sniff;
+    STT_H(count) = b.cw.count;
+    STT_H(last_count) = b.cw.last_count;
+    STT_H(drop_next) = b.cw.drop_next;
+    STT_H(cd_dropped) = b.dropped;
+    STT_H(cd_drop_bytes) = b.drop_bytes;
+    STT_H(pkts_dropped) = b.pkts_dropped;
+    STT_H_DROP(TEL_CODEL) = b.drop_cause;
+    STT_H(r2_bal) = b.bal;
+    STT_H(r2_next) = b.nxt;
+    STT_H(r2_stalls) = b.stalls;
+    STT_H(r2_pending) = b.pending;
+    STT_H(r2_fwd_pkts) = b.fwd_pkts;
+    STT_H(r2_fwd_bytes) = b.fwd_bytes;
+    STT_H(eth_precv) = b.eth_precv;
+    STT_H(eth_brecv) = b.eth_brecv;
   }
 
   // inet-in drain: CoDel pop -> token bucket -> iface_receive -> conn
   // match -> hand to C_TCPIN.
   STT_LAW void op_relay2() {
-    const bool use_pend = o.r2_pk_valid[i] == 1;
+    const bool use_pend = STT_H(r2_pk_valid) == 1;
     const bool pop = !use_pend && cq_len > cq_pos;
     Pk pk;
     int64_t enq = 0;
     if (use_pend) {
-      for (int c = 0; c < kPk; c++) pk.v[c] = o.r2_pk[c][i];
+      for (int c = 0; c < kPk; c++) pk.v[c] = STT_HP(r2_pk, c);
     } else if (pop) {
       const int64_t slot = i * p.cap_cq + cq_pos % p.cap_cq;
       for (int c = 0; c < kPk; c++) pk.v[c] = o.cq[c][slot];
       enq = o.cq_enq[slot];
+      STT_PF_WORDS(W_ROW, kPk + 1);
     }
-    const Relay2Words w0 = r2_words();
-    Relay2Words w = w0;
+    Relay2Words w = r2_words();
     const RelayOut r =
-        relay2_core(w, use_pend, pop, pk.v, enq, now, o.r2_refill[i],
-                    o.r2_cap[i], o.r2_unlimited[i] == 1, rp);
+        relay2_core(w, use_pend, pop, pk.v, enq, now, STT_H(r2_refill),
+                    STT_H(r2_cap), STT_H(r2_unlimited) == 1, rp);
     s.calls[CALL_BUCKET] += r.bucket_call;
     s.calls[CALL_CODEL] += r.codel_call;
-    r2_store(w0, w);
+    r2_store(w);
     if (r.stash)
-      for (int c = 0; c < kPk; c++) o.r2_pk[c][i] = pk.v[c];
+      for (int c = 0; c < kPk; c++) STT_HP(r2_pk, c) = pk.v[c];
     if (r.codel_drop) trace(now, TR_DRP, pk, RSN_CODEL);
     if (r.throttled) {
       const int64_t sq = draw_seq();
@@ -1775,7 +2103,7 @@ struct Lane {
     }
     if (r.fwd) {
       at_ = 1;
-      if (pk.v[PK_DIP] != o.eth_ip[i]) abort_(AB_STRUCT, 5);
+      if (pk.v[PK_DIP] != STT_H(eth_ip)) abort_(AB_STRUCT, 5);
       // conn lookup: (dsthost, src-ip-host, sport) key
       const int64_t sip = pk.v[PK_SIP];
       STT_PF_BEGIN(sl);
@@ -1787,15 +2115,15 @@ struct Lane {
           min64(search_left(o.ckeys, p.conns, akey), p.conns - 1);
       STT_PF_HELPER(sl, H_SEARCH);
       const bool kfound = sfound && o.ckeys[kslot] == akey;
-      const int64_t conn = o.ckperm[kslot];
-      const bool good = kfound && o.c_lport[conn] == pk.v[PK_DPORT];
+      const Conn conn = conn_at(o.ckperm[kslot]);
+      const bool good = kfound && STT_C(c_lport, conn) == pk.v[PK_DPORT];
       at_ = 2;
       if (!good) abort_(AB_STRUCT, 6);
       if (good) {  // delivered: trace RCV at arrival, hand to C_TCPIN
-        o.pkts_recv[i] += 1;
+        STT_H(pkts_recv) += 1;
         trace(now, TR_RCV, pk, 0);
-        cur = conn;
-        for (int c = 0; c < kPk; c++) o.ar[c][i] = pk.v[c];
+        set_cur(conn);
+        for (int c = 0; c < kPk; c++) STT_HP(ar, c) = pk.v[c];
         ret = C_R2;
         cont = C_TCPIN;
       }
@@ -1808,119 +2136,122 @@ struct Lane {
   // on_packet minus the push_data / reassembly-drain loops (those
   // continue as C_PUSH / C_DRAIN).
   STT_LAW void op_tcpin() {
-    const int64_t c = crd(), w = cwr();
+    const Conn c = crd(), w = cwr();
     Pk pk;
-    for (int k = 0; k < kPk; k++) pk.v[k] = o.ar[k][i];
+    for (int k = 0; k < kPk; k++) pk.v[k] = STT_HP(ar, k);
     const int64_t plen = pk.v[PK_PLEN], tfl = pk.v[PK_TFLAGS];
     const int64_t tseq = pk.v[PK_TSEQ], ack = pk.v[PK_TACK];
-    o.c_segsrecv[w] = o.c_segsrecv[c] + 1;
+    STT_C(c_segsrecv, w) = STT_C(c_segsrecv, c) + 1;
     // in-domain wire: synchronized-state segments only; a data segment
     // arriving at a sender (or acking unsent data) leaves the modelled
     // tgen roles
     if ((tfl & (F_SYN | F_FIN | F_RST)) != 0 || (tfl & F_ACK) == 0 ||
-        (plen > 0 && o.c_role[c] == 1) || s_lt(o.c_sndnxt[c], ack))
+        (plen > 0 && STT_C(c_role, c) == 1) || s_lt(STT_C(c_sndnxt, c), ack))
       abort_(AB_STRUCT, 7);
     // RFC 3168 receiver: CWR ends the echo episode, a CE-marked arrival
     // (re)starts it — in that order.
-    const bool ecnact = o.c_ecnact[c] == 1;
-    if (ecnact && (tfl & F_CWR) != 0) o.c_ece[w] = 0;
+    const bool ecnact = STT_C(c_ecnact, c) == 1;
+    if (ecnact && (tfl & F_CWR) != 0) STT_C(c_ece, w) = 0;
     if (ecnact && pk.v[PK_ECN] == ECN_CE) {
-      const int64_t seen = o.c_ceseen[c] + 1;
-      o.c_ece[w] = 1;
-      o.c_ceseen[w] = seen;
+      const int64_t seen = STT_C(c_ceseen, c) + 1;
+      STT_C(c_ece, w) = 1;
+      STT_C(c_ceseen, w) = seen;
     }
     // RFC 7323 ts_recent update (covering the ack point)
     const int64_t span = max64(plen, 1);
-    if (pk.v[PK_TSV] != 0 && s_leq(tseq, o.c_rcvnxt[c]) &&
-        s_lt(o.c_rcvnxt[c], s_add(tseq, span)))
-      o.c_tsrecent[w] = pk.v[PK_TSV];
+    if (pk.v[PK_TSV] != 0 && s_leq(tseq, STT_C(c_rcvnxt, c)) &&
+        s_lt(STT_C(c_rcvnxt, c), s_add(tseq, span)))
+      STT_C(c_tsrecent, w) = pk.v[PK_TSV];
     // RTTM: sample only from a segment acking NEW data
-    if (pk.v[PK_TSE] != 0 && o.c_rtobackoff[c] == 0 &&
-        s_lt(o.c_snduna[c], ack) && s_leq(ack, o.c_sndnxt[c]))
+    if (pk.v[PK_TSE] != 0 && STT_C(c_rtobackoff, c) == 0 &&
+        s_lt(STT_C(c_snduna, c), ack) && s_leq(ack, STT_C(c_sndnxt, c)))
       update_rtt(now - (pk.v[PK_TSE] - 1));
     // ---- on_ack ----
-    const int64_t wnd = shl(pk.v[PK_TWIN], o.c_peerws[c]);
-    const bool wchanged = wnd != o.c_sndwnd[c];
-    o.c_sndwnd[w] = wnd;
-    if (wnd > 0 && o.c_persistdl[c] >= 0) {
-      o.c_persistdl[w] = -1;
-      o.c_persistiv[w] = 0;
+    const int64_t wnd = shl(pk.v[PK_TWIN], STT_C(c_peerws, c));
+    const bool wchanged = wnd != STT_C(c_sndwnd, c);
+    STT_C(c_sndwnd, w) = wnd;
+    if (wnd > 0 && STT_C(c_persistdl, c) >= 0) {
+      STT_C(c_persistdl, w) = -1;
+      STT_C(c_persistiv, w) = 0;
     }
     // SACK scoreboard marks
     if (pk.v[PK_NSK] > 0) {
       STT_PF_BEGIN(sm);
       const int64_t newly = scan(SCAN_SACK_MARK, c, w).v[0];
       STT_PF_HELPER(sm, H_RTX);
-      STT_PF_VISIT(V_RTX, clamp64(o.rtx_len[c] - o.rtx_pos[c], 0, p.cap_rt));
-      o.c_sackskip[w] = o.c_sackskip[c] + newly;
+      STT_PF_VISIT(V_RTX, clamp64(STT_C(rtx_len, c) - STT_C(rtx_pos, c), 0,
+                                  p.cap_rt));
+      STT_C(c_sackskip, w) = STT_C(c_sackskip, c) + newly;
     }
     // ECN sender side: after the SACK marks, before the new-ack/dupack
     // dispatch (snd_una still pre-ack).
     const bool ece_fl = ecnact && (tfl & F_ECE) != 0;
-    const bool new_ack0 = s_lt(o.c_snduna[c], ack);
-    const int64_t acked0 = s_sub(ack, o.c_snduna[c]);
-    const bool is_d = o.c_cc[c] == CC_DCTCP;
+    const bool new_ack0 = s_lt(STT_C(c_snduna, c), ack);
+    const int64_t acked0 = s_sub(ack, STT_C(c_snduna, c));
+    const bool is_d = STT_C(c_cc, c) == CC_DCTCP;
     const bool acc = new_ack0 && ecnact && is_d;
     if (acc) {
-      const int64_t tot = o.c_totack[c] + acked0;
-      const int64_t ce = o.c_ceack[c] + (ece_fl ? acked0 : 0);
-      o.c_totack[w] = tot;
-      o.c_ceack[w] = ce;
+      const int64_t tot = STT_C(c_totack, c) + acked0;
+      const int64_t ce = STT_C(c_ceack, c) + (ece_fl ? acked0 : 0);
+      STT_C(c_totack, w) = tot;
+      STT_C(c_ceack, w) = ce;
     }
     // window boundary: fold the echo fraction into alpha
-    if (acc && s_lt(o.c_dwend[c], ack)) {
-      const int64_t alpha = o.c_alpha[c];
+    if (acc && s_lt(STT_C(c_dwend, c), ack)) {
+      const int64_t alpha = STT_C(c_alpha, c);
       const int64_t nalpha = min64(
           alpha - (alpha >> DCTCP_G_SHIFT) +
-              floor_div_pos(o.c_ceack[c] << (DCTCP_SHIFT - DCTCP_G_SHIFT),
-                            max64(o.c_totack[c], 1)),
+              floor_div_pos(STT_C(c_ceack, c) << (DCTCP_SHIFT - DCTCP_G_SHIFT),
+                            max64(STT_C(c_totack, c), 1)),
           DCTCP_MAX_ALPHA);
-      const int64_t dwend = o.c_sndnxt[c];
-      o.c_alpha[w] = nalpha;
-      o.c_ceack[w] = 0;
-      o.c_totack[w] = 0;
-      o.c_dwend[w] = dwend;
+      const int64_t dwend = STT_C(c_sndnxt, c);
+      STT_C(c_alpha, w) = nalpha;
+      STT_C(c_ceack, w) = 0;
+      STT_C(c_totack, w) = 0;
+      STT_C(c_dwend, w) = dwend;
     }
     // one cut per window; CWR announces it on fresh data
     const bool red =
-        ece_fl && o.c_fastrec[c] == 0 && s_lt(o.c_cwrend[c], ack);
+        ece_fl && STT_C(c_fastrec, c) == 0 && s_lt(STT_C(c_cwrend, c), ack);
     if (red) {
-      const int64_t mss_e = o.c_congmss[c];
-      const int64_t flight0 = s_sub(o.c_sndnxt[c], o.c_snduna[c]);
-      const int64_t cw0 = o.c_cwnd[c];
+      const int64_t mss_e = STT_C(c_congmss, c);
+      const int64_t flight0 = s_sub(STT_C(c_sndnxt, c), STT_C(c_snduna, c));
+      const int64_t cw0 = STT_C(c_cwnd, c);
       const int64_t r_cw = max64(floor_div_pos(flight0, 2), 2 * mss_e);
       const int64_t d_cw = max64(
-          cw0 - (mul_wrap(cw0, o.c_alpha[c]) >> (DCTCP_SHIFT + 1)),
+          cw0 - (mul_wrap(cw0, STT_C(c_alpha, c)) >> (DCTCP_SHIFT + 1)),
           2 * mss_e);
       const int64_t ncw = is_d ? d_cw : r_cw;
-      const int64_t cwrend = o.c_sndnxt[c];
-      o.c_cwnd[w] = ncw;
-      o.c_ssthresh[w] = ncw;
-      o.c_cwrend[w] = cwrend;
-      o.c_cwrp[w] = 1;
+      const int64_t cwrend = STT_C(c_sndnxt, c);
+      STT_C(c_cwnd, w) = ncw;
+      STT_C(c_ssthresh, w) = ncw;
+      STT_C(c_cwrend, w) = cwrend;
+      STT_C(c_cwrp, w) = 1;
     }
     // new ack / dupack
     const bool rtx_ne = rtx_nonempty(c);
-    const bool new_ack = s_lt(o.c_snduna[c], ack);
-    const bool dup = !new_ack && ack == o.c_snduna[c] && rtx_ne &&
+    const bool new_ack = s_lt(STT_C(c_snduna, c), ack);
+    const bool dup = !new_ack && ack == STT_C(c_snduna, c) && rtx_ne &&
                      plen == 0 && !wchanged;
-    const int64_t acked = s_sub(ack, o.c_snduna[c]);
+    const int64_t acked = s_sub(ack, STT_C(c_snduna, c));
     bool in_rec = false;
     if (new_ack) {  // handle_new_ack
-      o.c_snduna[w] = ack;
-      o.c_dupacks[w] = 0;
-      o.c_rtobackoff[w] = 0;
+      STT_C(c_snduna, w) = ack;
+      STT_C(c_dupacks, w) = 0;
+      STT_C(c_rtobackoff, w) = 0;
       clear_acked();
-      if (o.c_srtt[c] > 0)
-        o.c_rto[w] = clamp64(o.c_srtt[c] + max64(4 * o.c_rttvar[c], 1000000),
-                             MIN_RTO_NS, MAX_RTO_NS);
-      in_rec = o.c_fastrec[c] == 1;
+      if (STT_C(c_srtt, c) > 0)
+        STT_C(c_rto, w) = clamp64(
+            STT_C(c_srtt, c) + max64(4 * STT_C(c_rttvar, c), 1000000),
+            MIN_RTO_NS, MAX_RTO_NS);
+      in_rec = STT_C(c_fastrec, c) == 1;
       const bool rec_exit =
-          in_rec && (s_lt(o.c_recover[c], ack) || ack == o.c_recover[c]);
+          in_rec &&
+          (s_lt(STT_C(c_recover, c), ack) || ack == STT_C(c_recover, c));
       if (rec_exit) {
-        const int64_t ss = o.c_ssthresh[c];
-        o.c_fastrec[w] = 0;
-        o.c_cwnd[w] = ss;
+        const int64_t ss = STT_C(c_ssthresh, c);
+        STT_C(c_fastrec, w) = 0;
+        STT_C(c_cwnd, w) = ss;
       }
       if (in_rec && !rec_exit) {  // partial ack
         at_ = 1;
@@ -1929,51 +2260,52 @@ struct Lane {
       // reno on_new_ack (not in recovery; an ack that just triggered
       // the ECN cut must not also grow the window)
       if (!in_rec && !red) {
-        const int64_t mss_c = o.c_congmss[c], cwnd = o.c_cwnd[c];
+        const int64_t mss_c = STT_C(c_congmss, c), cwnd = STT_C(c_cwnd, c);
         const int64_t cwnd2 =
-            cwnd < o.c_ssthresh[c]
+            cwnd < STT_C(c_ssthresh, c)
                 ? cwnd + min64(acked, 2 * mss_c)
                 : cwnd + max64(floor_div_pos(mss_c * mss_c, max64(cwnd, 1)),
                                1);
-        o.c_cwnd[w] = cwnd2;
+        STT_C(c_cwnd, w) = cwnd2;
       }
       // RTO restart
-      o.c_rtodl[w] = rtx_nonempty(c) ? now + o.c_rto[c] : -1;
+      STT_C(c_rtodl, w) = rtx_nonempty(c) ? now + STT_C(c_rto, c) : -1;
     }
     if (dup) {  // handle_dupack
-      const int64_t dupacks = o.c_dupacks[c] + 1;
-      o.c_dupacks[w] = dupacks;
-      const bool d_rec = o.c_fastrec[c] == 1;
-      if (d_rec) o.c_cwnd[w] = o.c_cwnd[c] + o.c_congmss[c];
-      if (!d_rec && o.c_dupacks[c] == 3) {
-        const int64_t flight = s_sub(o.c_sndnxt[c], o.c_snduna[c]);
+      const int64_t dupacks = STT_C(c_dupacks, c) + 1;
+      STT_C(c_dupacks, w) = dupacks;
+      const bool d_rec = STT_C(c_fastrec, c) == 1;
+      if (d_rec) STT_C(c_cwnd, w) = STT_C(c_cwnd, c) + STT_C(c_congmss, c);
+      if (!d_rec && STT_C(c_dupacks, c) == 3) {
+        const int64_t flight = s_sub(STT_C(c_sndnxt, c), STT_C(c_snduna, c));
         const int64_t ssth =
-            max64(floor_div_pos(flight, 2), 2 * o.c_congmss[c]);
-        const int64_t recover = o.c_sndnxt[c];
-        o.c_ssthresh[w] = ssth;
-        o.c_fastrec[w] = 1;
-        o.c_recover[w] = recover;
-        o.c_cwnd[w] = o.c_ssthresh[c] + 3 * o.c_congmss[c];
+            max64(floor_div_pos(flight, 2), 2 * STT_C(c_congmss, c));
+        const int64_t recover = STT_C(c_sndnxt, c);
+        STT_C(c_ssthresh, w) = ssth;
+        STT_C(c_fastrec, w) = 1;
+        STT_C(c_recover, w) = recover;
+        STT_C(c_cwnd, w) = STT_C(c_ssthresh, c) + 3 * STT_C(c_congmss, c);
         at_ = 2;
         retransmit_one();
       }
     }
     // ---- on_data (receiver side; plen > 0) ----
     const bool data = plen > 0;
-    const int64_t offset = s_sub(o.c_rcvnxt[c], tseq);
+    const int64_t offset = s_sub(STT_C(c_rcvnxt, c), tseq);
     const bool dup_data = data && offset >= plen;
     if (dup_data) {
       at_ = 3;
       emit_ack();
     }
     const bool live = data && !dup_data;
-    const int64_t eff_seq = offset > 0 ? o.c_rcvnxt[c] : tseq;
+    const int64_t eff_seq = offset > 0 ? STT_C(c_rcvnxt, c) : tseq;
     const int64_t eff_len = offset > 0 ? plen - offset : plen;
-    const bool future = live && s_sub(eff_seq, o.c_rcvnxt[c]) != 0;
+    const bool future = live && s_sub(eff_seq, STT_C(c_rcvnxt, c)) != 0;
     // reassembly setdefault (bounded by the receive buffer)
     if (future) {
       const bool exists = ra_find(c, eff_seq) >= 0;
-      const bool in_win = s_sub(eff_seq, o.c_rcvnxt[c]) < o.c_rbmax[c];
+      const bool in_win =
+          s_sub(eff_seq, STT_C(c_rcvnxt, c)) < STT_C(c_rbmax, c);
       if (!in_win) drop_cause(TEL_REASM_FULL);  // receiver discard
       if (in_win && !exists) {
         STT_PF_BEGIN(ff);
@@ -1986,6 +2318,7 @@ struct Lane {
           o.ra_seq[w * p.cap_ra + k] = eff_seq;
           o.ra_plen[w * p.cap_ra + k] = eff_len;
           o.ra_valid[w * p.cap_ra + k] = 1;
+          STT_PF_WORDS(W_ROW, 3);
         }
       }
       at_ = 5;
@@ -1997,16 +2330,16 @@ struct Lane {
       STT_PF_BEGIN(hh);
       const bool had_any = scan(SCAN_RA_ANY, c).v[0] >= 0;
       STT_PF_HELPER(hh, H_HOLES);
-      o.had_holes[i] = had_any ? 1 : 0;
-      const int64_t space = o.c_rbmax[c] - o.c_rblen[c];
+      STT_H(had_holes) = had_any ? 1 : 0;
+      const int64_t space = STT_C(c_rbmax, c) - STT_C(c_rblen, c);
       const int64_t take = max64(min64(space, eff_len), 0);
       // in-order bytes past the receive buffer: unacked tail, the
       // sender retransmits (TcpConn::deliver twin)
       if (eff_len > take) drop_cause(TEL_RECVWIN_TRUNC);
-      const int64_t rblen = o.c_rblen[c] + take;
-      const int64_t rcvnxt = s_add(o.c_rcvnxt[c], take);
-      o.c_rblen[w] = rblen;
-      o.c_rcvnxt[w] = rcvnxt;
+      const int64_t rblen = STT_C(c_rblen, c) + take;
+      const int64_t rcvnxt = s_add(STT_C(c_rcvnxt, c), take);
+      STT_C(c_rblen, w) = rblen;
+      STT_C(c_rcvnxt, w) = rcvnxt;
       if (take > 0) fct_touch(take, true);
     }
     // ---- continuation ----
@@ -2016,72 +2349,73 @@ struct Lane {
   // One reassembly chunk per micro-op (connection.py's
   // while-rcv_nxt-in-reassembly loop).
   STT_LAW void op_drain() {
-    const int64_t c = crd(), w = cwr();
-    const int64_t row = c * p.cap_ra, rcvnxt = o.c_rcvnxt[c];
+    const Conn c = crd(), w = cwr();
+    const int64_t row = c * p.cap_ra, rcvnxt = STT_C(c_rcvnxt, c);
     const int64_t slot = ra_find(c, rcvnxt);
     if (slot < 0) {
       cont = C_ACKDATA;
       return;
     }
     const int64_t plen = o.ra_plen[row + slot];
-    const int64_t space = o.c_rbmax[c] - o.c_rblen[c];
+    const int64_t space = STT_C(c_rbmax, c) - STT_C(c_rblen, c);
     const int64_t take = max64(min64(space, plen), 0);
     if (plen > take) drop_cause(TEL_RECVWIN_TRUNC);
-    const int64_t rblen = o.c_rblen[c] + take;
-    o.c_rblen[w] = rblen;
-    o.c_rcvnxt[w] = s_add(rcvnxt, take);
+    const int64_t rblen = STT_C(c_rblen, c) + take;
+    STT_C(c_rblen, w) = rblen;
+    STT_C(c_rcvnxt, w) = s_add(rcvnxt, take);
     if (take > 0) fct_touch(take, true);
     o.ra_valid[w * p.cap_ra + slot] = 0;
+    STT_PF_WORDS(W_ROW, 2);
   }
 
   // ack_data: every second in-order segment acks now; holes or a
   // pinched window force it; else the 40ms delack.
   STT_LAW void op_ackdata() {
-    const int64_t c = crd(), w = cwr();
-    const int64_t ssa = o.c_ssa[c] + 1;
-    o.c_ssa[w] = ssa;
+    const Conn c = crd(), w = cwr();
+    const int64_t ssa = STT_C(c_ssa, c) + 1;
+    STT_C(c_ssa, w) = ssa;
     STT_PF_BEGIN(hh);
     const bool any_ra = scan(SCAN_RA_ANY, c).v[0] >= 0;
     STT_PF_HELPER(hh, H_HOLES);
-    const bool fire = o.had_holes[i] == 1 || o.c_ssa[c] >= 2 || any_ra ||
-                      recv_window(c) < o.c_effmss[c];
+    const bool fire = STT_H(had_holes) == 1 || STT_C(c_ssa, c) >= 2 || any_ra ||
+                      recv_window(c) < STT_C(c_effmss, c);
     if (fire) {
       emit_ack();
-    } else if (o.c_delackdl[c] < 0) {
-      o.c_delackdl[w] = now + DELACK_NS;
+    } else if (STT_C(c_delackdl, c) < 0) {
+      STT_C(c_delackdl, w) = now + DELACK_NS;
     }
-    o.had_holes[i] = 0;
+    STT_H(had_holes) = 0;
     cont = C_FLUSH;
   }
 
   // push_data: one eff_mss segment per micro-op within min(cwnd, peer
   // window); Nagle holds a sub-MSS tail.
   STT_LAW void op_push() {
-    const int64_t c = crd(), w = cwr();
-    const int64_t window = min64(o.c_cwnd[c], o.c_sndwnd[c]);
-    const int64_t flight = s_sub(o.c_sndnxt[c], o.c_snduna[c]);
-    const int64_t sblen = o.c_sblen[c];
+    const Conn c = crd(), w = cwr();
+    const int64_t window = min64(STT_C(c_cwnd, c), STT_C(c_sndwnd, c));
+    const int64_t flight = s_sub(STT_C(c_sndnxt, c), STT_C(c_snduna, c));
+    const int64_t sblen = STT_C(c_sblen, c);
     const bool can = sblen > 0 && flight < window;
-    const int64_t budget = min64(window - flight, o.c_effmss[c]);
+    const int64_t budget = min64(window - flight, STT_C(c_effmss, c));
     const bool nagle_hold =
-        can && o.c_nodelay[c] == 0 && sblen < budget && flight > 0;
+        can && STT_C(c_nodelay, c) == 0 && sblen < budget && flight > 0;
     const int64_t chunk = min64(sblen, budget);
     if (can && !nagle_hold && chunk > 0) {
-      const int64_t sndnxt = o.c_sndnxt[c];
+      const int64_t sndnxt = STT_C(c_sndnxt, c);
       emit(sndnxt, chunk, F_ACK | F_PSH, false, true, true);
-      const int64_t sb = o.c_sblen[c] - chunk;
-      const int64_t nx = s_add(o.c_sndnxt[c], chunk);
-      o.c_sblen[w] = sb;
-      o.c_sndnxt[w] = nx;
+      const int64_t sb = STT_C(c_sblen, c) - chunk;
+      const int64_t nx = s_add(STT_C(c_sndnxt, c), chunk);
+      STT_C(c_sblen, w) = sb;
+      STT_C(c_sndnxt, w) = nx;
       fct_touch(chunk, false);
       return;
     }
     // zero-window persist arming
-    if (o.c_sndwnd[c] == 0 && o.c_sblen[c] > 0 && !rtx_nonempty(c) &&
-        o.c_persistdl[c] < 0) {
-      const int64_t rto = o.c_rto[c];
-      o.c_persistiv[w] = rto;
-      o.c_persistdl[w] = now + rto;
+    if (STT_C(c_sndwnd, c) == 0 && STT_C(c_sblen, c) > 0 && !rtx_nonempty(c) &&
+        STT_C(c_persistdl, c) < 0) {
+      const int64_t rto = STT_C(c_rto, c);
+      STT_C(c_persistiv, w) = rto;
+      STT_C(c_persistdl, w) = now + rto;
     }
     cont = C_FLUSH;
   }
@@ -2089,12 +2423,12 @@ struct Lane {
   // tcp_flush's notify: register the socket with the iface qdisc and
   // kick the inet-out relay if it is idle.
   STT_LAW void op_flush() {
-    const int64_t c = crd(), w = cwr();
-    const bool need = o.eflag[i] == 1 && o.c_queued[c] == 0;
-    if (need) o.c_queued[w] = 1;
-    o.eflag[i] = 0;
+    const Conn c = crd(), w = cwr();
+    const bool need = STT_H(eflag) == 1 && STT_C(c_queued, c) == 0;
+    if (need) STT_C(c_queued, w) = 1;
+    STT_H(eflag) = 0;
     cont = C_ARM;
-    if (need && o.r1_pending[i] == 0) {
+    if (need && STT_H(r1_pending) == 0) {
       cont = C_R1;
       then = C_ARM;
     }
@@ -2103,37 +2437,37 @@ struct Lane {
   // tcp_arm_timer + tcp_update_status (+ the deferred sendto-EAGAIN
   // park).
   STT_LAW void op_arm() {
-    const int64_t c = crd(), w = cwr();
+    const Conn c = crd(), w = cwr();
     const int64_t nxt = next_deadline(c);
-    if (nxt < I64_MAX && nxt != o.c_tmrdl[c]) {
-      o.c_tmrdl[w] = nxt;
+    if (nxt < I64_MAX && nxt != STT_C(c_tmrdl, c)) {
+      STT_C(c_tmrdl, w) = nxt;
       const int64_t sq = draw_seq();
       th_push(nxt, sq, TK_TCP, cur);
     }
     // update_status (ESTABLISHED lanes only in-domain)
-    const bool readable = o.c_rblen[c] > 0;
-    const bool space = o.c_sbmax[c] - o.c_sblen[c] > 0;
-    const int64_t old = o.c_status[c];
+    const bool readable = STT_C(c_rblen, c) > 0;
+    const bool space = STT_C(c_sbmax, c) - STT_C(c_sblen, c) > 0;
+    const int64_t old = STT_C(c_status, c);
     const int64_t set_bits =
         (readable ? S_READABLE : 0) | (space ? S_WRITABLE : 0);
     const int64_t clear_bits = (readable ? 0 : S_READABLE) & ~set_bits;
     const int64_t nw = (old | set_bits) & ~clear_bits;
-    o.c_status[w] = nw;
-    if (((old ^ nw) & o.c_await[c]) != 0 && o.c_wakep[c] == 0) {
+    STT_C(c_status, w) = nw;
+    if (((old ^ nw) & STT_C(c_await, c)) != 0 && STT_C(c_wakep, c) == 0) {
       const int64_t sq = draw_seq();
       at_ = 1;
       th_push(now, sq, TK_APP, cur);
-      o.c_wakep[w] = 1;
+      STT_C(c_wakep, w) = 1;
     }
     // deferred sendto-EAGAIN: clear WRITABLE, park the stepper
-    const bool park = o.parkp[i] == 1;
+    const bool park = STT_H(parkp) == 1;
     if (park) {
-      const int64_t status = o.c_status[c] & ~S_WRITABLE;
-      o.c_status[w] = status;
-      o.c_await[w] = S_WRITABLE;
-      o.c_awaitseq[w] = o.park_ctr[i];
-      o.park_ctr[i] += 1;
-      o.parkp[i] = 0;
+      const int64_t status = STT_C(c_status, c) & ~S_WRITABLE;
+      STT_C(c_status, w) = status;
+      STT_C(c_await, w) = S_WRITABLE;
+      STT_C(c_awaitseq, w) = STT_H(park_ctr);
+      STT_H(park_ctr) += 1;
+      STT_H(parkp) = 0;
     }
     cont = park ? C_IDLE : ret;
   }
@@ -2148,78 +2482,80 @@ struct Lane {
   // One tcp_recv (client) / tcp_sendto (handler) per micro-op — the
   // engine app loop with syscalls counted at the same points.
   STT_LAW void op_app() {
-    const int64_t c = crd(), w = cwr();
-    const int64_t role = o.c_role[c];
+    const Conn c = crd(), w = cwr();
+    const int64_t role = STT_C(c_role, c);
     if (role == 0) {  // ---- client: recv 64 KiB or park ----
-      o.app_sys[i * ASYS_N + ASYS_RECV] += 1;
-      if (o.c_rblen[c] == 0) {
-        o.c_await[w] = S_READABLE;
-        o.c_awaitseq[w] = o.park_ctr[i];
-        o.park_ctr[i] += 1;
+      STT_H_ASYS(ASYS_RECV) += 1;
+      if (STT_C(c_rblen, c) == 0) {
+        STT_C(c_await, w) = S_READABLE;
+        STT_C(c_awaitseq, w) = STT_H(park_ctr);
+        STT_H(park_ctr) += 1;
         cont = C_IDLE;
         return;
       }
-      const int64_t take = min64(o.c_rblen[c], 1 << 16);
+      const int64_t take = min64(STT_C(c_rblen, c), 1 << 16);
       const int64_t win_before = recv_window(c);
-      o.c_rblen[w] = o.c_rblen[c] - take;
+      STT_C(c_rblen, w) = STT_C(c_rblen, c) - take;
       if (win_before < MSS && recv_window(c) >= MSS) emit_ack();
       // autotune_recv (socket_tcp.py twin)
-      if (o.c_rat[c] == 1) {
-        const int64_t copied = o.c_atcopied[c] + take;
-        const int64_t at_space = max64(o.c_atspace[c], 2 * copied);
-        const bool grow = at_space > o.c_rbmax[c];
+      if (STT_C(c_rat, c) == 1) {
+        const int64_t copied = STT_C(c_atcopied, c) + take;
+        const int64_t at_space = max64(STT_C(c_atspace, c), 2 * copied);
+        const bool grow = at_space > STT_C(c_rbmax, c);
         const int64_t nw =
-            min64(at_space, max_mem(o.bw_down[i], o.c_srtt[c], RMEM_MAX));
-        o.c_atcopied[w] = copied;
-        o.c_atspace[w] = at_space;
-        if (grow && nw > o.c_rbmax[c]) o.c_rbmax[w] = nw;
-        const bool fresh = o.c_atlast[c] == 0;
-        if (fresh) o.c_atlast[w] = now;
-        if (!fresh && o.c_srtt[c] > 0 && now - o.c_atlast[c] > o.c_srtt[c]) {
-          o.c_atlast[w] = now;
-          o.c_atcopied[w] = 0;
+            min64(at_space,
+                  max_mem(STT_H(bw_down), STT_C(c_srtt, c), RMEM_MAX));
+        STT_C(c_atcopied, w) = copied;
+        STT_C(c_atspace, w) = at_space;
+        if (grow && nw > STT_C(c_rbmax, c)) STT_C(c_rbmax, w) = nw;
+        const bool fresh = STT_C(c_atlast, c) == 0;
+        if (fresh) STT_C(c_atlast, w) = now;
+        if (!fresh && STT_C(c_srtt, c) > 0 &&
+            now - STT_C(c_atlast, c) > STT_C(c_srtt, c)) {
+          STT_C(c_atlast, w) = now;
+          STT_C(c_atcopied, w) = 0;
         }
       }
-      const int64_t ngot = o.c_agot[c] + take;
-      o.c_agot[w] = ngot;
+      const int64_t ngot = STT_C(c_agot, c) + take;
+      STT_C(c_agot, w) = ngot;
       // transfer completion leaves the modelled domain (close)
       at_ = 1;
-      if (ngot >= o.c_atotal[c]) abort_(AB_STRUCT, 9);
+      if (ngot >= STT_C(c_atotal, c)) abort_(AB_STRUCT, 9);
       ret = C_APP;
       cont = C_FLUSH;
       return;
     }
     if (role != 1) return;
     // ---- handler: send up to 64 KiB or park ----
-    o.app_sys[i * ASYS_N + ASYS_SEND] += 1;
-    const int64_t want = min64(o.c_atotal[c] - o.c_agot[c], 1 << 16);
-    const int64_t space = o.c_sbmax[c] - o.c_sblen[c];
+    STT_H_ASYS(ASYS_SEND) += 1;
+    const int64_t want = min64(STT_C(c_atotal, c) - STT_C(c_agot, c), 1 << 16);
+    const int64_t space = STT_C(c_sbmax, c) - STT_C(c_sblen, c);
     const int64_t wr = max64(min64(want, space), 0);
     ret = C_APP;
     if (wr == 0) {
-      o.parkp[i] = 1;
+      STT_H(parkp) = 1;
       cont = C_FLUSH;
       return;
     }
-    const int64_t nsent = o.c_agot[c] + wr;
-    o.c_sblen[w] = o.c_sblen[c] + wr;
-    o.c_agot[w] = nsent;
+    const int64_t nsent = STT_C(c_agot, c) + wr;
+    STT_C(c_sblen, w) = STT_C(c_sblen, c) + wr;
+    STT_C(c_agot, w) = nsent;
     // send completion -> shutdown_wr: out of the domain
     at_ = 2;
-    if (nsent >= o.c_atotal[c]) abort_(AB_STRUCT, 10);
+    if (nsent >= STT_C(c_atotal, c)) abort_(AB_STRUCT, 10);
     cont = C_PUSH;
   }
 
   // TK_TCP fire: stale entries re-arm; due deadlines run delack /
   // persist / RTO in the engine's fixed order, then the flush chain.
   STT_LAW void op_tmr() {
-    const int64_t c = crd(), w = cwr();
-    o.c_tmrdl[w] = -1;
+    const Conn c = crd(), w = cwr();
+    STT_C(c_tmrdl, w) = -1;
     const int64_t nxt = next_deadline(c);
     const bool have = nxt < I64_MAX;
     if (!(have && now >= nxt)) {  // stale
       if (have) {
-        o.c_tmrdl[w] = nxt;
+        STT_C(c_tmrdl, w) = nxt;
         const int64_t sq = draw_seq();
         th_push(nxt, sq, TK_TCP, cur);
       }
@@ -2227,51 +2563,53 @@ struct Lane {
       return;
     }
     // ---- on_timer ----
-    if (o.c_delackdl[c] >= 0 && now >= o.c_delackdl[c]) {
+    if (STT_C(c_delackdl, c) >= 0 && now >= STT_C(c_delackdl, c)) {
       at_ = 1;
       emit_ack();
     }
-    if (o.c_persistdl[c] >= 0 && now >= o.c_persistdl[c]) {
-      o.c_persistdl[w] = -1;
-      if (o.c_sndwnd[c] == 0 && o.c_sblen[c] > 0 && !rtx_nonempty(c)) {
+    if (STT_C(c_persistdl, c) >= 0 && now >= STT_C(c_persistdl, c)) {
+      STT_C(c_persistdl, w) = -1;
+      if (STT_C(c_sndwnd, c) == 0 && STT_C(c_sblen, c) > 0 &&
+          !rtx_nonempty(c)) {
         at_ = 2;
-        emit(o.c_sndnxt[c], 1, F_ACK | F_PSH, false, true, true);
-        const int64_t sb = o.c_sblen[c] - 1;
-        const int64_t nx = s_add(o.c_sndnxt[c], 1);
-        o.c_sblen[w] = sb;
-        o.c_sndnxt[w] = nx;
+        emit(STT_C(c_sndnxt, c), 1, F_ACK | F_PSH, false, true, true);
+        const int64_t sb = STT_C(c_sblen, c) - 1;
+        const int64_t nx = s_add(STT_C(c_sndnxt, c), 1);
+        STT_C(c_sblen, w) = sb;
+        STT_C(c_sndnxt, w) = nx;
         fct_touch(1, false);
         const int64_t niv = min64(
-            o.c_persistiv[c] > 0 ? 2 * o.c_persistiv[c] : o.c_rto[c],
+            STT_C(c_persistiv, c) > 0 ? 2 * STT_C(c_persistiv, c)
+                                      : STT_C(c_rto, c),
             MAX_RTO_NS);
-        o.c_persistiv[w] = niv;
-        o.c_persistdl[w] = now + niv;
+        STT_C(c_persistiv, w) = niv;
+        STT_C(c_persistdl, w) = now + niv;
       }
     }
     // RTO
-    if (o.c_rtodl[c] >= 0 && now >= o.c_rtodl[c]) {
+    if (STT_C(c_rtodl, c) >= 0 && now >= STT_C(c_rtodl, c)) {
       if (!rtx_nonempty(c)) {
-        o.c_rtodl[w] = -1;
+        STT_C(c_rtodl, w) = -1;
       } else {
-        const int64_t flight = s_sub(o.c_sndnxt[c], o.c_snduna[c]);
+        const int64_t flight = s_sub(STT_C(c_sndnxt, c), STT_C(c_snduna, c));
         const int64_t ssth =
-            max64(floor_div_pos(flight, 2), 2 * o.c_congmss[c]);
-        const int64_t cw = o.c_congmss[c];
-        o.c_ssthresh[w] = ssth;
-        o.c_cwnd[w] = cw;
-        o.c_dupacks[w] = 0;
-        o.c_fastrec[w] = 0;
+            max64(floor_div_pos(flight, 2), 2 * STT_C(c_congmss, c));
+        const int64_t cw = STT_C(c_congmss, c);
+        STT_C(c_ssthresh, w) = ssth;
+        STT_C(c_cwnd, w) = cw;
+        STT_C(c_dupacks, w) = 0;
+        STT_C(c_fastrec, w) = 0;
         // SACK reneging: forget every mark on RTO
         STT_PF_BEGIN(rn);
         scan(SCAN_RENEGE, w);
         STT_PF_HELPER(rn, H_RTX);
         STT_PF_VISIT(V_RTX, p.cap_rt);
-        const int64_t rto = min64(2 * o.c_rto[c], MAX_RTO_NS);
-        o.c_rto[w] = rto;
-        o.c_rtobackoff[w] = o.c_rtobackoff[c] + 1;
+        const int64_t rto = min64(2 * STT_C(c_rto, c), MAX_RTO_NS);
+        STT_C(c_rto, w) = rto;
+        STT_C(c_rtobackoff, w) = STT_C(c_rtobackoff, c) + 1;
         at_ = 3;
         retransmit_one();
-        o.c_rtodl[w] = now + o.c_rto[c];
+        STT_C(c_rtodl, w) = now + STT_C(c_rto, c);
       }
     }
     ret = C_IDLE;
@@ -2284,26 +2622,27 @@ struct Lane {
   // ring -> relay 2) or a timer.
   STT_LAW void op_pop_event(int64_t et, bool pick_ib, int64_t safe) {
     now = et;
-    o.events_run[i] += 1;
-    const int64_t fault = o.h_fault[i];
+    STT_H(events_run) += 1;
+    const int64_t fault = STT_H(h_fault);
     const bool h_down = (fault & 1) != 0;
     if (pick_ib) {
       ib_pos += 1;
       Pk pk;
       for (int c = 0; c < kPk; c++) pk.v[c] = o.ib[c][i * p.cap_i + safe];
+      STT_PF_WORDS(W_ROW, kPk);
       const int64_t size = pk.v[PK_PLEN] + TCP_TOTAL_HDR;
       if (fault != 0) {  // arrivals at a dead / link-down host die
-        o.pkts_dropped[i] += 1;
+        STT_H(pkts_dropped) += 1;
         drop_cause(h_down ? TEL_HOST_DOWN : TEL_LINK_DOWN);
         trace(et, TR_DRP, pk, h_down ? RSN_HOSTDOWN : RSN_LINKDOWN);
         return;
       }
-      o.enq_pkts[i] += 1;
-      o.enq_bytes[i] += size;
+      STT_H(enq_pkts) += 1;
+      STT_H(enq_bytes) += size;
       if (cq_len - cq_pos >= CODEL_HARD_LIMIT) {
-        o.cd_dropped[i] += 1;
-        o.cd_drop_bytes[i] += size;
-        o.pkts_dropped[i] += 1;
+        STT_H(cd_dropped) += 1;
+        STT_H(cd_drop_bytes) += size;
+        STT_H(pkts_dropped) += 1;
         drop_cause(TEL_RTR_LIMIT);
         trace(et, TR_DRP, pk, RSN_RTRLIMIT);
         return;
@@ -2314,21 +2653,22 @@ struct Lane {
       // is rewritten to CE and enqueued.
       if (pk.v[PK_ECN] == ECN_ECT0) {
         const bool mark_p = cq_len - cq_pos >= p.k_pkts;
-        const bool mark_b = !mark_p && o.codel_bytes[i] >= p.k_bytes;
+        const bool mark_b = !mark_p && STT_H(codel_bytes) >= p.k_bytes;
         if (mark_p || mark_b) {
-          o.codel_marked[i] += 1;
-          o.mark_causes[i * MARK_N +
-                        (mark_p ? MARK_THRESH_PKTS : MARK_THRESH_BYTES)] += 1;
+          STT_H(codel_marked) += 1;
+          STT_H_MARK((mark_p ? MARK_THRESH_PKTS : MARK_THRESH_BYTES)) += 1;
           pk.v[PK_ECN] = ECN_CE;
         }
       }
       const int64_t slot = i * p.cap_cq + cq_len % p.cap_cq;
       for (int c = 0; c < kPk; c++) o.cq[c][slot] = pk.v[c];
       o.cq_enq[slot] = et;
+      STT_PF_WORDS(W_ROW, kPk + 1);
       cq_len += 1;
-      if (cq_len - cq_pos > o.codel_peak[i]) o.codel_peak[i] = cq_len - cq_pos;
-      o.codel_bytes[i] += size;
-      if (o.r2_pending[i] == 0) {
+      if (cq_len - cq_pos > STT_H(codel_peak))
+        STT_H(codel_peak) = cq_len - cq_pos;
+      STT_H(codel_bytes) += size;
+      if (STT_H(r2_pending) == 0) {
         cont = C_R2;
         then = C_IDLE;
       }
@@ -2355,21 +2695,22 @@ struct Lane {
     if (h_down) return;  // a dead host's timers discard
     const int64_t slot = i * p.cap_t + th_slot;
     const int64_t kind = o.th_kind[slot], tgt = o.th_tgt[slot];
+    STT_PF_WORDS(W_ROW, 3);
     if (kind == TK_RELAY && (tgt == 1 || tgt == 2)) {
-      (tgt == 1 ? o.r1_pending : o.r2_pending)[i] = 0;
+      (tgt == 1 ? STT_H(r1_pending) : STT_H(r2_pending)) = 0;
       cont = tgt == 1 ? C_R1 : C_R2;
       then = C_IDLE;
     }
     at_ = 1;
     if (kind != TK_RELAY && tgt < 0) abort_(AB_STRUCT, 12);
     if (tgt >= 0 && kind == TK_TCP) {
-      cur = tgt;
+      set_cur(conn_at(tgt));
       cont = C_TMR;
       ret = C_IDLE;
     } else if (tgt >= 0 && kind == TK_APP) {
-      cur = tgt;
-      o.c_wakep[cwr()] = 0;
-      o.c_await[cwr()] = 0;
+      set_cur(conn_at(tgt));
+      STT_C(c_wakep, cwr()) = 0;
+      STT_C(c_await, cwr()) = 0;
       cont = C_APP;
       ret = C_APP;
     }
@@ -2383,6 +2724,8 @@ struct Lane {
   STT_LAW void run() {
     s.chunk = 0;
     if (*o.abort_code != 0) return;  // the eager loop runs no iteration
+    scan(SCAN_GATHER);
+    cur_f_ = frame_words(fr_, cur);
     for (int64_t j = 0; j <= STT_ABORT_SEEN(o.stats + ST_AB_ITER); j++) {
       j_ = j;
       if (cont == C_IDLE) {  // a busy lane does not pop
@@ -2390,6 +2733,7 @@ struct Lane {
         const int64_t safe = min64(ib_pos, p.cap_i - 1);
         const int64_t ib_t =
             ib_len > ib_pos ? o.ib_time[i * p.cap_i + safe] : I64_MAX;
+        STT_PF_WORDS(W_ROW, ib_len > ib_pos);
         th_min();
         const int64_t et = min64(ib_t, th_t);
         STT_PF_END(test, PF_PASS + P_TEST);
@@ -2429,6 +2773,13 @@ struct Lane {
     }
     flush_bits();
     store();
+    scan(SCAN_WRITEBACK);
+#ifdef STT_TCP_PROFILE
+    if (prof_)
+      for (int w = 0; w < W_N; w++)
+        prof_[PF_WORDS + w] += (int64_t)(pfw_[w >> 1] >> (32 * (w & 1)) &
+                                         0xFFFFFFFFu);
+#endif
   }
 };
 

@@ -24,7 +24,14 @@
 // over the whole outbox, three stable argsorts of every inbox row of
 // 24 columns: ~28 ms a round at 10,000 hosts) and a host sync, every
 // round.  Within a round the card's time follows the slowest lane's
-// window, as in stt_tcp_window.
+// window, as in stt_tcp_window: the window phase takes ~98% of a
+// 10,000-host span's cycles (PERF.md), set by a tgen server's law, one
+// thread's chain of dependent steps over its host and conn words and
+// the tile's scans of its rows (the timer heap's least ~25 k cycles a
+// call).  The lane frame (tcp_lane.cuh, "the frame") holds those words
+// in the tile's shared memory for the window; they were mostly L1 hits
+// before, so the chain's length, not where its words live, sets the
+// time at 10,000 hosts.
 //
 // Design.  One launch a span; the host fills the operand table once,
 // launches, and reads one block of span words and statistics at the
@@ -36,12 +43,15 @@
 //
 //   A  each tile (tcp_tile.cuh: 32 threads, 4 a block) takes lanes from
 //      the servers-first queue and steps each through its window with
-//      tcp_lane.cuh's lane law, unchanged (the leader runs the law, the
-//      tile its row scans); the leader keeps the lane's timer-heap least
-//      (the lane's kept minimum at its last busy/due test) and the tile
-//      compacts the lane's inbox row, a rank a column (before the first
-//      round, every thread fills the slots beyond the rows' lengths in
-//      inbox order, fill_rows, so that a warp's stores are contiguous);
+//      tcp_lane.cuh's lane law (the leader runs the law, the tile its row
+//      scans; the tile gathers the lane's frame first and writes its
+//      changed words back at the window's end, before the compaction
+//      below reads the lane's position); the leader keeps the lane's
+//      timer-heap least (the lane's kept minimum at its last busy/due
+//      test) and the tile compacts the lane's inbox row, a rank a
+//      column (before the first round, every thread fills the slots
+//      beyond the rows' lengths in inbox order, fill_rows, so that a
+//      warp's stores are contiguous);
 //   B  each outbox packet: propagation, a drop's counts and trace line,
 //      a kept packet's append to its destination row (round_packet), the
 //      least kept latency by a block reduction and one atomicMin a
@@ -378,6 +388,15 @@ extern "C" int stt_tcp_span_launch_shape(long long n, long long* out) {
   out[2] = b > 0 ? b : 0;
   out[3] = kSmem;
   return b < 0 ? -b : 0;
+}
+
+// The lane frame's shape (tcp_lane.cuh): conn rows a frame holds, its
+// bytes (a tile's), host words, conn words a row.
+extern "C" void stt_tcp_span_frame(long long* out) {
+  out[0] = kFrameConns;
+  out[1] = sizeof(Frame);
+  out[2] = kHostWords;
+  out[3] = kConnWords;
 }
 
 extern "C" const char* stt_tcp_span_error_string(int code) {

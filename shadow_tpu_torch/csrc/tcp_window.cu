@@ -16,9 +16,10 @@
 // must read each lane's last busy/due test, the slots it dequeues and
 // the packets it copies, and write the words it changes
 // (ops/tcp_window.py window_need_bytes).  The lanes are independent, so
-// the card's time follows the slowest lane's iterations, each a chain of
-// dependent trips to memory (the conn's words, its rings, the timer
-// heap), and its row scans: at 10,000 hosts a tgen server's timer heap
+// the card's time follows the slowest lane's iterations, each one
+// thread's chain of dependent steps (over the lane's host and conn
+// words, in its frame, and its rings' words), and its row scans: at
+// 10,000 hosts a tgen server's timer heap
 // holds ~1,300 stale RTO entries, which one thread a lane (the earlier
 // design) rescanned after every pop, one dependent load a slot, while 31
 // other lanes' branches took turns on its warp.
@@ -47,11 +48,20 @@
 // its scratch words (the queues among them) as the next window needs
 // them.
 //
+// The lane frame (tcp_lane.cuh, "the frame"): the tile gathers the
+// lane's host words and the conn words of its first kFrameConns conn
+// rows into shared memory when it takes the lane (cp.async, a rank a
+// word), the law reads and writes them there, and the tile writes the
+// changed ones back when the lane's window ends; the rows (the timer
+// heap, the rings, the inbox) are what the lane still reads from device
+// memory.
+//
 // Shared memory: one TeamScratch a tile (the SACK staging of kSackMax
-// distances and lengths, padded, the ranks' counts and breaks, and the
-// ranks' kept heap entries), kTiles a block, dynamic.  The kernel
-// refuses cap_ra > kSackMax.  kTeam = 32, kTiles = 4 and kKeep = 4
-// are the measured best of those tried (PERF.md).
+// distances and lengths, padded, the ranks' counts and breaks, the
+// ranks' kept heap entries and the lane frame), kTiles a block,
+// dynamic.  The kernel refuses cap_ra > kSackMax.  kTeam = 32,
+// kTiles = 4 and kKeep = 4 are the measured best of those tried
+// (PERF.md).
 //
 // The profiling build (-DSTT_TCP_PROFILE, its own library,
 // tools/tcp_window_profile.py) fills a row of clocks and counts per lane
@@ -296,6 +306,15 @@ extern "C" int stt_tcp_launch_shape(long long n, long long* out) {
   out[2] = blocks;
   out[3] = kSmem;
   return (int)e;
+}
+
+// The lane frame's shape (tcp_lane.cuh): conn rows a frame holds, its
+// bytes (a tile's), host words, conn words a row.
+extern "C" void stt_tcp_frame(long long* out) {
+  out[0] = stt::tcp::kFrameConns;
+  out[1] = sizeof(stt::tcp::Frame);
+  out[2] = stt::tcp::kHostWords;
+  out[3] = stt::tcp::kConnWords;
 }
 
 extern "C" const char* stt_tcp_error_string(int code) {

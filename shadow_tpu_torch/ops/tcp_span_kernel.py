@@ -70,6 +70,8 @@ def _declare_card(lib) -> None:
     lib.stt_tcp_span_launch_shape.argtypes = [ctypes.c_longlong,
                                               ctypes.c_void_p]
     lib.stt_tcp_span_launch_shape.restype = ctypes.c_int
+    lib.stt_tcp_span_frame.argtypes = [ctypes.c_void_p]
+    lib.stt_tcp_span_frame.restype = None
 
 
 LIBRARY = KernelLibrary("tcp_span.cu", "libstt_tcp_span.so", _declare_card,
@@ -231,13 +233,19 @@ class BoundTcpSpan:
 
 def launch_shape(lib, n: int) -> dict:
     """The span kernel's launch on the current card at n lanes: threads
-    a lane, lanes a block, blocks, dynamic shared memory a block."""
+    a lane, lanes a block, blocks, dynamic shared memory a block; and the
+    lane frame's conn rows, bytes (a tile's), host words and conn words
+    a row."""
     out = (ctypes.c_longlong * 4)()
     code = lib.stt_tcp_span_launch_shape(n, out)
     if code:
         raise RuntimeError(f"tcp_span launch shape: "
                            f"{lib.stt_tcp_span_error_string(code).decode()}")
-    return dict(zip(("team", "tiles", "blocks", "smem"), out))
+    frame = (ctypes.c_longlong * 4)()
+    lib.stt_tcp_span_frame(frame)
+    return dict(zip(("team", "tiles", "blocks", "smem", "frame_conns",
+                     "frame_bytes", "frame_host_words", "frame_conn_words"),
+                    list(out) + list(frame)))
 
 
 # An inbox entry's columns, and an outbox packet's: the ones every

@@ -7,11 +7,16 @@ pass (and the idle test before each pop), and by row-scan helper (the
 timer heap's minimum, the first free slot, the reassembly lookup, the
 SACK runs, the rtx ring walks, the qdisc pick, the holes test, the
 binary searches), the helpers' calls and the entries its scans visited,
-with its start and end on the card's global timer.  `profile_window`
-runs one window through it on a copy of a span state and checks that
-the profiled window equals the main kernel's; `report` prints the
-slowest lanes and the sums by lane class (a lane with several conn rows
-serves them: a tgen server).
+the law's word accesses by class (host words, conn words, the conn words
+still in device memory, row words), with its start and end on the
+card's global timer.  Before the lane frame every host and conn word
+the law touched was a device-memory trip; with it, only the conn words
+past the frame's cap are (`trips`: before and now, rows included).
+`profile_window` runs one window through it on a copy of a span state
+and checks that the profiled window equals the main kernel's; `report`
+prints the slowest lanes (cycles a micro-iteration among them) and the
+sums by lane class (a lane with several conn rows serves them: a tgen
+server).
 
 As a script it captures the 16-host stream's first in-domain export at
 2% loss, its wide-rows edit and, with `--hosts 10000`, the 10,000-host
@@ -45,8 +50,14 @@ HELPER_NAMES = ("th_min", "first_free", "ra_find", "sack_blocks", "rtx",
                 "qdisc", "holes", "search")
 # The tile's scans by op (csrc/tcp_lane.cuh ScanOp order).
 SCAN_NAMES = ("done", "th_min", "th_free", "ra_free", "ra_find", "ra_any",
-              "sack", "acked", "unsacked", "sack_mark", "renege", "qdisc")
+              "sack", "acked", "unsacked", "sack_mark", "renege", "qdisc",
+              "gather", "writeback")
 VISIT_NAMES = ("heap", "reassembly", "rtx")
+# The law's word accesses by class (csrc/tcp_lane.cuh W_*): host words
+# and conn words (in the lane frame, but for conn rows past its cap),
+# the conn words still in device memory, and the row words the law
+# moves itself (outside the tile's scans).
+WORD_NAMES = ("host", "conn", "conn_device", "row")
 
 
 def _declare(lib) -> None:
@@ -118,8 +129,17 @@ def profile_window(runner, base: dict, window_end: int,
 
 def _row(prof_row, layout) -> dict:
     lay = layout
+    words = {n: int(prof_row[lay["PF_WORDS"] + k])
+             for k, n in enumerate(WORD_NAMES)}
+    iters = int(prof_row[lay["PF_ITERS"]])
     return {"cycles": int(prof_row[lay["PF_CYCLES"]]),
-            "iters": int(prof_row[lay["PF_ITERS"]]),
+            "iters": iters,
+            "cycles_per_iter": int(prof_row[lay["PF_CYCLES"]])
+            / max(iters, 1),
+            "words": words,
+            "trips": {"before": words["host"] + words["conn"]
+                      + words["row"],
+                      "now": words["conn_device"] + words["row"]},
             "pass": {n: int(prof_row[lay["PF_PASS"] + k])
                      for k, n in enumerate(PASS_NAMES)},
             "helper": {n: int(prof_row[lay["PF_HELPER"] + k])
@@ -154,9 +174,13 @@ def report(tag: str, prof: np.ndarray, layout: dict, conn_off,
         out["slowest"].append(r)
         print(f"{tag} slow lane host {i} ({rows[i]} conn rows, SM "
               f"{r['sm']}): {r['iters']} iterations, {r['cycles']:,} "
-              f"cycles ({(end - start) / max(r['iters'], 1):.2f} us an "
+              f"cycles ({r['cycles_per_iter']:,.0f} cycles, "
+              f"{(end - start) / max(r['iters'], 1):.2f} us an "
               f"iteration; on the card from +{start:.1f} to +{end:.1f} "
-              f"us); passes: {_fmt(r['pass'])}; helpers (cycles): "
+              f"us); law word accesses: {_fmt(r['words'])}; device-memory "
+              f"trips of the law before the frame {r['trips']['before']:,}"
+              f", now {r['trips']['now']:,}; passes: {_fmt(r['pass'])}; "
+              f"helpers (cycles): "
               f"{_fmt(r['helper'])}; helper calls: {_fmt(r['calls'])}; "
               f"entries visited: {_fmt(r['visited'])}", flush=True)
     for name, mask in (("servers", rows > 1), ("clients", rows <= 1)):
@@ -169,7 +193,8 @@ def report(tag: str, prof: np.ndarray, layout: dict, conn_off,
         out["classes"][name] = r
         print(f"{tag} {name}: {r['lanes']} lanes, {r['cycles']:,} cycles "
               f"in all (slowest {r['max_cycles']:,}, at most "
-              f"{r['max_iters']} iterations); passes: {_fmt(r['pass'])}; "
+              f"{r['max_iters']} iterations); law word accesses: "
+              f"{_fmt(r['words'])}; passes: {_fmt(r['pass'])}; "
               f"helpers (cycles): {_fmt(r['helper'])}; helper calls: "
               f"{_fmt(r['calls'])}; entries visited: {_fmt(r['visited'])}",
               flush=True)
@@ -212,10 +237,15 @@ def capture(n_hosts: int, loss: float) -> tuple:
     return capture_tcp_export(Manager(cfg, device="cuda"), 1)
 
 
+FRAME_KEYS = ("frame_conns", "frame_bytes", "frame_host_words",
+              "frame_conn_words")
+
+
 def launch_shape(lib, n: int) -> dict:
     """Threads a tile, tiles a block, blocks a launch and dynamic shared
     memory a block of the library's kernel at n lanes, on the current
-    device."""
+    device, and the lane frame's shape (conn rows, bytes a tile, host
+    words, conn words a row)."""
     out = (ctypes.c_longlong * 4)()
     lib.stt_tcp_launch_shape.argtypes = [ctypes.c_longlong,
                                          ctypes.c_void_p]
@@ -224,7 +254,12 @@ def launch_shape(lib, n: int) -> dict:
     if err:
         raise RuntimeError(f"stt_tcp_launch_shape: "
                            f"{lib.stt_tcp_error_string(err).decode()}")
-    return dict(zip(("team", "tiles", "blocks", "smem"), out))
+    shape = dict(zip(("team", "tiles", "blocks", "smem"), out))
+    frame = (ctypes.c_longlong * 4)()
+    lib.stt_tcp_frame.argtypes = [ctypes.c_void_p]
+    lib.stt_tcp_frame.restype = None
+    lib.stt_tcp_frame(frame)
+    return dict(shape, **dict(zip(FRAME_KEYS, frame)))
 
 
 def main(argv=None) -> int:

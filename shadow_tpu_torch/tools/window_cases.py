@@ -127,6 +127,65 @@ def _flight_grid(d: dict, s: int, n_seg: int) -> tuple:
     return seq, plen
 
 
+def _waiting(d: dict) -> np.ndarray:
+    """Arrivals waiting in their host's inbox, by the server conn they are
+    for."""
+    role, host = d["c_role"], d["c_host"]
+    waiting = np.zeros(len(role), dtype=np.int64)
+    for h in np.unique(host[role == 1]):
+        for k in range(int(d["ib_pos"][h]), int(d["ib_len"][h])):
+            hit = np.flatnonzero((host == h) & (d["c_pip"] == d["ib_sip"][h, k])
+                                 & (d["c_pport"] == d["ib_sport"][h, k]))
+            waiting[hit] += 1
+    return waiting
+
+
+def tcp_over_cap(st_np: dict, rows: int) -> dict:
+    """A TCP export (numpy, as capture_tcp_export gives it) with one tgen
+    server serving `rows` conn rows: the server whose conn has the most
+    arrivals waiting takes idle conns (no data, no timer, not queued;
+    their peer ports 1, 2, ...) in the unused rows past the live conns,
+    and that busy conn trades rows with the last of them.  A lane's
+    conns are its rows in ascending order (the span's `_conn_rows`), so
+    the busy conn is the lane's last: with `rows` one more than the lane
+    frame's cap (csrc/tcp_lane.cuh kFrameConns) the law reaches it past
+    the frame, in device memory.  The conn indexes the state holds
+    (`cur`, the timer heap's targets) follow the trade."""
+    d = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+         for k, v in st_np.items()}
+    host = d["c_host"]
+    s = int(np.argmax(_waiting(d)))
+    h = int(host[s])
+    extra = rows - int((host == h).sum())
+    spare = np.flatnonzero(host < 0)[:extra]
+    assert extra > 0 and len(spare) == extra and d["c_role"][s] == 1
+    conn_keys = [k for k, v in d.items() if isinstance(v, np.ndarray)
+                 and tcp_span._is_conn_major(k)]
+    for k, e in enumerate(spare):
+        for key in conn_keys:
+            d[key][e] = 0
+        for key in ("c_role", "c_lip", "c_lport", "c_pip", "c_ourws",
+                    "c_peerws", "c_effmss", "c_congmss", "c_sbmax",
+                    "c_rbmax", "c_cwnd", "c_ssthresh", "c_rto"):
+            d[key][e] = d[key][s]
+        d["c_host"][e] = h
+        d["c_pport"][e] = 1 + k
+        for key in ("c_rtodl", "c_delackdl", "c_persistdl", "c_tmrdl",
+                    "c_fbyte"):
+            d[key][e] = -1
+    last = int(spare[-1])
+    for key in conn_keys:
+        d[key][[s, last]] = d[key][[last, s]]
+    conn_tgt = (d["th_kind"] != 0) & d["th_valid"]
+    tgt = d["th_tgt"]
+    d["th_tgt"] = np.where(conn_tgt & (tgt == s), last,
+                           np.where(conn_tgt & (tgt == last), s, tgt))
+    d["cur"] = np.where(d["cur"] == s, last,
+                        np.where(d["cur"] == last, s, d["cur"]))
+    d["_n_conns"] = max(int(d["_n_conns"]), last + 1)
+    return d
+
+
 def tcp_wide_rows(st_np: dict, seed: int = 0) -> dict:
     """A TCP export (numpy, as capture_tcp_export gives it) with its rows
     filled to width, still a state of the stream.  The server conn with
@@ -151,13 +210,7 @@ def tcp_wide_rows(st_np: dict, seed: int = 0) -> dict:
         return int(np.flatnonzero((d["c_pport"] == d["c_lport"][c])
                                   & (d["c_pip"] == d["c_lip"][c]))[0])
 
-    # Arrivals waiting, by the server conn they are for.
-    waiting = np.zeros(len(role), dtype=np.int64)
-    for h in np.unique(host[role == 1]):
-        for k in range(int(d["ib_pos"][h]), int(d["ib_len"][h])):
-            hit = np.flatnonzero((host == h) & (d["c_pip"] == d["ib_sip"][h, k])
-                                 & (d["c_pport"] == d["ib_sport"][h, k]))
-            waiting[hit] += 1
+    waiting = _waiting(d)
     s = int(np.argmax(waiting))
     n_seg = 480
     held = np.r_[2:100, 130:250, 300:380]  # a client's three runs
