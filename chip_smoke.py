@@ -37,10 +37,12 @@ Six phases; any failed check raises, so the script exits non-zero:
      the default stage's choice either side of it.
    - the PHOLD/udp-mesh window kernel (stt_phold_window) and span
      kernel (stt_phold_span) on exported span states of phold-8k,
-     mesh-codel-10 (inside its CoDel stretch) and phold-64k-ring: one
-     window, then four rounds with the eager round ends, through the
-     window kernel, and whole spans of one and of four rounds through
-     the span kernel, each against its plain version (the runner's eager
+     mesh-24 (in its paced stream), mesh-codel-10 (inside its CoDel
+     stretch) and phold-64k-ring: one window, then four rounds with the
+     eager round ends, through the window kernel, and whole spans of one
+     and of four rounds through the span kernel, at the team width its
+     wrapper picks from the lane count and at a team of one, each
+     against its plain version (the runner's eager
      loop) on copies of the same state: every state column, the outbox
      and trace in canonical order, the stage fires and lanes, the
      micro-iterations, the run's scalars and the abort bits exactly
@@ -364,6 +366,17 @@ def build_all():
         for ln in lib.log.splitlines():
             if ln.strip():
                 print(f"[build] {src}: {ln.strip()}", flush=True)
+    print(f"[build] stt_phold_span by team width: "
+          f"{json.dumps(phold_span_props())}", flush=True)
+
+
+def phold_span_props() -> dict:
+    """nvcc's registers, stack and spills of each team width's
+    instantiation of stt_phold_span (phold_span_kernel<W>)."""
+    from shadow_tpu_torch.ops import phold_span_kernel
+    parts = {w: f"phold_span_kernelILi{w}E" for w in (1, 8, 32)}
+    props = kernel_props(phold_span_kernel.LIBRARY, tuple(parts.values()))
+    return {w: props.get(part) for w, part in parts.items()}
 
 
 def adversarial(H: int, seed: int = 7):
@@ -888,9 +901,11 @@ def ring_config(spans: str, overlap: str):
 def window_cells() -> dict:
     """Phase 2's window exports: name -> (config, which in-domain export,
     runner caps).  mesh-codel-10's sixth export lies inside its CoDel
-    stretch (its traffic ends at 3.9 s)."""
+    stretch (its traffic ends at 3.9 s); mesh-24's second lies in its
+    paced stream, the one cell whose run is mostly the span kernel."""
     cells = phold_cells()
     return {"phold-8k": (cells["phold-8k"][0]("force"), 2, None),
+            "mesh-24": (cells["mesh-24"][0]("force"), 2, None),
             "mesh-codel-10": (cells["mesh-codel-10"][0]("force"), 6, None),
             "phold-64k-ring": (ring_config("force", "off"), 2, RING_CAPS)}
 
@@ -975,15 +990,18 @@ def check_phold_window() -> tuple:
 
     - the window kernel: one window, then four rounds with the eager
       round ends between the windows;
-    - the span kernel: whole spans of one and of four rounds;
+    - the span kernel: whole spans of one and of four rounds, at the
+      team width its wrapper picks from the lane count and at a team of
+      one;
 
     every state column, the outbox and the trace in canonical order,
     ks_fires, ks_lanes, the micro-iterations, the run's scalars (start,
     runahead, rounds, busy rounds, packets, busy end) and the abort bits
     exactly equal.  With the outbox cut to H + 2 slots (phold-8k and
-    phold-64k-ring) the plain loop and both kernels abort with AB_OUT
-    alone.  Times: the window kernel per launch (window_graph_ms) and
-    per wrapper call, the plain window, the bound from the bytes one
+    phold-64k-ring) the plain loop and both kernels (the span kernel at
+    both widths) abort with AB_OUT alone.  Times: the window kernel per
+    launch (window_graph_ms) and per wrapper call, the plain window, the
+    bound from the bytes one
     window must move (ops/phold_window.py window_need_bytes); the span
     kernel per four-round span and per round (span_card_ms), its host
     issue per launch, the plain loop's four rounds, the bound from the
@@ -991,7 +1009,8 @@ def check_phold_window() -> tuple:
     span_need_bytes, from the plain loop and the span kernel's operand
     table: each window's reads, each round end's packets and moved
     entries, the span's changed words once), and the span's phase
-    clocks.  Returns (window rows, span rows) by cell."""
+    clocks, each also at a team of one.  Returns (window rows, span
+    rows) by cell."""
     from shadow_tpu_torch.core.manager import Manager
     from shadow_tpu_torch.ops import phold_span_kernel as pks
     from shadow_tpu_torch.ops import phold_window as pw
@@ -1013,13 +1032,21 @@ def check_phold_window() -> tuple:
 
         def build(path: str):
             # "plain": the eager loop; "window": the window kernel and
-            # the eager round ends; "span": the span kernel.
+            # the eager round ends; "span": the span kernel at the team
+            # width its wrapper picks; "span1": at a team of one.
             runner.window_factory = {"plain": pw.eager_window,
                                      "window": pw.PHOLD_WINDOW.bind,
-                                     "span": None}[path]
-            return runner._build()
+                                     "span": None, "span1": None}[path]
+            runner.span_factory = None if path != "span1" else (
+                lambda shape, params: pks.PHOLD_SPAN.bind(shape, params,
+                                                          team=1))
+            try:
+                return runner._build()
+            finally:
+                runner.span_factory = None
 
-        plain, kern, span = build("plain"), build("window"), build("span")
+        plain, kern, span, span1 = (build("plain"), build("window"),
+                                    build("span"), build("span1"))
         assert span.span is not None and kern.step is not None
         print(f"{tag} export {nth} at {start / 1e9:.4f}s ({H} lanes, "
               f"window {runahead / 1e6:.3f} ms) in "
@@ -1056,8 +1083,10 @@ def check_phold_window() -> tuple:
                 for mr in (1, 4)}
         runs = [("window kernel", 4, kern(clone_state(base), pay,
                                           *args[4]))]
-        runs += [("span kernel", mr, span(clone_state(base), pay,
-                                          *args[mr])) for mr in (1, 4)]
+        runs += [(f"span kernel ({what})", mr, fn(clone_state(base), pay,
+                                                  *args[mr]))
+                 for what, fn in (("picked team", span), ("team 1", span1))
+                 for mr in (1, 4)]
         for what, mr, (rb, *rest_b) in runs:
             ra, *rest_a = want[mr]
             bad = window_mismatch(ra, rb) + [
@@ -1075,21 +1104,23 @@ def check_phold_window() -> tuple:
             raise AssertionError(f"{tag} no CoDel drop in four rounds")
         span_rounds = rest_a[2]
         del want, runs, ra
-        if name != "mesh-codel-10":
+        if name in ("phold-8k", "phold-64k-ring"):
             # One forced overflow: the outbox cut to H + 2 slots.
             cap = runner.cap_out
             runner.cap_out = H + 2
+            paths = ("plain", "window", "span", "span1")
             codes = [int(build(path)(clone_state(base), pay,
                                      *args[4])[0]["abort_code"])
-                     for path in ("plain", "window", "span")]
+                     for path in paths]
             runner.cap_out = cap
-            if codes != [AB_OUT] * 3:
+            if codes != [AB_OUT] * len(paths):
                 raise AssertionError(f"{tag} outbox overflow: abort bits "
-                                     f"{codes} (plain, window, span)")
+                                     f"{codes} ({', '.join(paths)})")
             print(f"{tag} outbox cut to H + 2: plain, window and span "
-                  f"kernel all abort with bits {codes[0]}", flush=True)
-            plain, kern, span = (build("plain"), build("window"),
-                                 build("span"))
+                  f"kernel (picked team and team 1) all abort with bits "
+                  f"{codes[0]}", flush=True)
+            plain, kern, span, span1 = (build("plain"), build("window"),
+                                        build("span"), build("span1"))
         ms = window_graph_ms(kern, base, pay, we, 10)
         call, ms_call = [], []
         for _ in range(5):
@@ -1141,13 +1172,18 @@ def check_phold_window() -> tuple:
                           if k != "total") + ")",
               flush=True)
         # The span kernel's times (one and four rounds), bound and phase
-        # clocks (four rounds).
+        # clocks (four rounds), at the picked team and at a team of one.
         card1, _ = span_card_ms(span, base, args[1], 5, pay)
         card, issue = span_card_ms(span, base, args[4], 5, pay)
-        c = clone_state(base)
-        span.prepare(c, pay)
-        got = span.span(c, pay, *args[4])
-        del c
+        card_w1, _ = span_card_ms(span1, base, args[4], 5, pay)
+        got = {}
+        for what, fn in (("picked", span), ("one", span1)):
+            c = clone_state(base)
+            fn.prepare(c, pay)
+            got[what] = fn.span(c, pay, *args[4])
+            del c
+        clk_w1 = got["one"]["clocks"]
+        got = got["picked"]
         sneed = pks.span_need_bytes(plain, span.span.table.ops,
                                     clone_state(base), pay, *args[4])
         clk = got["clocks"]
@@ -1161,7 +1197,10 @@ def check_phold_window() -> tuple:
                 "bound_ms": sneed["total"] / BANDWIDTH * 1e3,
                 "bytes": sneed["total"], "bound_parts": sneed,
                 "max_abs_err": 0, "H": H, "clocks": clk,
-                "blocks": span.span.blocks}
+                "blocks": span.span.blocks, "team": span.span.team,
+                "grids": span.span.grids,
+                "ms_team1": float(np.median(card_w1)),
+                "clocks_team1": clk_w1}
         span_stats[name] = srow
         share = {k: clk[k] / max(clk["span"], 1)
                  for k in ("window", "propagate", "settle", "wait")}
@@ -1173,8 +1212,12 @@ def check_phold_window() -> tuple:
               f"{srow['ms_max'] * 1e3:.3f}; a 1-round span "
               f"{srow['ms_1_round'] * 1e3:.3f} us), host issue "
               f"{srow['call_ms'] * 1e3:.1f} us per launch, launch to end "
-              f"{got['span_ms'] * 1e3:.1f} us; {srow['blocks']} blocks of "
-              f"64; plain loop {srow['plain_ms']:.3f} ms; bound "
+              f"{got['span_ms'] * 1e3:.1f} us; team {srow['team']} "
+              f"({srow['blocks']} blocks of 64 threads; blocks needed and "
+              f"held by team width {srow['grids']}); at a team of one "
+              f"{srow['ms_team1'] * 1e3:.3f} us per 4-round span, phase "
+              f"clocks {clk_w1}; plain loop {srow['plain_ms']:.3f} ms; "
+              f"bound "
               f"{srow['bound_ms'] * 1e3:.3f} us by bytes "
               f"({sneed['total']} B: window reads {sneed['window']}, "
               f"round ends {sneed['round_end']}, changed words "
@@ -2681,6 +2724,7 @@ def main(argv=None) -> int:
                 "ms_4_rounds": s.get("ms_4_rounds"),
                 "ms_uncached": s.get("ms_uncached"),
                 "phase_clocks": s.get("clocks"),
+                "team": s.get("team"), "ms_team1": s.get("ms_team1"),
                 "launch_shape": s.get("launch"),
                 "round_dispatch": s.get("dispatch"),
                 "main_path": main_path[name],

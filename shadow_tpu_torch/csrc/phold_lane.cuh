@@ -25,10 +25,14 @@
 // law are queue_laws.cuh's `bucket_law`, `codel_head_law` and
 // `control_time` (through `codel_ladder`), called in the lane.
 //
+// The lane law runs on one thread, the leader of the lane's team (see
+// "the team" below), which loads the lane's timer-heap bits and keys.
+//
 // Plain C++ apart from the STT_LAW qualifiers and the three shared-word
 // macros below (device atomics under __CUDACC__, plain operations in
 // the host build), so the tier-1 tests build this header with the system
-// C++ compiler and run the lanes serially (`window_serial`).
+// C++ compiler and run the lanes serially, each by a team of any size
+// whose ranks run in turn (`window_serial`).
 
 #pragma once
 
@@ -329,6 +333,44 @@ struct Pk {
   int64_t v[kPk];
 };
 
+// The profiling build (-DSTT_PHOLD_PROFILE, its own library; the main
+// kernels carry no timers): each lane accumulates clock64() cycles over
+// a launch's windows, by stage pass and by the busy/due test that
+// precedes each pop (PF_PASS + P_TEST), and by helper (the timer heap's
+// minimum and its push, the abort word's read, the outbox and trace
+// claims) with the helpers' calls; the span kernel adds the cycles of
+// the lane's row compaction and settle.  One row of PF_N words a lane.
+#define STT_PHOLD_PROFILE_WORDS(X)                                       \
+  X(PF_CYCLES, 0) X(PF_ITERS, 1) X(PF_WINDOWS, 2) X(PF_SM, 3)            \
+  X(PF_PASS, 4) X(P_TEST, 9) X(PF_HELPER, 14) X(PF_CALLS, 18)           \
+  X(PF_COMPACT, 22) X(PF_SETTLE, 23) X(PF_N, 24)                         \
+  X(H_TH_MIN, 0) X(H_TH_PUSH, 1) X(H_ABORT, 2) X(H_CLAIM, 3) X(H_N, 4)
+STT_PHOLD_PROFILE_WORDS(STT_PHOLD_CONST_DEF)
+constexpr char kProfileWords[] = STT_PHOLD_PROFILE_WORDS(STT_PHOLD_CONST_NAME);
+static_assert(PF_PASS + P_TEST + 1 <= PF_HELPER && P_TEST == kPasses &&
+                  PF_CALLS == PF_HELPER + H_N && PF_COMPACT == PF_CALLS + H_N,
+              "profile layout");
+
+#if defined(STT_PHOLD_PROFILE) && defined(__CUDACC__)
+// A register the clock that follows must wait for (a load's result).
+__device__ __forceinline__ void pf_use(int64_t v) {
+  asm volatile("mov.b64 %0, %0;" : "+l"(v));
+}
+#define STT_PF_BEGIN(name) const int64_t pf_##name = clock64()
+#define STT_PF_ADD(word, name) (pf_[word] += clock64() - pf_##name)
+#define STT_PF_CALL(h, name)              \
+  do {                                    \
+    STT_PF_ADD(PF_HELPER + (h), name);    \
+    pf_[PF_CALLS + (h)] += 1;             \
+  } while (0)
+#define STT_PF_USE(v) ::stt::phold::pf_use((int64_t)(v))
+#else
+#define STT_PF_BEGIN(name) ((void)0)
+#define STT_PF_ADD(word, name) ((void)0)
+#define STT_PF_CALL(h, name) ((void)0)
+#define STT_PF_USE(v) ((void)0)
+#endif
+
 // One lane's counts over a window: the iterations 0..63 at which it ran
 // each pass (later ones go straight to the shared bitmaps), how often it
 // ran each pass, its law calls and its iterations.
@@ -339,37 +381,202 @@ struct LaneStats {
   uint32_t iters;
 };
 
+// The lowest set bit of a nonzero word.
+STT_LAW int64_t ctz64(uint64_t v) {
+#ifdef __CUDACC__
+  return __ffsll((long long)v) - 1;
+#else
+  return __builtin_ctzll(v);
+#endif
+}
+
 // The inbox's time order pick (ops/phold_span.py pick_inbox).
 STT_LAW bool pick_inbox(int64_t ib_t, int64_t th_t) {
   return ib_t != th_t ? ib_t < th_t : ib_t < I64_MAX;
 }
 
-struct ThMin {
-  int64_t t, kind, tgt, slot;
+// -------- the team ----------------------------------------------------
+//
+// A host lane is stepped by a team of W threads of one warp (W a power
+// of two up to 32, a template parameter of the kernels, chosen per launch
+// from the lane count: ops/phold_span_kernel.py).  Rank 0, the leader,
+// runs the lane law below alone; the team loads the timer heap's valid
+// bits and keys at the window's start (heap_load) and does the round
+// end's row work (phold_round_end.cuh).  A team step gives rank r the
+// elements r, r + W, ... of a row, and joins the ranks' parts where it
+// needs one (team_or: a butterfly of shuffles on the card); in the host
+// build (a team of runtime size) the ranks run in turn.  Each team step
+// ends at a __syncwarp of the team, so the ranks' writes are seen by the
+// leader, and the leader's window ends before the team's row work
+// starts.
+//
+// The timer heap (the profile of the one-thread kernel: two serial
+// passes over the row for every busy/due test, a fifth of a few-lane
+// window's cycles; PERF.md).  The lane keeps the heap's valid bits in a
+// register (cap_t <= 64; the kernels refuse more), so a push takes the
+// first free bit with no scan, and keeps the heap's least entry (time,
+// slot) between tests: a push lower than it replaces it, the pop of it
+// drops it and the next test rescans the valid slots.  A team of more
+// than one keeps a copy of the valid slots' keys in its shared memory
+// (HeapStage: loaded with the valid bits, written by each push), which
+// the leader's rescan reads: a team argmin over the row, served by the
+// waiting ranks, measured slower than this scan (its entry and exit
+// cost more than 16 loads from shared memory; PERF.md).  The least is
+// the one th_min's masked argmin picks: the least time, then seq, then
+// the first slot; with no valid entry, time I64_MAX.
+
+constexpr int kMaskSlots = 64;  // cap_t at most: the valid bits' register
+
+// The heap's least entry by (time, seq, slot).
+struct HeapMin {
+  int64_t t, s, slot;
 };
 
-// One host lane: `o` and `p` are the window's tables, `i` the lane,
-// `window_end` the window's end (p.window_end unless the caller steps
-// several windows on one table).  The hot words live in members for the
-// window; every other column is read and written in memory, at the
-// lane's own row.
+STT_LAW HeapMin heap_none() { return {I64_MAX, I64_MAX, 0}; }
+
+STT_LAW bool heap_less(const HeapMin& a, const HeapMin& b) {
+  return a.t != b.t ? a.t < b.t : a.s != b.s ? a.s < b.s : a.slot < b.slot;
+}
+
+STT_LAW HeapMin heap_join(const HeapMin& a, const HeapMin& b) {
+  return heap_less(b, a) ? b : a;
+}
+
+// A team's copy of its lane's heap keys at the valid slots.
+struct HeapStage {
+  int64_t t[kMaskSlots], s[kMaskSlots];
+};
+
+#ifdef __CUDACC__
+template <int W>
+struct Team {
+  static_assert(W >= 1 && W <= 32 && (W & (W - 1)) == 0,
+                "a team is a power-of-two tile of one warp");
+  unsigned mask;  // the team's threads in their warp
+  int rank;       // 0 .. W - 1
+  int base;       // the warp lane of rank 0
+
+  __device__ static Team of_thread() {
+    const int lane = threadIdx.x & 31;
+    Team t;
+    t.base = lane & ~(W - 1);
+    t.rank = lane - t.base;
+    t.mask = W == 32 ? 0xffffffffu : ((1u << W) - 1) << t.base;
+    return t;
+  }
+};
+
+template <int W>
+__device__ __forceinline__ void team_sync(const Team<W>& t) {
+  if (W > 1) __syncwarp(t.mask);
+}
+
+template <int W>
+__device__ __forceinline__ int64_t team_bcast(const Team<W>& t, int64_t v) {
+  if (W == 1) return v;
+  return (int64_t)__shfl_sync(t.mask, (long long)v, 0, W);
+}
+
+// The OR of every rank's part(rank, W), the same on every rank.
+template <int W, class Part>
+__device__ __forceinline__ uint64_t team_or(const Team<W>& t, Part part) {
+  uint64_t v = part(t.rank, W);
+#pragma unroll
+  for (int m = W / 2; m > 0; m >>= 1)
+    v |= (uint64_t)__shfl_xor_sync(t.mask, (unsigned long long)v, m, W);
+  return v;
+}
+#else
+struct Team {
+  int size;  // the ranks, run in turn
+};
+
+inline void team_sync(const Team&) {}
+
+inline int64_t team_bcast(const Team&, int64_t v) { return v; }
+
+template <class Part>
+inline uint64_t team_or(const Team& t, Part part) {
+  uint64_t v = 0;
+  for (int r = 0; r < t.size; r++) v |= part(r, t.size);
+  return v;
+}
+#endif
+
+// The valid bits of lane i's heap row (bit k: slot k holds an entry),
+// the valid slots' keys copied into `stage` when there is one.
+template <class T>
+STT_LAW uint64_t heap_load(const T& t, const Ops& o, const Params& p,
+                           int64_t i, HeapStage* stage) {
+  const int64_t row = i * p.cap_t;
+  const uint64_t mask = team_or(t, [&](int r, int n) {
+    uint64_t m = 0;
+    for (int64_t k = r; k < p.cap_t; k += n) {
+      if (!o.th_valid[row + k]) continue;
+      m |= (uint64_t)1 << k;
+      if (stage) {
+        stage->t[k] = o.th_time[row + k];
+        stage->s[k] = o.th_seq[row + k];
+      }
+    }
+    return m;
+  });
+  team_sync(t);
+  return mask;
+}
+
+// The least entry of lane i's heap among the slots `mask` marks valid,
+// its keys read from `stage` when there is one.
+STT_LAW HeapMin heap_scan(const Ops& o, const Params& p, int64_t i,
+                          uint64_t mask, const HeapStage* stage) {
+  const int64_t row = i * p.cap_t;
+  HeapMin m = heap_none();
+  for (uint64_t b = mask; b != 0; b &= b - 1) {
+    const int64_t k = ctz64(b);
+    m = heap_join(m, stage ? HeapMin{stage->t[k], stage->s[k], k}
+                           : HeapMin{o.th_time[row + k], o.th_seq[row + k],
+                                     k});
+  }
+  return m;
+}
+
+// One host lane, stepped by the leader of its team: `o` and `p` are the
+// window's tables, `i` the lane, `mask` its heap's valid bits and
+// `stage` the team's copy of the valid keys (heap_load, by the team;
+// null at a team of one), and `window_end` the window's end
+// (p.window_end unless the caller steps several windows on one table).
+// The hot words live in members for the window; every other column is
+// read and written in memory, at the lane's own row.
 struct Lane {
   const Ops& o;
   const Params& p;
   const int64_t i;
   LaneStats& s;
   const int64_t window_end;
+  // The heap's valid bits, the team's copy of its keys, and its least
+  // entry's time and slot (th_slot -1: not kept, the next test rescans).
+  uint64_t th_mask;
+  HeapStage* const stage_;
+  int64_t th_t, th_slot;
   int64_t now, cont, then, status, event_seq, m_lcg;
   int64_t r1_bal, r1_next, r2_bal, r2_next;
   CodelWords cw;
   int64_t ib_len, ib_pos, rq_pos, rq_len, sq_pos, sq_len, cq_pos, cq_len;
-
-  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_)
-      : Lane(o_, p_, i_, s_, p_.window_end) {}
+#if defined(STT_PHOLD_PROFILE) && defined(__CUDACC__)
+  // The profiling build: the lane's profile row (null: not profiled) and
+  // its counts for this window, added into the row by run().
+  int64_t* prof_ = nullptr;
+  int64_t pf_[PF_N] = {};
+#endif
 
   STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
-               int64_t window_end_)
-      : o(o_), p(p_), i(i_), s(s_), window_end(window_end_) {
+               uint64_t mask, HeapStage* stage)
+      : Lane(o_, p_, i_, s_, mask, stage, p_.window_end) {}
+
+  STT_LAW Lane(const Ops& o_, const Params& p_, int64_t i_, LaneStats& s_,
+               uint64_t mask, HeapStage* stage, int64_t window_end_)
+      : o(o_), p(p_), i(i_), s(s_), window_end(window_end_),
+        th_mask(mask), stage_(stage), th_t(I64_MAX), th_slot(-1) {
     now = o.now[i];
     cont = o.cont[i];
     then = o.then[i];
@@ -423,40 +630,63 @@ struct Lane {
 
   // -------- primitive helpers -------------------------------------
 
+  // The first free slot by the valid bits; a full heap writes nothing.
+  // A kept least entry stays the least unless the new entry is below it.
   STT_LAW void th_push(int64_t t, int64_t seq, int64_t kind, int64_t tgt) {
-    const int64_t row = i * p.cap_t;
-    for (int64_t k = 0; k < p.cap_t; k++) {
-      if (!o.th_valid[row + k]) {
-        o.th_time[row + k] = t;
-        o.th_seq[row + k] = seq;
-        o.th_kind[row + k] = kind;
-        o.th_tgt[row + k] = tgt;
-        o.th_valid[row + k] = 1;
-        return;
+    STT_PF_BEGIN(push);
+    const uint64_t all = p.cap_t >= kMaskSlots
+                             ? ~(uint64_t)0
+                             : ((uint64_t)1 << p.cap_t) - 1;
+    const uint64_t free = ~th_mask & all;
+    if (free == 0) {
+      abort_(AB_STRUCT);
+    } else {
+      const int64_t k = ctz64(free);
+      const int64_t at = i * p.cap_t + k;
+      o.th_time[at] = t;
+      o.th_seq[at] = seq;
+      o.th_kind[at] = kind;
+      o.th_tgt[at] = tgt;
+      o.th_valid[at] = 1;
+      if (stage_) {
+        stage_->t[k] = t;
+        stage_->s[k] = seq;
+      }
+      th_mask |= (uint64_t)1 << k;
+      if (th_slot >= 0 && (t < th_t || (t == th_t && th_tie(seq, k)))) {
+        th_t = t;
+        th_slot = k;
       }
     }
-    abort_(AB_STRUCT);  // a full heap writes nothing
+    STT_PF_CALL(H_TH_PUSH, push);
   }
 
-  // The earliest timer (time, then seq; the first slot on ties), as
-  // th_min's masked argmin picks it, invalid slots reading I64_MAX.
-  STT_LAW ThMin th_min() const {
-    const int64_t row = i * p.cap_t;
-    int64_t best = I64_MAX;
-    for (int64_t k = 0; k < p.cap_t; k++) {
-      const int64_t t = o.th_valid[row + k] ? o.th_time[row + k] : I64_MAX;
-      best = t < best ? t : best;
-    }
-    int64_t best_seq = I64_MAX, slot = 0;
-    for (int64_t k = 0; k < p.cap_t; k++) {
-      const int64_t t = o.th_valid[row + k] ? o.th_time[row + k] : I64_MAX;
-      const int64_t sv = t == best ? o.th_seq[row + k] : I64_MAX;
-      if (sv < best_seq) {
-        best_seq = sv;
-        slot = k;
-      }
-    }
-    return {best, o.th_kind[row + slot], o.th_tgt[row + slot], slot};
+  // Whether an entry (th_t, seq, k) lies below the kept least (a tie of
+  // times: the seqs, then the slots).
+  STT_LAW bool th_tie(int64_t seq, int64_t k) const {
+    const int64_t least =
+        stage_ ? stage_->s[th_slot] : o.th_seq[i * p.cap_t + th_slot];
+    return seq != least ? seq < least : k < th_slot;
+  }
+
+  // The heap's least entry's time (its slot in th_slot): the kept one,
+  // or a rescan of the valid slots.
+  STT_LAW int64_t th_min() {
+    if (th_slot >= 0) return th_t;
+    STT_PF_BEGIN(min);
+    const HeapMin m = heap_scan(o, p, i, th_mask, stage_);
+    th_t = m.t;
+    th_slot = m.slot;
+    STT_PF_USE(th_t + th_slot);
+    STT_PF_CALL(H_TH_MIN, min);
+    return th_t;
+  }
+
+  // The pop of the least entry (slot `k`): its valid byte and bit clear.
+  STT_LAW void th_pop(int64_t k) {
+    o.th_valid[i * p.cap_t + k] = 0;
+    th_mask &= ~((uint64_t)1 << k);
+    th_slot = -1;
   }
 
   STT_LAW int64_t draw_seq() { return event_seq++; }
@@ -466,8 +696,25 @@ struct Lane {
     return m_lcg;
   }
 
+  // An append's slot (a warp-aggregated atomic on the card).
+  STT_LAW int64_t claim(int64_t* ctr) {
+    STT_PF_BEGIN(claim);
+    const int64_t k = STT_CLAIM(ctr);
+    STT_PF_USE(k);
+    STT_PF_CALL(H_CLAIM, claim);
+    return k;
+  }
+
+  STT_LAW bool abort_seen() {
+    STT_PF_BEGIN(ab);
+    const bool seen = STT_ABORT_SEEN(o.abort_code);
+    STT_PF_USE(seen);
+    STT_PF_CALL(H_ABORT, ab);
+    return seen;
+  }
+
   STT_LAW void out_append(int64_t dst, int64_t seq, const Pk& pk) {
-    const int64_t k = STT_CLAIM(o.out_n);
+    const int64_t k = claim(o.out_n);
     const int64_t slot = k < p.cap_out ? k : p.cap_out;
     o.out_src[slot] = i;
     o.out_dst[slot] = dst;
@@ -479,7 +726,7 @@ struct Lane {
 
   STT_LAW void trace(int64_t t, int64_t kind, const Pk& pk, int64_t reason) {
     if (!p.tracing) return;
-    const int64_t k = STT_CLAIM(o.tr_n);
+    const int64_t k = claim(o.tr_n);
     const int64_t slot = k < p.cap_tr ? k : p.cap_tr;
     o.tr_t[slot] = t;
     o.tr_kind[slot] = kind;
@@ -858,8 +1105,7 @@ struct Lane {
 
   // The due event at `et` of an idle lane: an arrival (inbox -> CoDel
   // ring -> relay 2) or a timer.
-  STT_LAW void op_pop_event(int64_t et, bool pick_ib, int64_t safe,
-                            const ThMin& th) {
+  STT_LAW void op_pop_event(int64_t et, bool pick_ib, int64_t safe) {
     now = et;
     o.events_run[i] += 1;
     const int64_t fault = o.h_fault[i];
@@ -895,19 +1141,22 @@ struct Lane {
       }
       return;
     }
-    o.th_valid[i * p.cap_t + th.slot] = 0;
+    const int64_t slot = th_slot;
+    const int64_t at = i * p.cap_t + slot;
+    const int64_t kind = o.th_kind[at], tgt = o.th_tgt[at];
+    th_pop(slot);
     if (h_down) return;  // a dead host's timers discard
-    if (th.kind == TK_RELAY) {
-      if (th.tgt == 1 || th.tgt == 2) {  // relay._wakeup
-        (th.tgt == 1 ? o.r1_pending : o.r2_pending)[i] = 0;
-        cont = th.tgt == 1 ? C_R1 : C_R2;
+    if (kind == TK_RELAY) {
+      if (tgt == 1 || tgt == 2) {  // relay._wakeup
+        (tgt == 1 ? o.r1_pending : o.r2_pending)[i] = 0;
+        cont = tgt == 1 ? C_R1 : C_R2;
         then = C_IDLE;
       }
-    } else if (th.kind == TK_APP_TIMEOUT) {
+    } else if (kind == TK_APP_TIMEOUT) {
       const int64_t seq = draw_seq();
-      if (th.tgt == 0 || th.tgt == 1) th_push(et, seq, TK_APP, th.tgt);
-    } else if (th.kind == TK_APP && (th.tgt == 0 || th.tgt == 1)) {
-      const bool seed = th.tgt == 1;
+      if (tgt == 0 || tgt == 1) th_push(et, seq, TK_APP, tgt);
+    } else if (kind == TK_APP && (tgt == 0 || tgt == 1)) {
+      const bool seed = tgt == 1;
       (seed ? o.s_wakep : o.m_wakep)[i] = 0;
       (seed ? o.s_waitmask : o.m_waitmask)[i] = 0;
       if ((seed ? o.s_exited : o.m_exited)[i] == 0)
@@ -920,58 +1169,96 @@ struct Lane {
   // The lane's fused iterations until it is neither busy nor due before
   // the window's end, or an abort is seen; then its hot words go back.
   STT_LAW void run() {
-    for (int64_t j = 0; !STT_ABORT_SEEN(o.abort_code); j++) {
+    STT_PF_BEGIN(run);
+    for (int64_t j = 0; !abort_seen(); j++) {
       if (cont == C_IDLE) {  // a busy lane does not pop
+        STT_PF_BEGIN(test);
         const int64_t safe = ib_pos < p.cap_i - 1 ? ib_pos : p.cap_i - 1;
         const int64_t ib_t =
             ib_len > ib_pos ? o.ib_time[i * p.cap_i + safe] : I64_MAX;
-        const ThMin th = th_min();
-        const int64_t et = ib_t < th.t ? ib_t : th.t;
+        const int64_t tt = th_min();
+        const int64_t et = ib_t < tt ? ib_t : tt;
+        STT_PF_ADD(PF_PASS + P_TEST, test);
         if (et >= window_end) break;  // neither busy nor due
-        const bool pick_ib = pick_inbox(ib_t, th.t);
+        const bool pick_ib = pick_inbox(ib_t, tt);
         mark(P_POP, j);
         if (!pick_ib) mark(P_TIM, j);
-        op_pop_event(et, pick_ib, safe, th);
+        STT_PF_BEGIN(pop);
+        op_pop_event(et, pick_ib, safe);
+        STT_PF_ADD(PF_PASS + P_POP, pop);
       }
       if (cont == C_M_STEP) {
         mark(P_MSTEP, j);
+        STT_PF_BEGIN(ms);
         op_step(false);
+        STT_PF_ADD(PF_PASS + P_MSTEP, ms);
       }
       if (cont == C_S_STEP) {
         mark(P_SSTEP, j);
+        STT_PF_BEGIN(ss);
         op_step(true);
+        STT_PF_ADD(PF_PASS + P_SSTEP, ss);
       }
       // Two relay passes: the second lets a drain that just emptied its
       // source take the exhausted-exit in the same iteration.
       for (int k = 0; k < 2; k++) {
         if (cont == C_R1) {
           mark(k ? P_R1B : P_R1A, j);
+          STT_PF_BEGIN(r1);
           op_relay<1>();
+          STT_PF_ADD(PF_PASS + (k ? P_R1B : P_R1A), r1);
         }
         if (cont == C_R2) {
           mark(k ? P_R2B : P_R2A, j);
+          STT_PF_BEGIN(r2);
           op_relay<2>();
+          STT_PF_ADD(PF_PASS + (k ? P_R2B : P_R2A), r2);
         }
       }
       if (cont == C_M_RECV || cont == C_S_POST) {
         mark(P_ARM, j);
+        STT_PF_BEGIN(arm);
         op_stage2();
+        STT_PF_ADD(PF_PASS + P_ARM, arm);
       }
       s.iters = (uint32_t)(j + 1);
       if (j > kValve) abort_(AB_STRUCT);  // a continuation cycle
     }
     store();
+#if defined(STT_PHOLD_PROFILE) && defined(__CUDACC__)
+    STT_PF_ADD(PF_CYCLES, run);
+    if (prof_) {
+      pf_[PF_ITERS] = s.iters;
+      pf_[PF_WINDOWS] = 1;
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      prof_[PF_SM] = sm;
+      for (int k = 0; k < PF_N; k++)
+        if (k != PF_SM) prof_[k] += pf_[k];
+    }
+#endif
   }
 };
 
 #ifndef __CUDACC__
-// The host build: every lane in turn, then the window's counts, as the
-// kernel's last block settles them.
-inline void window_serial(const Ops& o, const Params& p) {
+// The host build: every lane in turn, each by a team of `team` ranks run
+// in turn, then the window's counts, as the kernel's last block settles
+// them; `after(lane, team)` runs once a lane's window is done.  Returns 1 for
+// a table the lanes refuse (cap_t past the valid bits' register, a team
+// outside [1, 32]), else 0.
+template <class After>
+inline int window_serial(const Ops& o, const Params& p, int team,
+                         After after) {
+  if (p.cap_t > kMaskSlots || team < 1 || team > 32) return 1;
+  const Team t = {team};
+  HeapStage staged;
+  HeapStage* const stage = team > 1 ? &staged : nullptr;
   int64_t win_max = 0;
   for (int64_t i = 0; i < p.n; i++) {
     LaneStats s = {};
-    Lane(o, p, i, s).run();
+    Lane lane(o, p, i, s, heap_load(t, o, p, i, stage), stage);
+    lane.run();
+    after(lane, t);
     for (int q = 0; q < kPasses; q++) {
       o.bitmap[q * p.bitmap_words] |= (uint32_t)s.bits[q];
       o.bitmap[q * p.bitmap_words + 1] |= (uint32_t)(s.bits[q] >> 32);
@@ -990,6 +1277,11 @@ inline void window_serial(const Ops& o, const Params& p) {
     }
   }
   o.stats[ST_ITERS] += win_max;
+  return 0;
+}
+
+inline int window_serial(const Ops& o, const Params& p, int team = 1) {
+  return window_serial(o, p, team, [](Lane&, const Team&) {});
 }
 #endif
 

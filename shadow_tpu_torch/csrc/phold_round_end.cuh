@@ -13,16 +13,23 @@
 //                  a launch) writes the fill values beyond each row's
 //                  length, so that compaction only fills what it
 //                  vacates;
-//   compact_row    (the destination row's owner, after its window) moves
-//                  the row's unconsumed remainder to the front and writes
-//                  the fill values into the slots it vacates;
+//   compact_cols   (the row's team, right after the lane's window, a
+//                  rank a column) moves the row's unconsumed remainder to
+//                  the front and writes the fill values into the slots it
+//                  vacates; compact_done sets the row's position, length
+//                  and arrival count;
 //   round_packet   (each outbox packet) propagates the packet with
 //                  propagate_law.cuh's `propagate_lane` and, when kept,
 //                  appends it at rem[dst] + an atomic count per row; a
 //                  slot at or past I - 1 sets AB_STRUCT and writes
 //                  nothing, as the eager merge's `ok_slot` does;
-//   settle_row     (the owner again) sorts [0, len) by (time, src, seq)
-//                  and returns the row's next-event time.
+//   settle_*       (the row's team: the keys staged in its scratch,
+//                  each entry placed by a merge of the sorted remainder
+//                  and the arrivals, the columns moved through the
+//                  scratch; settle_row at a team of one, an insertion
+//                  sort in place) sort [0, len) by (time, src, seq) and
+//                  give the row's head time; the lane's heap least, kept
+//                  by its window, completes the row's next-event time.
 //
 // (src, seq) is unique per packet (a host draws each seq once), so the
 // sorted row does not depend on the order in which arrivals were
@@ -161,23 +168,30 @@ STT_LAW void fill_rows(const Ops& o, const RoundOps& r, const Params& p,
   for (int c = 0; c < kInboxCols; c++) inbox_col(r, c)[x] = inbox_fill(c);
 }
 
-// The owner, after its window: the unconsumed remainder [pos, len) to
-// the front, ib_pos to 0 and ib_len to the remainder, the vacated slots
-// [rem, len) filled, the row's arrival count cleared.
-STT_LAW void compact_row(const Ops& o, const RoundOps& r, const Params& p,
-                         int64_t i, int64_t pos, int64_t len) {
-  const int64_t row = i * p.cap_i;
+// Rank `rank` of `size` of row i's team, after the lane's window (its
+// position `pos`, its length `len`): columns rank, rank + size, ... of
+// the row, the unconsumed remainder [pos, len) moved to the front and
+// the vacated slots [len - pos, len) filled.
+STT_LAW void compact_cols(const RoundOps& r, const Params& p, int64_t i,
+                          int64_t pos, int64_t len, int rank, int size) {
+  if (pos <= 0) return;
   const int64_t rem = len - pos;
-  if (pos > 0) {
-    for (int c = 0; c < kInboxCols; c++) {
-      int64_t* const col = inbox_col(r, c) + row;
-      for (int64_t k = 0; k < rem; k++) col[k] = STT_LOAD(&col[pos + k]);
-      const int64_t fill = inbox_fill(c);
-      for (int64_t k = rem; k < len; k++) col[k] = fill;
-    }
+  for (int c = rank; c < kInboxCols; c += size) {
+    int64_t* const col = inbox_col(r, c) + i * p.cap_i;
+    for (int64_t k = 0; k < rem; k++) col[k] = STT_LOAD(&col[pos + k]);
+    const int64_t fill = inbox_fill(c);
+    for (int64_t k = rem; k < len; k++) col[k] = fill;
   }
-  if (pos != 0) o.ib_pos[i] = 0;
-  if (len != rem) r.ib_len[i] = rem;
+}
+
+// The row's words once its columns are compacted: position 0, length the
+// remainder, no arrivals yet.
+STT_LAW void compact_done(const Ops& o, const RoundOps& r, int64_t i,
+                          int64_t pos, int64_t len) {
+  if (pos != 0) {
+    o.ib_pos[i] = 0;
+    r.ib_len[i] = len - pos;
+  }
   r.arrivals[i] = 0;
 }
 
@@ -235,22 +249,34 @@ STT_LAW bool inbox_less(int64_t t, int64_t s, int64_t q, int64_t t2,
   return t != t2 ? t < t2 : s != s2 ? s < s2 : q < q2;
 }
 
-// The owner, after the appends: the row's length, its [0, len) sorted
-// by (time, src, seq) (an insertion sort in place, every column moved
-// with its key: the remainder is sorted already, so only the arrivals
-// move), and the row's next-event time, min(inbox head, earliest timer),
-// as ops/phold_span.py next_event_time takes it.
-STT_LAW int64_t settle_row(const Ops& o, const RoundOps& r, const Params& p,
-                           int64_t i) {
-  const int64_t row = i * p.cap_i;
+// Row i's settle: its first slot, the remainder the compaction left, its
+// final length (the appends past I - 1 wrote nothing).
+struct RowSettle {
+  int64_t row, rem, len;
+};
+
+STT_LAW RowSettle settle_begin(const RoundOps& r, const Params& p,
+                               int64_t i) {
   const int64_t rem = STT_LOAD(&r.ib_len[i]);
   int64_t len = rem + STT_LOAD(&r.arrivals[i]);
   len = len < p.cap_i - 1 ? len : p.cap_i - 1;
   len = len > rem ? len : rem;
-  int64_t* const t = r.ib_time + row;
-  int64_t* const s = r.ib_src + row;
-  int64_t* const q = r.ib_seq + row;
-  for (int64_t k = 1; k < len; k++) {
+  return {i * p.cap_i, rem, len};
+}
+
+// A row settled by one thread (a team of one, the ring's width): the
+// row's [0, len) insertion-sorted by (time, src, seq) in place, every
+// column moved with its key (the remainder is sorted already, so only
+// the arrivals move), its length written; returns the row's head time.
+// A team of one has no scratch of its own (64 lanes a block), and in the
+// one-thread kernel this phase took 3% of the ring's span: the rows
+// there hold a few entries.
+STT_LAW int64_t settle_row(const RoundOps& r, const RowSettle& w,
+                           int64_t i) {
+  int64_t* const t = r.ib_time + w.row;
+  int64_t* const s = r.ib_src + w.row;
+  int64_t* const q = r.ib_seq + w.row;
+  for (int64_t k = 1; k < w.len; k++) {
     const int64_t tk = STT_LOAD(&t[k]), sk = STT_LOAD(&s[k]),
                   qk = STT_LOAD(&q[k]);
     int64_t m = k;
@@ -259,19 +285,121 @@ STT_LAW int64_t settle_row(const Ops& o, const RoundOps& r, const Params& p,
       m--;
     if (m == k) continue;
     for (int c = 0; c < kInboxCols; c++) {
-      int64_t* const col = inbox_col(r, c) + row;
+      int64_t* const col = inbox_col(r, c) + w.row;
       const int64_t v = STT_LOAD(&col[k]);
       for (int64_t x = k; x > m; x--) col[x] = STT_LOAD(&col[x - 1]);
       col[m] = v;
     }
   }
-  if (len != rem) r.ib_len[i] = len;
-  int64_t next = len > 0 ? STT_LOAD(&t[0]) : I64_MAX;
-  const int64_t trow = i * p.cap_t;
-  for (int64_t k = 0; k < p.cap_t; k++)
-    if (o.th_valid[trow + k] && o.th_time[trow + k] < next)
-      next = o.th_time[trow + k];
-  return next;
+  if (w.len != w.rem) r.ib_len[i] = w.len;
+  return w.len > 0 ? STT_LOAD(&t[0]) : I64_MAX;
+}
+
+// ---- a row settled by its team ----
+
+// The rows a team's settle stages in its scratch: cap_i <= kRowMax (a
+// wider inbox runs at a team of one).
+constexpr int kRowMax = 64;
+
+// A row's keys and each entry's final slot, and its head time.
+struct SettleScratch {
+  int64_t t[kRowMax], s[kRowMax], q[kRowMax];
+  int8_t dst[kRowMax];
+  int64_t head;
+};
+
+STT_LAW bool row_less(const SettleScratch& x, int64_t a, int64_t b) {
+  return inbox_less(x.t[a], x.s[a], x.q[a], x.t[b], x.s[b], x.q[b]);
+}
+
+// Stage the keys of [0, len): entries k = rank, rank + size, ...
+STT_LAW void settle_stage(const RoundOps& r, SettleScratch& x,
+                          const RowSettle& w, int rank, int size) {
+  for (int64_t k = rank; k < w.len; k += size) {
+    x.t[k] = STT_LOAD(&r.ib_time[w.row + k]);
+    x.s[k] = STT_LOAD(&r.ib_src[w.row + k]);
+    x.q[k] = STT_LOAD(&r.ib_seq[w.row + k]);
+  }
+}
+
+// Whether the remainder's entries rank, rank + size, ... each follow
+// their predecessor (a part of the sortedness check).
+STT_LAW bool settle_sorted_part(const SettleScratch& x, const RowSettle& w,
+                                int rank, int size) {
+  for (int64_t k = 1 + rank; k < w.rem; k += size)
+    if (row_less(x, k, k - 1)) return false;
+  return true;
+}
+
+// Each staged entry's final slot, stably as the eager lexsort places it:
+// the entries below it, and its equals before it.  With the remainder
+// sorted (the engine exports a row sorted, each settle leaves it sorted
+// and a window consumes its head) a remainder entry's slot is its own
+// plus the arrivals below it, and an arrival's the remainder below it (a
+// binary search) plus the arrivals below it: each rank counts keys below
+// its own.  The entry that lands in slot 0 gives the head time.
+STT_LAW void settle_dest(SettleScratch& x, const RowSettle& w, bool sorted,
+                         int rank, int size) {
+  for (int64_t k = rank; k < w.len; k += size) {
+    int64_t d = 0, from = 0;
+    if (sorted && k < w.rem) {
+      d = k;
+      from = w.rem;
+    } else if (sorted) {
+      int64_t lo = 0, hi = w.rem;  // remainder entries below k
+      while (lo < hi) {
+        const int64_t mid = (lo + hi) / 2;
+        if (row_less(x, k, mid))
+          hi = mid;
+        else
+          lo = mid + 1;
+      }
+      d = lo;
+      from = w.rem;
+    }
+    for (int64_t m = from; m < w.len; m++)
+      if (row_less(x, m, k) || (m < k && !row_less(x, k, m))) d++;
+    x.dst[k] = (int8_t)d;
+    if (d == 0) x.head = x.t[k];
+  }
+}
+
+// The staged keys to their final slots (entries that move only).
+STT_LAW void settle_keys(const RoundOps& r, const SettleScratch& x,
+                         const RowSettle& w, int rank, int size) {
+  for (int64_t k = rank; k < w.len; k += size) {
+    const int64_t d = x.dst[k];
+    if (d == k) continue;
+    r.ib_time[w.row + d] = x.t[k];
+    r.ib_src[w.row + d] = x.s[k];
+    r.ib_seq[w.row + d] = x.q[k];
+  }
+}
+
+// Packet column c of the row: staged into x.t (after settle_keys), then
+// stored at the final slots.
+STT_LAW void settle_load_col(const RoundOps& r, SettleScratch& x,
+                             const RowSettle& w, int c, int rank,
+                             int size) {
+  for (int64_t k = rank; k < w.len; k += size)
+    x.t[k] = STT_LOAD(&r.ib[c][w.row + k]);
+}
+
+STT_LAW void settle_store_col(const RoundOps& r, const SettleScratch& x,
+                              const RowSettle& w, int c, int rank,
+                              int size) {
+  for (int64_t k = rank; k < w.len; k += size)
+    if (x.dst[k] != k) r.ib[c][w.row + x.dst[k]] = x.t[k];
+}
+
+// The row's length and head time once settled by its team (one rank).
+STT_LAW int64_t settle_end(const RoundOps& r, const SettleScratch& x,
+                           const RowSettle& w, int64_t i) {
+  if (w.len > w.rem) {
+    r.ib_len[i] = w.len;
+    return x.head;
+  }
+  return w.len > 0 ? STT_LOAD(&r.ib_time[w.row]) : I64_MAX;
 }
 
 // One thread's close of the round's appends (after every packet): the
@@ -333,17 +461,54 @@ struct SpanRun {
 };
 
 #ifndef __CUDACC__
-// The host build: the kernel's phases in turn, every lane and packet of
-// a phase before the next phase.  `order`, when given, visits the
-// round's outbox packets in that order instead (a permutation of
-// [0, n), drawn by the caller), which the kernel's atomic appends may do.
+// The host build: the lane's heap least after its window (its kept
+// least, or a rescan when an abort ended the window first), then its row
+// compacted by the ranks in turn; returns the heap least's time.
+inline int64_t lane_done(const RoundOps& r, Lane& lane, const Team& t) {
+  const int64_t timer = lane.th_min();
+  const int64_t pos = lane.ib_pos, len = lane.ib_len;
+  for (int rank = 0; rank < t.size; rank++)
+    compact_cols(r, lane.p, lane.i, pos, len, rank, t.size);
+  compact_done(lane.o, r, lane.i, pos, len);
+  return timer;
+}
+
+// Row i settled by `size` ranks run in turn, each step by every rank
+// before the next (one rank: settle_row); returns the row's head time.
+inline int64_t settle_team(const RoundOps& r, const Params& p, int64_t i,
+                           int size, SettleScratch& x) {
+  const RowSettle w = settle_begin(r, p, i);
+  if (size == 1) return settle_row(r, w, i);
+  if (w.len > w.rem) {
+    for (int k = 0; k < size; k++) settle_stage(r, x, w, k, size);
+    bool sorted = true;
+    for (int k = 0; k < size; k++)
+      sorted = settle_sorted_part(x, w, k, size) && sorted;
+    for (int k = 0; k < size; k++) settle_dest(x, w, sorted, k, size);
+    for (int k = 0; k < size; k++) settle_keys(r, x, w, k, size);
+    for (int c = 0; c < kPk; c++) {
+      for (int k = 0; k < size; k++) settle_load_col(r, x, w, c, k, size);
+      for (int k = 0; k < size; k++) settle_store_col(r, x, w, c, k, size);
+    }
+  }
+  return settle_end(r, x, w, i);
+}
+
+// The host build: the kernel's phases in turn, every lane, packet and row
+// of a phase before the next phase, each lane and row by a team of
+// `team` ranks run in turn.  `order`, when given, visits the round's
+// outbox packets in that order instead (a permutation of [0, n), drawn
+// by the caller), which the kernel's atomic appends may do.  Returns 0,
+// or 1 for a table the kernel refuses (window_serial's; a team of more
+// than one on an inbox wider than kRowMax).
 template <class Order>
-inline void span_serial(const SpanOps& so, const SpanParams& sp,
-                        Order order) {
+inline int span_serial(const SpanOps& so, const SpanParams& sp, int team,
+                       Order order) {
   const Ops& o = so.w;
   const RoundOps& r = so.r;
   const RoundParams& q = sp.r;
   Params p = sp.w;
+  if (team > 1 && p.cap_i > kRowMax) return 1;
   SpanRun run = SpanRun::begin(q);
   for (int slot = 0; slot < 2; slot++) {
     r.words[SW_NEXT + slot] = I64_MAX;
@@ -351,13 +516,16 @@ inline void span_serial(const SpanOps& so, const SpanParams& sp,
   }
   if (run.go(q))
     for (int64_t x = 0; x < p.n * p.cap_i; x++) fill_rows(o, r, p, x);
-  while (run.go(q)) {
+  SettleScratch* const x = new SettleScratch;
+  int err = 0;
+  while (run.go(q) && !err) {
     const int slot = (int)(run.rounds & 1);
     p.window_end = run.window_end(q);
-    // A: the lanes' windows, then each owner compacts its row.
-    window_serial(o, p);
-    for (int64_t i = 0; i < p.n; i++)
-      compact_row(o, r, p, i, o.ib_pos[i], o.ib_len[i]);
+    // A: the lanes' windows, each lane's heap least into the round's
+    // next-event word and its row compacted after it.
+    err = window_serial(o, p, team, [&](Lane& lane, const Team& t) {
+      STT_MIN(&r.words[SW_NEXT + slot], lane_done(r, lane, t));
+    });
     // B: every packet of the outbox.
     r.words[SW_NEXT + 1 - slot] = I64_MAX;
     r.words[SW_MIN_LAT + 1 - slot] = I64_MAX;
@@ -367,16 +535,16 @@ inline void span_serial(const SpanOps& so, const SpanParams& sp,
                                        order(k, n));
       STT_MIN(&r.words[SW_MIN_LAT + slot], lat);
     }
-    // C: the rows settled, the round closed.
+    // C: the round closed, the rows settled.
     close_round(o, r, p, slot);
-    for (int64_t i = 0; i < p.n; i++) {
-      const int64_t next = settle_row(o, r, p, i);
-      STT_MIN(&r.words[SW_NEXT + slot], next);
-    }
+    for (int64_t i = 0; i < p.n; i++)
+      STT_MIN(&r.words[SW_NEXT + slot], settle_team(r, p, i, team, *x));
     // D: the next round's scalars.
     run.advance(r.words, slot, p.window_end);
   }
+  delete x;
   run.finish(r.words);
+  return err;
 }
 #endif
 

@@ -24,9 +24,11 @@
 // follows the slowest lane's iterations, each a few dependent trips to
 // memory (not profiled; PERF.md).
 //
-// Design.  One thread per lane, grid stride, blocks of kThreads.  The
-// lane's hot words (time, continuation, status, seqs, the buckets' and
-// CoDel's words, ring positions) live in registers for the window and
+// Design.  One thread per lane (the span kernel's team of one: this
+// kernel is off the main path and stays at that width), grid stride,
+// blocks of kThreads.  The lane's hot words (time, continuation, status,
+// seqs, the buckets' and CoDel's words, ring positions, the timer heap's
+// valid bits and kept least entry) live in registers for the window and
 // go back once, where changed; rings, the timer heap and counters are
 // read and written at the lane's own rows.  Outbox and trace slots come
 // from a warp-aggregated atomicAdd on out_n / tr_n (phold_lane.cuh
@@ -56,6 +58,8 @@ using stt::phold::kPasses;
 using stt::phold::LaneStats;
 using stt::phold::Ops;
 using stt::phold::Params;
+// A lane a thread: the span kernel's team of one (phold_lane.cuh).
+using Team = stt::phold::Team<1>;
 
 // Threads a block.  The lanes diverge from their first iteration, so a
 // block's size buys latency hiding and spread over the SMs, not
@@ -102,7 +106,12 @@ __global__ void __launch_bounds__(kThreads)
        base += (int64_t)gridDim.x * blockDim.x) {
     const int64_t i = base + threadIdx.x;
     LaneStats s = {};
-    if (i < p.n) stt::phold::Lane(o, p, i, s).run();
+    if (i < p.n) {
+      const Team t = Team::of_thread();
+      stt::phold::Lane(o, p, i, s, stt::phold::heap_load(t, o, p, i, nullptr),
+                       nullptr)
+          .run();
+    }
     __syncwarp();
     flush_warp(o, p, s);
   }
@@ -166,6 +175,7 @@ extern "C" int stt_phold_window(const void* const* ptrs,
   Params p;
   std::memcpy(&p, words, sizeof(p));
   if (p.n <= 0) return 0;
+  if (p.cap_t > stt::phold::kMaskSlots) return (int)cudaErrorInvalidValue;
   phold_window_kernel<<<blocks_for(p.n), kThreads, 0,
                         (cudaStream_t)stream>>>(o, p);
   return (int)cudaGetLastError();

@@ -18,9 +18,12 @@ reads one block of span words and statistics at the end.
 - `PholdSpan` is the wrapper and `PHOLD_SPAN` its one instance.  `bind`
   makes one span build's span step, which launches the kernel on CUDA
   tensors or raises (a cooperative launch the card refuses raises too);
-  it never runs on a CPU tensor.  Its plain integer counters: `launches`
-  (bumped only where it launches) and `host_reads` (the span words read
-  back, one a launch).
+  it never runs on a CPU tensor.  The kernel steps a lane with a team of
+  W threads; the step launches the instantiation `pick_team` chooses
+  from the lane count (32 or 8 where the teams fit in a warp an SM,
+  else 1), or the one `bind(..., team=W)` names.  Its plain integer
+  counters: `launches` (bumped only where it launches) and `host_reads`
+  (the span words read back, one a launch).
 - `SpanTable` is the window kernel's name-driven operand table
   (ops/phold_window.py `WindowTable`) over both tables, with the span's
   buffers: the iteration bitmaps, the per-row arrival counts, and one
@@ -55,11 +58,14 @@ def _declare(lib) -> None:
                lib.stt_phold_stats):
         fn.argtypes = []
         fn.restype = ctypes.c_char_p
-    lib.stt_phold_bitmap_words.argtypes = []
-    lib.stt_phold_bitmap_words.restype = ctypes.c_longlong
-    lib.stt_phold_span_grid.argtypes = [ctypes.c_longlong]
+    lib.stt_phold_span_teams.argtypes = []
+    lib.stt_phold_span_teams.restype = ctypes.c_char_p
+    for fn in (lib.stt_phold_bitmap_words, lib.stt_phold_span_row_max):
+        fn.argtypes = []
+        fn.restype = ctypes.c_longlong
+    lib.stt_phold_span_grid.argtypes = [ctypes.c_longlong, ctypes.c_int, p]
     lib.stt_phold_span_grid.restype = ctypes.c_int
-    lib.stt_phold_span.argtypes = [p, p, ctypes.c_int, p]
+    lib.stt_phold_span.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p]
     lib.stt_phold_span.restype = ctypes.c_int
 
 
@@ -128,6 +134,45 @@ class SpanTable(WindowTable):
         return out
 
 
+def pick_team(n: int, grids: dict, sms: int, cap_i: int,
+              row_max: int) -> tuple:
+    """The team width and grid of a span of n lanes: `grids` maps each
+    width the library holds to (blocks its lanes need, blocks the card
+    holds at once), `sms` is the card's SMs.  The widest width whose
+    teams fit in a warp an SM (n * W <= 32 * sms; a wider team also
+    needs cap_i <= row_max, its settle's scratch): there every lane
+    gets warps of its own where its law runs alone, on an SM that would
+    otherwise idle.  Past that budget a team of one a lane: 32 lanes a
+    warp share each instruction of the law, which measured faster than
+    any wider team at 8,192 lanes (PERF.md), on at most the
+    blocks the card holds at once, the lanes grid-stride.  Returns
+    (team, blocks); blocks 0 when the card cannot launch a cooperative
+    grid."""
+    for team in sorted(grids, reverse=True):
+        need, cap = grids[team]
+        if team > 1 and cap_i <= row_max and n * team <= 32 * sms \
+                and 0 < need <= cap:
+            return team, need
+    need, cap = grids[1]
+    return 1, min(need, cap)
+
+
+def launch_grids(lib, n: int) -> tuple:
+    """(each team width the library holds -> (blocks its n lanes need,
+    blocks the card holds at once), the card's SMs), on the current
+    device."""
+    out = (ctypes.c_longlong * 4)()
+    grids = {}
+    for team in map(int, lib.stt_phold_span_teams().decode().split()):
+        err = lib.stt_phold_span_grid(n, team, out)
+        if err:
+            raise RuntimeError(
+                f"phold_span grid at team {team}: "
+                f"{lib.stt_phold_span_error_string(err).decode()}")
+        grids[team] = (int(out[0]), int(out[1]))
+    return grids, int(out[3])
+
+
 class PholdSpan:
     """Wrapper of `stt_phold_span` (replaces the reference's
     PholdSpanRunner._build.run, shadow_tpu/ops/phold_span.py:1675, with
@@ -138,10 +183,12 @@ class PholdSpan:
         self.launches = 0
         self.host_reads = 0
 
-    def bind(self, shape: dict, params: dict) -> "BoundPholdSpan":
+    def bind(self, shape: dict, params: dict,
+             team: int | None = None) -> "BoundPholdSpan":
         """One span build's span step (`shape`, `params`: as SpanTable
-        takes them)."""
-        return BoundPholdSpan(self, shape, params)
+        takes them) at the team width `pick_team` chooses, or at `team`
+        (a width the library holds)."""
+        return BoundPholdSpan(self, shape, params, team)
 
 
 class BoundPholdSpan:
@@ -152,11 +199,14 @@ class BoundPholdSpan:
     events just before the launch call and after it, so the launch's
     host issue is in it; `chip_smoke.py` times the card alone)."""
 
-    def __init__(self, wrapper: PholdSpan, shape: dict, params: dict):
+    def __init__(self, wrapper: PholdSpan, shape: dict, params: dict,
+                 team: int | None = None):
         self.wrapper = wrapper
         self.shape, self.params = shape, params
         self.table = None
         self.blocks = 0
+        self.team = team
+        self.grids = {}
 
     def begin(self, st: dict, pay: int) -> None:
         dev = st["now"].device
@@ -165,14 +215,23 @@ class BoundPholdSpan:
                              f"{dev}; the CPU runs the eager loop")
         if self.table is None:
             lib = self.wrapper.library.build()
-            blocks = lib.stt_phold_span_grid(self.shape["n"])
-            if blocks < 0:
-                self.wrapper.library.check(-blocks, "phold_span grid")
+            self.grids, sms = launch_grids(lib, self.shape["n"])
+            team, blocks = pick_team(self.shape["n"], self.grids, sms,
+                                     self.shape["I"],
+                                     lib.stt_phold_span_row_max())
+            if self.team is not None:
+                if self.team not in self.grids:
+                    raise ValueError(f"phold_span: no team width "
+                                     f"{self.team} (the library holds "
+                                     f"{sorted(self.grids)})")
+                team = self.team
+                need, cap = self.grids[team]
+                blocks = min(need, cap)
             if blocks == 0:
                 raise RuntimeError("phold_span: the card does not take "
                                    "cooperative launches")
             self.table = SpanTable(lib, self.shape, self.params)
-            self.blocks = blocks
+            self.team, self.blocks = team, blocks
         self.table.begin(st, pay)
 
     def launch(self, st: dict, start: int, stop: int, limit: int,
@@ -182,7 +241,7 @@ class BoundPholdSpan:
             st, start=start, stop=stop, limit=limit, runahead=runahead,
             max_rounds=max_rounds)
         code = self.table.lib.stt_phold_span(
-            table, words, self.blocks,
+            table, words, self.team, self.blocks,
             torch.cuda.current_stream(st["now"].device).cuda_stream)
         self.wrapper.launches += 1
         self.wrapper.library.check(code, "phold_span")

@@ -46,6 +46,8 @@ def test_torch_port_file_list_is_complete():
                  "shadow_tpu_torch/ops/queues.py",
                  "shadow_tpu_torch/ops/propagate.py",
                  "shadow_tpu_torch/tools/netgen.py",
+                 "shadow_tpu_torch/tools/phold_span_profile.py",
+                 "shadow_tpu_torch/tools/phold_span_ab.py",
                  "shadow_tpu_torch/core/manager.py"):
         assert want in files
 

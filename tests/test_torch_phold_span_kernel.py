@@ -75,11 +75,19 @@ extern "C" const char* stt_phold_span_words() { return ph::kSpanWords; }
 extern "C" const char* stt_phold_consts() { return ph::kConsts; }
 extern "C" const char* stt_phold_stats() { return ph::kStats; }
 extern "C" long long stt_phold_bitmap_words() { return ph::kBitmapWords; }
-extern "C" int stt_phold_span_grid(long long) { return 1; }
-// `seed` 0 visits each round's outbox in order, else in a permutation
-// drawn from it (a 64-bit LCG driving a Fisher-Yates shuffle).
+extern "C" const char* stt_phold_span_teams() { return "32 8 1"; }
+extern "C" long long stt_phold_span_row_max() { return ph::kRowMax; }
+extern "C" int stt_phold_span_grid(long long, int, long long* out) {
+  out[0] = out[1] = 1;
+  out[2] = 64;
+  out[3] = 132;
+  return 0;
+}
+// A team of `team` ranks run in turn; `seed` 0 visits each round's
+// outbox in order, else in a permutation drawn from it (a 64-bit LCG
+// driving a Fisher-Yates shuffle).
 extern "C" int stt_phold_span(const void* const* ptrs, const long long* words,
-                              int seed, void*) {
+                              int team, int seed, void*) {
   ph::SpanOps so;
   std::memcpy(&so, ptrs, sizeof so);
   ph::SpanParams sp;
@@ -87,7 +95,8 @@ extern "C" int stt_phold_span(const void* const* ptrs, const long long* words,
   int64_t* perm = nullptr;
   int64_t made = -1;
   uint64_t x = (uint64_t)seed;
-  ph::span_serial(so, sp, [&](int64_t k, int64_t n) -> int64_t {
+  const int err = ph::span_serial(so, sp, team, [&](int64_t k,
+                                                     int64_t n) -> int64_t {
     if (seed == 0) return k;
     if (made != n || k == 0) {
       delete[] perm;
@@ -105,7 +114,7 @@ extern "C" int stt_phold_span(const void* const* ptrs, const long long* words,
     return perm[k];
   });
   delete[] perm;
-  return 0;
+  return err;
 }
 """
 
@@ -144,10 +153,11 @@ class HostSpan:
     table filled by the kernel's own names (pk.SpanTable, as the wrapper
     fills it on the card), the phases run in turn, the block read once."""
 
-    def __init__(self, lib, shape, params, seed=0):
+    def __init__(self, lib, shape, params, seed=0, team=1):
         self.lib = lib
         self.table = pk.SpanTable(lib, shape, params)
         self.seed = seed
+        self.team = team
         self.calls = 0
 
     def __call__(self, st, pay, start, stop, limit, runahead, max_rounds):
@@ -155,13 +165,14 @@ class HostSpan:
         table, words = self.table.fill(st, start=start, stop=stop,
                                        limit=limit, runahead=runahead,
                                        max_rounds=max_rounds)
-        assert self.lib.stt_phold_span(table, words, self.seed, None) == 0
+        assert self.lib.stt_phold_span(table, words, self.team, self.seed,
+                                       None) == 0
         self.calls += 1
         return dict(self.table.read(), span_ms=0.0)
 
 
-def host_span(lib, seed=0):
-    return lambda shape, params: HostSpan(lib, shape, params, seed)
+def host_span(lib, seed=0, team=1):
+    return lambda shape, params: HostSpan(lib, shape, params, seed, team)
 
 
 def build(runner, lib=None, tracing=True, seed=0):
