@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Six phases; any failed check raises, so the script exits non-zero:
+Seven phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
@@ -182,6 +182,22 @@ Six phases; any failed check raises, so the script exits non-zero:
    per dispatch (export, upload, launch, kernel, download, scatter) of
    each run, and their upload + launch + kernel + download; the kernels
    line's stt_propagate row is timed at the forced run's median round.
+7. The data directory and the two schedulers.  `python -m
+   shadow_tpu_torch --data-directory` in a child process on tier10k
+   (every round forced through stt_propagate_round), phold-8k (spans
+   forced, stt_phold_span) and tcp-stream-16 (to 500 ms, stt_tcp_span),
+   each under `--scheduler tpu` on the card and under `--scheduler
+   thread_per_core` (`native_dataplane: on`: the engine baseline, no
+   device), from one YAML.  Requires each pair's directories
+   byte-identical under tests/test_determinism.py's `collect` rules,
+   the tpu run's eligibility audit showing the card's work (device-span
+   rounds = the runners' rounds > 0, or every round forced) with its
+   kernel launched, every thread_per_core round `per-round:scheduler`,
+   and `metrics.sim.fabric.violations` 0.  phold-8k again with
+   `--progress`: heartbeats with the reference's two tornettools lines,
+   and the same directory.  The seven runs go at once.  Prints each
+   run's process wall and sim-s/wall-s beside the card's name and power
+   limit.
 
 The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
@@ -284,6 +300,9 @@ PROPAGATE_WE = PROPAGATE_BOOT = 5_000_000_000
 EAGER_STOP = "400ms"
 
 
+CARD_LINE = ""  # nvidia-smi's name and power limit, set by card()
+
+
 def card() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false "
@@ -293,6 +312,8 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    global CARD_LINE
+    CARD_LINE = smi
     print(f"[card] {name}", flush=True)
     print(smi, flush=True)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2554,6 +2575,234 @@ def mesh100_runs() -> dict:
     return runs
 
 
+# Phase 7's cells: name -> (generated YAML, the general and experimental
+# keys set on it).  Both schedulers read one file (`--scheduler`
+# chooses), so the directories may differ only in the lines the
+# determinism gate normalizes.
+def data_dir_cells() -> dict:
+    from shadow_tpu_torch.ops.propagate import HOST_ONLY
+    from shadow_tpu_torch.tools.netgen import (phold_yaml, tcp_stream_yaml,
+                                               tier10k_yaml)
+    plane = {"native_dataplane": "on"}
+    return {
+        # phase 6's tier10k, every round through stt_propagate_round
+        "tier10k": (tier10k_yaml("tpu"), {},
+                    dict(plane, tpu_min_device_batch=0)),
+        # phase 4's phold-8k, spans forced through stt_phold_span; a
+        # heartbeat every 50 ms of its 0.3 s for the --progress run
+        "phold-8k": (phold_yaml(H_PHOLD, n_init=1, mean_delay_ns=50_000_000,
+                                stop_time="0.3s", seed=13, scheduler="tpu",
+                                peers_per_host=64),
+                     {"heartbeat_interval": "50 ms"},
+                     dict(plane, tpu_device_spans="force",
+                          tpu_min_device_batch=HOST_ONLY)),
+        # phase 3's tcp-stream-16 to 500 ms through stt_tcp_span
+        "tcp-stream-16": (tcp_stream_yaml(
+            16, n_servers=2, nbytes=50_000_000, loss=0.005,
+            latency="10 ms", bw_down="50 Mbit", bw_up="50 Mbit",
+            stop_time="500ms", seed=11, scheduler="tpu"), {},
+            dict(plane, tpu_device_spans="force",
+                 tpu_min_device_batch=HOST_ONLY, dev_span_k_init=4)),
+    }
+
+
+def gate_files(dirpath: str, progress: bool = False) -> dict:
+    """A data directory's files under tests/test_determinism.py's
+    `collect` rules: sim-stats.json without `metrics.wall`, and
+    processed-config.yaml's data_directory, scheduler and parallelism
+    lines normalized (with `progress`, its progress line too: the one
+    value `--progress` sets)."""
+    import os
+    out = {}
+    for root, _dirs, files in os.walk(dirpath):
+        for fn in files:
+            path = os.path.join(root, fn)
+            with open(path, "rb") as f:
+                data = f.read()
+            if fn == "sim-stats.json":
+                stats = json.loads(data)
+                stats.get("metrics", {}).pop("wall", None)
+                data = json.dumps(stats, indent=2, sort_keys=True).encode()
+            if fn == "processed-config.yaml":
+                keys = ["data_directory", "scheduler", "parallelism"]
+                for key in keys + (["progress"] if progress else []):
+                    data = re.sub(key.encode() + rb": .*",
+                                  key.encode() + b": <normalized>", data)
+            out[os.path.relpath(path, dirpath)] = data
+    return out
+
+
+def cli_runs(tag: str, runs: dict) -> dict:
+    """`python -m shadow_tpu_torch` child processes started together,
+    one a run (name -> (config, data directory, scheduler,
+    --progress)); each returns its wall (its own start to exit), stderr
+    and sim-stats."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for name, (cfg_path, data, scheduler, progress) in runs.items():
+        cmd = [sys.executable, "-m", "shadow_tpu_torch", cfg_path,
+               "--scheduler", scheduler, "--data-directory", data]
+        if progress:
+            cmd.append("--progress")
+        err = open(data + ".stderr", "w+")
+        procs[name] = (subprocess.Popen(cmd, cwd=root,
+                                        stdout=subprocess.DEVNULL,
+                                        stderr=err), err,
+                       time.perf_counter())
+    walls = {}
+    deadline = time.perf_counter() + 600
+    try:
+        while len(walls) < len(procs):
+            for name, (p, _err, t0) in procs.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{tag}: runs past 600 s: "
+                                     f"{sorted(set(procs) - set(walls))}")
+            time.sleep(0.05)
+    finally:
+        for p, err, _t0 in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    out = {}
+    for name, (p, _err, _t0) in procs.items():
+        _cfg, data, scheduler, progress = runs[name]
+        with open(data + ".stderr") as f:
+            stderr = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} {name}: exit {p.returncode}: "
+                                 f"{stderr[-3000:]}")
+        with open(os.path.join(data, "sim-stats.json")) as f:
+            stats = json.load(f)
+        sim_s = stats["end_time_ns"] / 1e9
+        print(f"{tag} {name}{' --progress' if progress else ''}: "
+              f"{stats['rounds']} rounds, {stats['packets_sent']} packets, "
+              f"process wall {walls[name]:.2f}s, "
+              f"{sim_s / walls[name]:.4f} sim-s/wall-s (start to exit, "
+              f"{len(runs)} processes at once); eligibility "
+              f"{json.dumps(stats['metrics']['wall']['eligibility'])}",
+              flush=True)
+        out[name] = {"wall": walls[name], "stderr": stderr,
+                     "stats": stats}
+    return out
+
+
+def data_dir_runs(card_line: str) -> dict:
+    """Phase 7, the data directory and the two schedulers: each cell
+    through `python -m shadow_tpu_torch --data-directory` under
+    `--scheduler tpu` on the card and under `--scheduler thread_per_core`
+    (the engine baseline, no device), then phold-8k again with
+    `--progress`.  Requires each pair's directories byte-identical under
+    the determinism gate's rules, the tpu run's audit showing the card's
+    work (device-span rounds = the runners' rounds > 0, or every round
+    forced through stt_propagate_round with launches), its kernel
+    launched, and fabric violations 0 in every run; the progress run
+    prints heartbeats with the reference's tornettools lines and writes
+    the same directory (its progress line normalized).  All seven runs
+    go at once (each wall is its own run's, on a shared host)."""
+    import os
+    import tempfile
+
+    import yaml
+    tag = "[data-dir]"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Every run at once: the baselines touch no card, the tpu runs
+        # share it, and the host has the cores and memory, so the phase
+        # costs its slowest run (each wall is its own, on a shared host).
+        want = {}
+        cells = data_dir_cells()
+        for name, (text, general, exp) in cells.items():
+            d = parse_yaml(text)
+            d["general"].update(general)
+            d["experimental"].update(exp)
+            cfg_path = os.path.join(tmp, f"{name}.yaml")
+            with open(cfg_path, "w") as f:
+                yaml.dump(d, f, Dumper=getattr(yaml, "CSafeDumper",
+                                               yaml.SafeDumper),
+                          sort_keys=False)
+            for sched in ("tpu", "thread_per_core"):
+                want[f"{name}/{sched}"] = (
+                    cfg_path, os.path.join(tmp, f"{name}-{sched}"), sched,
+                    False)
+            if name == "phold-8k":
+                want[f"{name}/progress"] = (
+                    cfg_path, os.path.join(tmp, f"{name}-progress"), "tpu",
+                    True)
+        every = cli_runs(tag, want)
+        for name in cells:
+            runs = {k.split("/")[1]: r for k, r in every.items()
+                    if k.split("/")[0] == name}
+            files = {k: gate_files(os.path.join(tmp, f"{name}-{k}"),
+                                   progress=name == "phold-8k")
+                     for k in runs}
+            for k in runs:
+                if k == "tpu":
+                    continue
+                if files[k].keys() != files["tpu"].keys():
+                    raise AssertionError(f"{tag} {name}: {k} file set "
+                                         f"differs from tpu's")
+                bad = [rel for rel in files[k]
+                       if files[k][rel] != files["tpu"][rel]]
+                if bad:
+                    raise AssertionError(f"{tag} {name}: {k} differs "
+                                         f"from tpu in {bad[:5]}")
+            for k, r in runs.items():
+                fab = r["stats"]["metrics"]["sim"]["fabric"]
+                if fab["violations"]:
+                    raise AssertionError(f"{tag} {name} {k}: fabric "
+                                         f"{fab}")
+            stats = runs["tpu"]["stats"]
+            wall = stats["metrics"]["wall"]
+            el, disp = wall["eligibility"], wall["dispatch"]
+            if name == "tier10k":
+                launches = disp["propagate"]["launches"]
+                ok = el.get("per-round:forced-device") == \
+                    stats["rounds"] and launches > 0
+            else:
+                family = ("device_span_tcp" if name.startswith("tcp")
+                          else "device_span_phold")
+                launches = disp[family]["span_launches"]
+                runner_rounds = sum(disp[f]["rounds"] for f in
+                                    ("device_span_phold", "device_span_tcp")
+                                    if f in disp)
+                ok = el.get("device-span", 0) == runner_rounds > 0 \
+                    and launches > 0
+            if not ok or sum(el.values()) != stats["rounds"]:
+                raise AssertionError(f"{tag} {name} tpu: eligibility {el}, "
+                                     f"rounds {stats['rounds']}, launches "
+                                     f"{launches}")
+            base = runs["thread_per_core"]["stats"]
+            if base["metrics"]["wall"]["eligibility"] != \
+                    {"per-round:scheduler": base["rounds"]}:
+                raise AssertionError(f"{tag} {name} thread_per_core: "
+                                     f"{base['metrics']['wall']}")
+            if name == "phold-8k":
+                err = runs["progress"]["stderr"].splitlines()
+                beats = [ln for ln in err
+                         if ln.startswith("[shadow-tpu-torch] heartbeat: ")]
+                rusage = [ln for ln in err if ln.startswith(
+                    "Process resource usage at simtime ")]
+                meminfo = [ln for ln in err if ln.startswith(
+                    "System memory usage in bytes at simtime ")]
+                if not beats or len(rusage) != len(beats) \
+                        or len(meminfo) != len(beats):
+                    raise AssertionError(f"{tag} {name} --progress: "
+                                         f"{err[-10:]}")
+                print(f"{tag} {name} --progress: {len(beats)} heartbeats, "
+                      f"e.g. {beats[-1]!r}", flush=True)
+            out[name] = {k: r["wall"] for k, r in runs.items()}
+            print(f"{tag} {name} PASS: tpu and thread_per_core directories "
+                  f"identical ({len(files['tpu'])} files), kernel launches "
+                  f"{launches}, fabric violations 0; process walls "
+                  f"{ {k: round(v, 2) for k, v in out[name].items()} } "
+                  f"on {card_line}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.31s",
@@ -2662,6 +2911,9 @@ def main(argv=None) -> int:
                 run["launches"], propagate_probes=run["probe_launches"])
             if cell == "tier10k" and name == "forced":
                 per_round = run["block"]["packets_per_round"]
+    # Phase 7: the data directory and the two schedulers, through the
+    # CLI in child processes (their launches are not this process's).
+    data_dir_runs(CARD_LINE)
     # The kernel's row: timed at the main path's median round.
     print(f"[main] propagate: the forced tier10k run's packets per round "
           f"{per_round}; the kernels line's row is timed at the median",

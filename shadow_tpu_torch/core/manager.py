@@ -1,11 +1,11 @@
-"""Manager: build an engine-resident simulation and run the conservative
-round loop, with TCP device spans on the card.
+"""Manager: build an engine-resident simulation, run the conservative
+round loop, and write the run's data directory.
 
 The port's counterpart of `shadow_tpu/core/manager.py`, for
 engine-resident hosts only.  Every host lives on the C++ engine
 (`native/netplane.cpp`); the loop picks the global minimum next-event
-time and serves the rounds from it in one of three ways, exactly as
-the reference does under `scheduler: tpu`:
+time and serves the rounds from it.  Under `scheduler: tpu` it does so
+in one of three ways, exactly as the reference does:
 
 - a device span: whole conservative windows of exported state stepped
   in PyTorch on the card and imported back transactionally, by the
@@ -23,18 +23,32 @@ the reference does under `scheduler: tpu`:
 
 `tpu_min_device_batch <= 0` forces every round through the kernel:
 no span of either kind runs, and no round goes to the twin.
+
+Under the engine `thread_per_core` scheduler (`native_dataplane: on`)
+every round takes the per-round path: the engine runs the due hosts
+over `general.parallelism` OS threads and the engine's C++ twin
+propagates (core/propagate_scalar.py).  No torch device is resolved and
+no card is touched: it is the reference's honest CPU baseline.
+
+Every round is credited one eligibility reason (trace/audit.py); the
+heartbeat and status bar follow `general.progress`; `write_data_dir`
+writes what the reference writes for these runs: processed-config.yaml,
+hosts.txt, the processes' stdout and stderr, packet-trace.txt and
+sim-stats.json (trace/metrics.py's two channels).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import sys
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from shadow_tpu_torch.core.config import ConfigOptions
+from shadow_tpu_torch.core.config import ConfigOptions, check_scheduler
 from shadow_tpu_torch.core.rng import STREAM_PACKET_LOSS, mix_key
 from shadow_tpu_torch.core.simtime import TIME_NEVER
 from shadow_tpu_torch.host.engine_app import (EngineAppProcess,
@@ -42,7 +56,12 @@ from shadow_tpu_torch.host.engine_app import (EngineAppProcess,
 from shadow_tpu_torch.host.host import Host
 from shadow_tpu_torch.net.dns import Dns
 from shadow_tpu_torch.net.graph import IpAssignment, routing_arrays
+from shadow_tpu_torch.trace import events as trev
+from shadow_tpu_torch.trace.audit import EligibilityAudit
+from shadow_tpu_torch.trace.metrics import MetricsRegistry
+from shadow_tpu_torch.utils import object_counter
 from shadow_tpu_torch.utils.device import resolve_device
+from shadow_tpu_torch.utils.shadow_log import LOG
 
 
 @dataclass
@@ -129,7 +148,12 @@ class SpawnTask:
 
 class Manager:
     def __init__(self, config: ConfigOptions, device=None):
-        self.device = resolve_device(device)
+        object_counter.reset()
+        check_scheduler(config.experimental)
+        self.tpu = config.experimental.scheduler == "tpu"
+        # The engine thread_per_core baseline is the CPU run the user
+        # asked for: no torch device, no card.
+        self.device = resolve_device(device) if self.tpu else None
         self.config = config
         graph = config.network.graph
         lat, thr = routing_arrays(graph, config.network.use_shortest_path)
@@ -199,14 +223,34 @@ class Manager:
                                  dtype=np.uint32),
             lat, thr, lat.shape[0], k0, k1,
             config.general.bootstrap_end_time_ns, TIME_NEVER)
-        from shadow_tpu_torch.ops.propagate import TpuPropagator
-        self.propagator = TpuPropagator(
-            lat, thr, seed,
-            config.general.bootstrap_end_time_ns, runahead=self.runahead,
-            min_device_batch=exp.tpu_min_device_batch, device=self.device)
+        if self.tpu:
+            from shadow_tpu_torch.ops.propagate import TpuPropagator
+            self.propagator = TpuPropagator(
+                lat, thr, seed, config.general.bootstrap_end_time_ns,
+                runahead=self.runahead,
+                min_device_batch=exp.tpu_min_device_batch,
+                device=self.device)
+        else:
+            from shadow_tpu_torch.core.propagate_scalar import \
+                ScalarPropagator
+            self.propagator = ScalarPropagator(runahead=self.runahead)
         self.propagator.engine = eng
-        # OS-thread width for the engine's run_hosts_mt sections.
+        # OS-thread width for the engine's run_hosts_mt sections (the
+        # baseline's: its pool's width, min(workers, hosts)).
         self._mt_threads = config.general.parallelism or os.cpu_count() or 1
+        if not self.tpu:
+            self._mt_threads = min(self._mt_threads, len(self.hosts))
+        # Always on (integer adds a round or span): the metrics registry
+        # and the eligibility audit feed sim-stats.json.
+        self.metrics = MetricsRegistry()
+        self.audit = EligibilityAudit()
+        # Rounds and packets served inside spans (the reference credits
+        # them to its propagator's split; the port's propagator counts
+        # its per-round rounds only).
+        self._span_busy_rounds = 0
+        self._span_packets = 0
+        self._dev_busy_rounds = 0
+        self._dev_packets = 0
         self._nt = None
         self._py_work = None
         self._dev_span = None      # the PHOLD/udp-mesh family's runner
@@ -258,20 +302,47 @@ class Manager:
     def run(self) -> SimSummary:
         exp = self.config.experimental
         stop = self.config.general.stop_time_ns
+        progress = self.config.general.progress
+        heartbeat = self.config.general.heartbeat_interval_ns
+        next_heartbeat = heartbeat
         wall_start = time.perf_counter()
+        LOG.set_level(self.config.general.log_level)
+        status = None
+        heartbeat_lines = progress
+        status_throttle = 0.2
+        if progress:
+            from shadow_tpu_torch.utils.status_bar import (StatusBar,
+                                                           make_status)
+            status = make_status(stop)
+            # A redrawing bar and newline heartbeats garble each other on
+            # one TTY: the bar subsumes the heartbeat there.  Elsewhere
+            # every update is a log line, so throttle harder.
+            heartbeat_lines = not isinstance(status, StatusBar)
+            if heartbeat_lines:
+                status_throttle = 1.0
+        next_status_wall = 0.0
         summary = SimSummary()
         self._init_next_times()
         start = self._min_next_event()
         prop = self.propagator
+        audit = self.audit
+        # Spans serve only the tpu scheduler; the thread_per_core
+        # baseline keeps the reference's per-round architecture.
         # Forced-device mode (min_device_batch <= 0) is the parity/audit
         # path: every round must go through the kernel, so spans (whose
         # propagation runs the C++ twin or a span loop) stay out.
-        span_ok = prop.route.min_device_batch > 0
+        span_ok = self.tpu and prop.route.min_device_batch > 0
+        # Why the per-round path runs when spans are statically out.
+        per_round_static = (trev.EL_ROUND_FORCED
+                            if self.tpu and not span_ok
+                            else trev.EL_ROUND_SCHED)
         # Device-resident spans: "auto" measures device vs C++ span
         # throughput per round and routes, "force"/"on" always take the
         # device, "off" disables.
         dev_mode = exp.tpu_device_spans
         dev_span_on = dev_mode in ("auto", "force", "on")
+        dev_off_reason = (trev.EL_ENGINE_FAMILY if dev_span_on
+                          else trev.EL_ENGINE_OFF)
         dev_ns_round = None   # EWMA wall ns/round, device spans
         cpp_ns_round = None   # EWMA wall ns/round, C++ spans
         dev_probe_countdown = 0
@@ -288,17 +359,42 @@ class Manager:
         # next dispatch).
         overlap_on = self._span_overlap_on()
 
-        def account_span(res) -> int | None:
+        def progress_at(t: int) -> None:
+            """The heartbeat and the status bar after a round or span
+            that ended at sim time `t`."""
+            nonlocal next_heartbeat, next_status_wall
+            if heartbeat_lines and t >= next_heartbeat:
+                self._log_heartbeat(t, stop, wall_start, sys.stderr)
+                next_heartbeat = t + heartbeat
+            if status is not None:
+                wall = time.perf_counter()
+                if wall >= next_status_wall:  # throttle redraws
+                    status.update(t)
+                    next_status_wall = wall + status_throttle
+
+        def account_span(res, reason, device=False) -> int | None:
             rounds, busy_rounds, pkts, next_start, busy_end, ra = res
             summary.rounds += rounds
             summary.span_rounds += rounds
             summary.busy_end_ns = busy_end
+            audit.add(reason, rounds)
             self.runahead.sync_from_span(ra)
+            self._span_busy_rounds += busy_rounds
+            self._span_packets += pkts
+            if device:
+                self._dev_busy_rounds += busy_rounds
+                self._dev_packets += pkts
+            progress_at(busy_end)
             return None if next_start >= TIME_NEVER else next_start
 
         while start is not None and start < stop:
-            # A device measured winning per round keeps the rounds.
-            span_now = span_ok and prop.span_gate()
+            round_reason = per_round_static
+            span_now = False
+            if span_ok:
+                # A device measured winning per round keeps the rounds.
+                span_now = prop.span_gate()
+                if not span_now:
+                    round_reason = trev.EL_ROUND_GATE
             py_limit = None
             if span_now and self._py_work.any():
                 # Python-side work pending (spawn tasks): spans may still
@@ -308,10 +404,28 @@ class Manager:
                 ra = self.runahead.get()
                 if start > py_min - ra:
                     span_now = False
+                    # Every host is an engine host: the due one carries a
+                    # transient Python task.
+                    round_reason = trev.EL_OBJ_PYTASK
                 else:
                     py_limit = py_min - ra + 1
             if span_now:
-                limit = stop if py_limit is None else min(stop, py_limit)
+                limit = stop
+                if heartbeat_lines:
+                    # The loop regains control at the next heartbeat;
+                    # `limit` never changes window sequencing, so the
+                    # outputs are unaffected.
+                    limit = min(limit, next_heartbeat)
+                if py_limit is not None:
+                    limit = min(limit, py_limit)
+                # Why the rounds below land in a C++ span instead of a
+                # device span (the audit's engine-span:* split).
+                if py_limit is not None:
+                    span_reason = trev.EL_ENGINE_PYLIMIT
+                elif not dev_span_on:
+                    span_reason = dev_off_reason
+                else:
+                    span_reason = trev.EL_ENGINE_COLD
                 use_dev = False
                 if dev_span_on and py_limit is None:
                     if dev_mode in ("force", "on"):
@@ -319,6 +433,7 @@ class Manager:
                     elif dev_ns_round is not None \
                             and cpp_ns_round is not None:
                         use_dev = dev_ns_round < cpp_ns_round
+                        span_reason = trev.EL_ENGINE_ROUTED
                     elif dev_ns_round is None:
                         # Unmeasured: only long runs earn a probe (the
                         # reference's 1%-of-wall budget).
@@ -345,24 +460,30 @@ class Manager:
                             dev_ns_round = per if dev_ns_round is None \
                                 else 0.7 * dev_ns_round + 0.3 * per
                             dev_probe_countdown = 16
-                        start = account_span(res)
+                        start = account_span(res, trev.EL_DEVICE_SPAN,
+                                             device=True)
                         continue
                     if res is None and runner.ineligible:
                         dev_span_on = False  # no device-span family fits
+                        dev_off_reason = trev.EL_ENGINE_FAMILY
+                        span_reason = trev.EL_ENGINE_FAMILY
                     elif res is None and runner.last_transient:
                         # Out of the TCP family's domain for now
                         # (handshake/close): cap the C++ span below so
                         # the device is re-probed within a few windows.
                         dev_retry_soon = True
+                        span_reason = trev.EL_ENGINE_TRANSIENT
                     elif res is None:
                         # Abort: shrink the window batch, back off, and
                         # give up after repeated failures.
+                        span_reason = trev.EL_ENGINE_ABORT
                         dev_span_K = max(dev_k_floor,
                                          dev_span_K // dev_k_shrink)
                         dev_aborts_row += 1
                         dev_probe_countdown = 16 * dev_aborts_row
                         if dev_aborts_row >= 3:
                             dev_span_on = False
+                            dev_off_reason = trev.EL_ENGINE_ABORT
                 elif dev_span_on:
                     dev_probe_countdown -= 1
 
@@ -374,6 +495,8 @@ class Manager:
                     self._mt_threads)
                 if res is None:
                     span_ok = False  # callback-capable host: per-round
+                    per_round_static = trev.EL_ROUND_CALLBACK
+                    round_reason = per_round_static
                 else:
                     if res[6]:
                         raise RuntimeError(
@@ -385,14 +508,19 @@ class Manager:
                         per = (time.perf_counter_ns() - t0) / res[0]
                         cpp_ns_round = per if cpp_ns_round is None \
                             else 0.7 * cpp_ns_round + 0.3 * per
-                        start = account_span(res)
+                        start = account_span(res, span_reason)
                         continue
+                    # rounds == 0 (e.g. a heartbeat boundary due now):
+                    # one per-round iteration.
+                    round_reason = trev.EL_ROUND_BOUNDARY
             window_end = min(start + self.runahead.get(), stop)
             prop.begin_round(start, window_end)
             self._run_hosts(window_end)
             inflight_min = prop.finish_round()
+            audit.add(round_reason, 1)
             summary.rounds += 1
             summary.busy_end_ns = window_end
+            progress_at(window_end)
             nxt = self._min_next_event()
             if inflight_min is not None and (nxt is None
                                              or inflight_min < nxt):
@@ -400,6 +528,8 @@ class Manager:
             start = nxt
         summary.end_time_ns = min(start, stop) if start is not None \
             else stop
+        if status is not None:
+            status.finish(summary.end_time_ns)
         if overlap_on:
             # A window the run ended before landing: join and discard.
             for r in (self._dev_span, self._dev_span_tcp):
@@ -447,8 +577,8 @@ class Manager:
                 self.config.general.bootstrap_end_time_ns)
 
     def _span_overlap_on(self) -> bool:
-        return span_overlap_on(self.config.experimental.span_overlap,
-                               self.device)
+        return self.tpu and span_overlap_on(
+            self.config.experimental.span_overlap, self.device)
 
     def make_dev_span_runner(self):
         from shadow_tpu_torch.ops.phold_span import PholdSpanRunner
@@ -490,41 +620,206 @@ class Manager:
         return tcp.try_span(*args, spec_mr=spec_mr), tcp
 
     def dispatch_summary(self) -> dict:
-        """The run summary's dispatch section (the reference's
-        `metrics.wall.dispatch` entries the port has): the overlap mode,
-        the per-round propagator's `propagate` block, and, per
-        device-span family that was tried, its span counts, residency,
-        the `overlap` block and its kernel launches."""
-        out = {"span_overlap": self.config.experimental.span_overlap,
-               "span_overlap_on": self._span_overlap_on(),
-               "propagate": self.propagator.summary()}
+        """The dispatch block (sim-stats.json's `metrics.wall.dispatch`,
+        and the CLI's `dispatch:` line): the reference's keys for every
+        value the port has (the span/per-round split, the router's knob
+        values, each device-span family's counters), and the port's own:
+        `span_overlap_on`, the per-round propagator's `propagate` block
+        and each family's kernel counters."""
+        exp = self.config.experimental
+        prop = self.propagator
+        out = {
+            "span_rounds": self.audit.span_rounds(),
+            "rounds_dispatched": (getattr(prop, "rounds_dispatched", 0)
+                                  + self._span_busy_rounds),
+            "packets_batched": (getattr(prop, "packets_batched", 0)
+                                + self._span_packets),
+            "rounds_device": (getattr(prop, "rounds_device", 0)
+                              + self._dev_busy_rounds),
+            "packets_device": (getattr(prop, "packets_device", 0)
+                               + self._dev_packets),
+            # No engine-side pcap in the port: the generic clamp.
+            "pcap_span_cap": 1024,
+            "span_overlap": exp.span_overlap,
+            "pallas_queue_kernels": exp.pallas_queue_kernels,
+            "dev_span_k": {"init": exp.dev_span_k_init,
+                           "floor": exp.dev_span_k_floor,
+                           "shrink": exp.dev_span_k_shrink},
+            "span_overlap_on": self._span_overlap_on(),
+        }
+        if self.tpu:
+            out["propagate"] = prop.summary()
         for family, r in (("phold", self._dev_span),
                           ("tcp", self._dev_span_tcp)):
-            if r is not None:
-                out[f"device_span_{family}"] = {
-                    "spans": r.spans,
-                    "rounds": r.rounds,
-                    "micro_iters": r.micro_iters,
-                    "aborts": r.aborts,
-                    "ineligible": r.ineligible,
-                    "transient_or_over_caps": r.over_caps,
-                    "resident_hits": r.resident_hits,
-                    "stale_drops": r.stale_drops,
-                    "overlap": r.overlap_summary(),
-                }
-        if self._dev_span is not None:
-            # The PHOLD family's kernel launches over every dispatch: span
-            # launches, and the windows a kernel stepped.
-            r = self._dev_span
-            out["device_span_phold"].update(span_launches=r.spans_all,
-                                            kernel_windows=r.windows_all)
-        if self._dev_span_tcp is not None:
-            # The TCP family's kernel launches over every dispatch: span
-            # launches, and the windows a kernel stepped.
-            r = self._dev_span_tcp
-            out["device_span_tcp"].update(span_launches=r.spans_all,
-                                          kernel_windows=r.windows_all)
+            if r is None:
+                continue
+            out[f"device_span_{family}"] = {
+                "spans": r.spans,
+                "rounds": r.rounds,
+                "micro_iters": r.micro_iters,
+                "aborts": r.aborts,
+                "ineligible": r.ineligible,
+                "transient_or_over_caps": r.over_caps,
+                "resident_hits": r.resident_hits,
+                "stale_drops": r.stale_drops,
+                "dispatch_wall_s": round(r.device_wall_ns / 1e9, 6),
+                "rolled_back_rounds": r.rolled_back_rounds,
+                "rollback_wall_s": round(r.rollback_wall_ns / 1e9, 6),
+                "abort_kinds": dict(r.abort_kind_counts()),
+                "export_bytes": r.export_bytes,
+                "import_bytes": r.import_bytes,
+                "overlap": r.overlap_summary(),
+                # The family's kernel launches over every dispatch: span
+                # launches, and the windows a kernel stepped.
+                "span_launches": r.spans_all,
+                "kernel_windows": r.windows_all,
+                "ks_spans": r.ks_spans,
+                "ks_span_ms": round(r.ks_span_ms, 6),
+                "ks_windows": r.ks_windows,
+                "ks_window_ms": round(r.ks_window_ms, 6),
+            }
         return out
+
+    # ------------------------------------------------------------------
+    # Counter sweeps (the engine leg of the reference's)
+    # ------------------------------------------------------------------
+
+    def drop_cause_totals(self) -> dict:
+        """Packet-drop attribution summed over hosts: cause-name ->
+        count (nonzero causes only; `unattributed` = drops with no
+        TEL_* cause, which the conservation check rejects)."""
+        causes = [0] * trev.TEL_N
+        unattributed = 0
+        for h in self.hosts:
+            h.merge_native_counters()
+            for i in range(trev.TEL_N):
+                causes[i] += h.drop_causes[i]
+            unattributed += h.drop_unattributed
+        out = {trev.TEL_NAMES[i]: causes[i] for i in range(trev.TEL_N)
+               if causes[i]}
+        if unattributed:
+            out["unattributed"] = unattributed
+        return out
+
+    def netstat_summary(self) -> dict:
+        """Per-cause drop counts plus the engine's TCP stream totals
+        (segments / retransmits).  Wall-side reporting only."""
+        return {"drops": self.drop_cause_totals(),
+                "tcp": self.plane.engine.netstat_totals()}
+
+    def _fabric_sweep(self) -> tuple:
+        """One walk over every host's engine fabric counters: the
+        conservation ledger and the hottest link's bits-sent / bw_up
+        (link-seconds of uplink traffic).  For every host, CoDel packets
+        and bytes enqueued must equal forwarded + dropped + queued +
+        relay-parked, the drops must equal the TEL_CODEL + TEL_RTR_LIMIT
+        causes, and the marks their MARK_* causes (at most one a packet
+        enqueued)."""
+        totals = {"enqueued_pkts": 0, "enqueued_bytes": 0,
+                  "delivered_pkts": 0, "delivered_bytes": 0,
+                  "dropped_pkts": 0, "dropped_bytes": 0,
+                  "marked_pkts": 0, "queued_pkts": 0,
+                  "queued_bytes": 0, "peak_queue_depth": 0,
+                  "refill_stalls": 0, "violations": 0}
+        mark_causes = [0] * trev.MARK_N
+        max_link_s = 0.0
+        eng = self.plane.engine
+        for h in self.hosts:
+            (enq_p, enq_b, fwd_p, fwd_b, drop_p, drop_b, marked,
+             depth, qbytes, peak, r1s, r2s, _ps, bsent, _pr, _br,
+             park_p, park_b) = eng.fabric_counters(h.id)
+            h.merge_native_counters()
+            totals["enqueued_pkts"] += enq_p
+            totals["enqueued_bytes"] += enq_b
+            totals["delivered_pkts"] += fwd_p
+            totals["delivered_bytes"] += fwd_b
+            totals["dropped_pkts"] += drop_p
+            totals["dropped_bytes"] += drop_b
+            totals["marked_pkts"] += marked
+            # a relay-parked packet is still inside the fabric
+            totals["queued_pkts"] += depth + park_p
+            totals["queued_bytes"] += qbytes + park_b
+            totals["refill_stalls"] += r1s + r2s
+            totals["peak_queue_depth"] = max(
+                totals["peak_queue_depth"], peak)
+            for i in range(trev.MARK_N):
+                mark_causes[i] += h.mark_causes[i]
+            if h.bw_up_bits:
+                max_link_s = max(max_link_s, bsent * 8 / h.bw_up_bits)
+            attributed = (h.drop_causes[trev.TEL_CODEL]
+                          + h.drop_causes[trev.TEL_RTR_LIMIT])
+            if enq_p != fwd_p + drop_p + depth + park_p \
+                    or enq_b != fwd_b + drop_b + qbytes + park_b \
+                    or drop_p != attributed \
+                    or marked != sum(h.mark_causes) \
+                    or marked > enq_p:
+                totals["violations"] += 1
+        totals["marks"] = {trev.MARK_NAMES[i]: mark_causes[i]
+                           for i in range(trev.MARK_N) if mark_causes[i]}
+        return totals, max_link_s
+
+    def fabric_conservation(self) -> dict:
+        """The conservation ledger (the counters are always on)."""
+        return self._fabric_sweep()[0]
+
+    def sc_disposition_totals(self) -> dict:
+        """Syscall dispositions summed over hosts: SC name -> count
+        (nonzero only).  Engine-resident apps dispatch C++-side and sit
+        outside this accounting, so a port run's table is empty."""
+        totals = [0] * trev.SC_N
+        for h in self.hosts:
+            for i in range(trev.SC_N):
+                totals[i] += h.sc_disp[i]
+        return {trev.SC_NAMES[i]: totals[i] for i in range(trev.SC_N)
+                if totals[i]}
+
+    # ------------------------------------------------------------------
+    # Progress
+    # ------------------------------------------------------------------
+
+    def _log_heartbeat(self, sim_now: int, stop: int, wall_start: float,
+                       out) -> None:
+        """Progress and resource heartbeat, the reference's lines after
+        the port's prefix; the two resource lines keep the reference's
+        words exactly (tornettools' parse_rusage.py matches them)."""
+        wall = time.perf_counter() - wall_start
+        pct = 100.0 * sim_now / stop if stop else 100.0
+        for h in self.hosts:
+            h.merge_native_counters()
+        events = sum(h.counters["events"] for h in self.hosts)
+        packets = sum(h.counters["packets_sent"] for h in self.hosts)
+        mem_kb = _rss_kb()
+        rate = (sim_now / 1e9) / wall if wall > 0 else 0.0
+        print(f"[shadow-tpu-torch] heartbeat: sim {sim_now / 1e9:.3f}s / "
+              f"{stop / 1e9:.3f}s ({pct:.1f}%), {rate:.2f} "
+              f"sim-sec/wall-sec, events {events}, packets {packets}, "
+              f"rss {mem_kb} kB", file=out, flush=True)
+        import resource
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        print(f"Process resource usage at simtime {sim_now} reported by "
+              f"getrusage(): "
+              f"ru_maxrss={ru.ru_maxrss / (1024 * 1024):.03f} GiB, "
+              f"ru_utime={ru.ru_utime / 60:.03f} minutes, "
+              f"ru_stime={ru.ru_stime / 60:.03f} minutes, "
+              f"ru_nvcsw={ru.ru_nvcsw}, "
+              f"ru_nivcsw={ru.ru_nivcsw}",
+              file=out, flush=True)
+        try:
+            mem = {}
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    k, _, v = line.partition(":")
+                    parts = v.split()
+                    if parts and parts[0].isdigit():
+                        n = int(parts[0])
+                        if len(parts) > 1 and parts[1] == "kB":
+                            n *= 1024  # every value in bytes
+                        mem[k.strip()] = n
+            print(f"System memory usage in bytes at simtime {sim_now} ns "
+                  f"reported by /proc/meminfo: {json.dumps(mem)}",
+                  file=out, flush=True)
+        except OSError:
+            pass
 
     # ------------------------------------------------------------------
     # Outputs
@@ -536,10 +831,87 @@ class Manager:
             lines.extend(h.trace_lines())
         return lines
 
+    def write_data_dir(self, summary: SimSummary) -> None:
+        """The run's data directory, as the reference writes it for the
+        same run: processed-config.yaml, hosts.txt, each process's
+        stdout and stderr, packet-trace.txt and sim-stats.json."""
+        import yaml
+        base = self.config.general.data_directory
+        os.makedirs(base, exist_ok=True)
+        with open(os.path.join(base, "processed-config.yaml"), "w") as f:
+            yaml.safe_dump(self.config.to_processed_dict(), f,
+                           sort_keys=False, default_flow_style=False)
+        with open(os.path.join(base, "hosts.txt"), "w") as f:
+            f.write(self.dns.hosts_file_text())
+        for h in self.hosts:
+            hdir = os.path.join(base, "hosts", h.name)
+            os.makedirs(hdir, exist_ok=True)
+            for proc in h.processes.values():
+                stem = os.path.join(hdir, f"{proc.name}.{proc.pid}")
+                with open(stem + ".stdout", "wb") as f:
+                    f.write(bytes(proc.stdout))
+                with open(stem + ".stderr", "wb") as f:
+                    f.write(bytes(proc.stderr))
+        with open(os.path.join(base, "packet-trace.txt"), "w") as f:
+            for line in self.trace_lines():
+                f.write(line + "\n")
+        for kind, delta in object_counter.leaks().items():
+            LOG.warning(f"object leak: {delta} {kind} object(s) "
+                        f"allocated but never closed")
+        LOG.flush()
+        syscall_hist: dict[str, int] = {}
+        for h in self.hosts:
+            for name, n in h.syscall_counts.items():
+                syscall_hist[name] = syscall_hist.get(name, 0) + n
+        reg = self.metrics
+        # Wall channel: the scheduler's telemetry (the gate strips it).
+        reg.ingest("dispatch", self.dispatch_summary(), channel="wall")
+        # Sim channel: deterministic and path-identical, byte-diffed.
+        # The conservation contract: the wire causes sum to
+        # packets_dropped; the two TCP receiver discards sit outside.
+        reg.ingest("netstat.drops", self.drop_cause_totals(),
+                   channel="sim")
+        reg.ingest("fabric", self.fabric_conservation(), channel="sim")
+        reg.ingest("syscalls.dispositions", self.sc_disposition_totals(),
+                   channel="sim")
+        # One reason code per conservative round.
+        reg.ingest("eligibility", self.audit.as_dict(), channel="wall")
+        stats = {
+            "end_time_ns": summary.end_time_ns,
+            "rounds": summary.rounds,
+            "events": summary.events,
+            "packets_sent": summary.packets_sent,
+            "packets_recv": summary.packets_recv,
+            "packets_dropped": summary.packets_dropped,
+            "syscalls": summary.syscalls,
+            "syscalls_by_name": syscall_hist,
+            "metrics": reg.as_stats(),
+            "objects": object_counter.snapshot(),
+            "hosts": {h.name: dict(h.counters) for h in self.hosts},
+        }
+        with open(os.path.join(base, "sim-stats.json"), "w") as f:
+            json.dump(stats, f, indent=2, sort_keys=True)
 
-def run_simulation(config: ConfigOptions, device=None):
-    """Build a Manager on `device` (default: the card), run it, and
-    return (manager, summary)."""
+
+def _rss_kb() -> int:
+    """Resident set size from /proc."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
+def run_simulation(config: ConfigOptions, device=None,
+                   write_data: bool = False):
+    """Build a Manager (under `scheduler: tpu` on `device`, default the
+    card), run it, write the data directory when asked, and return
+    (manager, summary)."""
     manager = Manager(config, device=device)
     summary = manager.run()
+    if write_data:
+        manager.write_data_dir(summary)
     return manager, summary

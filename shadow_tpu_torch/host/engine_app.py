@@ -34,6 +34,7 @@ class EngineAppProcess:
         self.pid = host.register_process(self)
         self.expected_final_state = expected_final_state
         self.app_idx: int | None = None   # set right after app_spawn
+        self.stderr = bytearray()  # the engine apps write none
 
     def _status(self):
         return self.host.plane.engine.app_status(self.app_idx)

@@ -6,7 +6,8 @@ engine-resident host needs: its identity and RNG stream, a small
 Python event heap for the spawn tasks, round execution that merges
 that heap with the engine's events under the one total order
 (time, kind, src, seq), counters folded in from the engine, and the
-canonical trace lines.
+canonical trace lines, and the per-host drop-cause, mark-cause and
+syscall-disposition counters the run outputs sum.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import heapq
 
 from shadow_tpu_torch.core.rng import HostRng
 from shadow_tpu_torch.core.simtime import TIME_NEVER
+from shadow_tpu_torch.trace.events import MARK_N, SC_N, TEL_N
 
 # Event kinds: packets sort before local tasks at equal times.
 KIND_PACKET = 0
@@ -45,7 +47,20 @@ class Host:
                          "packets_recv": 0, "packets_dropped": 0,
                          "syscalls": 0}
         self.syscall_counts: dict[str, int] = {}
+        # Drop attribution: one TEL_* cause a drop (the engine's
+        # HostPlane::drop_causes, merged below); `drop_unattributed`
+        # counts drops without a cause, which the conservation check
+        # rejects.
+        self.drop_causes = [0] * TEL_N
+        self.drop_unattributed = 0
+        # ECN marks by this host's router queue, one MARK_* cause each.
+        self.mark_causes = [0] * MARK_N
+        # Syscall dispositions of Python-dispatched syscalls: none on an
+        # engine-resident host (its apps dispatch C++-side).
+        self.sc_disp = [0] * SC_N
         self._native_merged = (0, 0, 0, 0)
+        self._native_causes_merged = (0,) * (TEL_N + 1)
+        self._native_marks_merged = (0,) * MARK_N
         self._app_sys_merged: dict = {}
         # Shared per-host next-event snapshot and Python-work flags
         # (set by the Manager before the first round).
@@ -134,6 +149,19 @@ class Host:
         self.counters["packets_dropped"] += dropped - pd
         self.counters["events"] += ev - pe
         self._native_merged = (sent, recv, dropped, ev)
+        # Drop causes by the same delta discipline (the tuple carries
+        # TEL_N causes and the unattributed tail), then the marks.
+        causes = eng.drop_causes(self.id)
+        prev = self._native_causes_merged
+        for i in range(TEL_N):
+            self.drop_causes[i] += causes[i] - prev[i]
+        self.drop_unattributed += causes[TEL_N] - prev[TEL_N]
+        self._native_causes_merged = tuple(causes)
+        marks = eng.mark_causes(self.id)
+        prev = self._native_marks_merged
+        for i in range(MARK_N):
+            self.mark_causes[i] += marks[i] - prev[i]
+        self._native_marks_merged = tuple(marks)
         app_sys = eng.app_syscalls(self.id)
         if app_sys:
             prev = self._app_sys_merged

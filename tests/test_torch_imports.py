@@ -48,7 +48,16 @@ def test_torch_port_file_list_is_complete():
                  "shadow_tpu_torch/tools/netgen.py",
                  "shadow_tpu_torch/tools/phold_span_profile.py",
                  "shadow_tpu_torch/tools/phold_span_ab.py",
-                 "shadow_tpu_torch/core/manager.py"):
+                 "shadow_tpu_torch/core/manager.py",
+                 "shadow_tpu_torch/core/config.py",
+                 "shadow_tpu_torch/core/propagate_scalar.py",
+                 "shadow_tpu_torch/trace/events.py",
+                 "shadow_tpu_torch/trace/metrics.py",
+                 "shadow_tpu_torch/trace/audit.py",
+                 "shadow_tpu_torch/utils/object_counter.py",
+                 "shadow_tpu_torch/utils/shadow_log.py",
+                 "shadow_tpu_torch/utils/status_bar.py",
+                 "shadow_tpu_torch/__main__.py"):
         assert want in files
 
 
@@ -76,6 +85,15 @@ _PHOLD = ("I64_MAX C_IDLE C_R1 C_R2 C_M_STEP C_S_STEP C_M_RECV C_S_POST "
           "TEL_NO_SOCKET TEL_RECVBUF_FULL TEL_HOST_DOWN TEL_LINK_DOWN "
           "TEL_N KS_POP KS_STEP KS_CODEL KS_INET_OUT KS_ARM KS_TIMERS "
           "KS_N PK_KEYS AB_TRACE AB_OUT AB_STRUCT").split()
+_EVENTS = ("EL_DEVICE_SPAN EL_ENGINE_SPAN EL_ENGINE_ROUTED EL_ENGINE_COLD "
+           "EL_ENGINE_ABORT EL_ENGINE_TRANSIENT EL_ENGINE_FAMILY "
+           "EL_ENGINE_OFF EL_ENGINE_PYLIMIT EL_ROUND_BOUNDARY "
+           "EL_ROUND_OUTBOX EL_ROUND_GATE EL_ROUND_CALLBACK "
+           "EL_ROUND_FORCED EL_ROUND_SCHED EL_OBJ_PCAP EL_OBJ_CPU "
+           "EL_OBJ_PYTASK EL_OBJ_OTHER EL_DEVICE_SHARDED "
+           "EL_ENGINE_EXCHANGE EL_ENGINE_UNSHARDED EL_SVC_QUIESCENT EL_N "
+           "EL_NAMES TEL_CODEL TEL_RTR_LIMIT TEL_WIRE_N TEL_N TEL_NAMES "
+           "MARK_N MARK_NAMES SC_N SC_NAMES").split()
 PINS = (
     [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.phold_span", n, n)
      for n in _PHOLD]
@@ -123,6 +141,13 @@ PINS = (
                  "DeviceRouteModel.PROBE_BUDGET_FRAC")]
     + [("shadow_tpu_torch.ops.propagate", "shadow_tpu.ops.propagate",
         "I64_MAX", "_I64_MAX")]
+    # The reason and cause tables the run outputs name.
+    + [("shadow_tpu_torch.trace.events", "shadow_tpu.trace.events", n, n)
+       for n in _EVENTS]
+    + [("shadow_tpu_torch.trace.metrics", "shadow_tpu.trace.metrics",
+        "CHANNELS", "CHANNELS")]
+    + [("shadow_tpu_torch.core.config", "shadow_tpu.core.config",
+        "ON_FAILURE_POLICIES", "ON_FAILURE_POLICIES")]
 )
 
 
@@ -147,6 +172,37 @@ def test_torch_packet_dtypes_pinned():
     from shadow_tpu.ops import tcp_span as ref
     from shadow_tpu_torch.ops import tcp_span as port
     assert port.PK_DTYPES == ref.PK_DTYPES
+
+
+@pytest.mark.parametrize("loop", ["tcp_span", "phold_span"])
+def test_torch_span_loop_causes_name_the_tables_entries(loop):
+    """The drop-cause indices the span loops keep stay where they are;
+    each names the same cause in the port's table as in the JAX
+    package's."""
+    import importlib
+
+    from shadow_tpu.trace import events as ref
+    from shadow_tpu_torch.trace import events as port
+    mod = importlib.import_module(f"shadow_tpu_torch.ops.{loop}")
+    names = [n for n in dir(mod) if n.startswith("TEL_")
+             and isinstance(getattr(mod, n), int) and n != "TEL_N"]
+    assert names
+    for n in names:
+        assert port.TEL_NAMES[getattr(mod, n)] == \
+            ref.TEL_NAMES[getattr(ref, n)], n
+    assert mod.TEL_N == port.TEL_N
+
+
+@pytest.mark.parametrize("cls", ["GeneralConfig", "ExperimentalConfig"])
+def test_torch_config_sections_carry_every_reference_field(cls):
+    """Every field of the reference's section, at its default (so
+    processed-config.yaml can carry it)."""
+    import shadow_tpu.core.config as ref
+    import shadow_tpu_torch.core.config as port
+    r, p = getattr(ref, cls)(), getattr(port, cls)()
+    assert list(p.__dataclass_fields__) == list(r.__dataclass_fields__)
+    for f in p.__dataclass_fields__:
+        assert getattr(p, f) == getattr(r, f), f
 
 
 def test_torch_config_defaults_pinned():
