@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Seven phases; any failed check raises, so the script exits non-zero:
+Eight phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
@@ -183,8 +183,9 @@ Seven phases; any failed check raises, so the script exits non-zero:
    each run, and their upload + launch + kernel + download; the kernels
    line's stt_propagate row is timed at the forced run's median round.
 7. The data directory and the two schedulers.  `python -m
-   shadow_tpu_torch --data-directory` in a child process on tier10k
-   (every round forced through stt_propagate_round), phold-8k (spans
+   shadow_tpu_torch --data-directory` in a child process on tier-1k
+   (bench.py config3, every round forced through stt_propagate_round),
+   phold-8k (spans
    forced, stt_phold_span) and tcp-stream-16 (to 500 ms, stt_tcp_span),
    each under `--scheduler tpu` on the card and under `--scheduler
    thread_per_core` (`native_dataplane: on`: the engine baseline, no
@@ -198,8 +199,27 @@ Seven phases; any failed check raises, so the script exits non-zero:
    and the same directory.  The seven runs go at once.  Prints each
    run's process wall and sim-s/wall-s beside the card's name and power
    limit.
+8. The sim-time channels: tcp-stream-16 (to 500 ms), mesh-codel-10
+   (its CoDel stretch: queue samples with drops) and phold-8k, each with
+   the flight recorder, sim-netstat, the fabric and kernel observatories
+   on, three times: spans off (the C++ engine's rings), forced through
+   the span kernels, and forced through the plain loops (the eager round
+   end and its eager sample, each window by its family's window kernel,
+   itself held exact in phase 2), every run sampling every round.
+   Requires one trace in the three runs (the cell's DIGESTS where it has
+   one), `flight-sim.bin`, `telemetry-sim.bin`, `fabric-sim.bin` and
+   `kernel-sim.bin` byte-identical between the kernel and the plain
+   runs, the connection and queue samples also equal to the engine's,
+   an empty kernel file off the card, one kernel record per committed
+   span whose trips sum to the runner's micro-iterations, and through
+   the span kernels one launch and one read per dispatch, with no span
+   moved to the eager loop or the engine.  Phase 2 also holds each span
+   kernel with the channels on (every round sampled) against the plain
+   loop on the 10,000-host TCP export and the phold-64k-ring export over
+   spans of one and four rounds, the sample rows included, and times it
+   with the channels off and on in the same call.
 
-The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
+Each phase prints its own seconds on a line of its own.  The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
 `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`.  It imports nothing of JAX and
@@ -1222,6 +1242,11 @@ def check_phold_window() -> tuple:
                 "grids": span.span.grids,
                 "ms_team1": float(np.median(card_w1)),
                 "clocks_team1": clk_w1}
+        if name == "phold-64k-ring":
+            # Phase 8's kernel leg on the ring export: the channels on.
+            srow["channels"] = check_channel_spans(
+                f"[channels {name}]", runner, base,
+                (start, stop, limit, runahead), (pay,), pw.eager_window)
         span_stats[name] = srow
         share = {k: clk[k] / max(clk["span"], 1)
                  for k in ("window", "propagate", "settle", "wait")}
@@ -2582,11 +2607,13 @@ def mesh100_runs() -> dict:
 def data_dir_cells() -> dict:
     from shadow_tpu_torch.ops.propagate import HOST_ONLY
     from shadow_tpu_torch.tools.netgen import (phold_yaml, tcp_stream_yaml,
-                                               tier10k_yaml)
+                                               tier1k_yaml)
     plane = {"native_dataplane": "on"}
     return {
-        # phase 6's tier10k, every round through stt_propagate_round
-        "tier10k": (tier10k_yaml("tpu"), {},
+        # bench.py config3 (1,000 hosts on phase 6's 3-tier graph), every
+        # round through stt_propagate_round: tier10k's path at a tenth of
+        # its files, which set a CLI run's wall there (PERF.md)
+        "tier-1k": (tier1k_yaml("tpu"), {},
                     dict(plane, tpu_min_device_batch=0)),
         # phase 4's phold-8k, spans forced through stt_phold_span; a
         # heartbeat every 50 ms of its 0.3 s for the --progress run
@@ -2758,7 +2785,7 @@ def data_dir_runs(card_line: str) -> dict:
             stats = runs["tpu"]["stats"]
             wall = stats["metrics"]["wall"]
             el, disp = wall["eligibility"], wall["dispatch"]
-            if name == "tier10k":
+            if name == "tier-1k":
                 launches = disp["propagate"]["launches"]
                 ok = el.get("per-round:forced-device") == \
                     stats["rounds"] and launches > 0
@@ -2803,12 +2830,248 @@ def data_dir_runs(card_line: str) -> dict:
     return out
 
 
+CHANNELS_ON = {"flight_recorder": "on", "sim_netstat": "on",
+               "sim_fabricstat": "on", "kernel_observatory": "on"}
+CHANNEL_FILES = ("flight-sim.bin", "telemetry-sim.bin", "fabric-sim.bin",
+                 "kernel-sim.bin")
+
+
+def check_channel_spans(tag: str, runner, base: dict, args: tuple,
+                        pay: tuple = (), plain_factory=None,
+                        reps: int = 3) -> dict:
+    """Phase 8's kernel leg on one export (a TCP runner's or a PHOLD
+    runner's state on the card): the span kernel with the channels on
+    (sim-netstat on a TCP runner, the fabric observatory on both, every
+    round sampled: the most rows a span takes) against the plain loop
+    (windows by `plain_factory`, then the eager round end and sample)
+    over spans of one and four rounds: every state column, the sample
+    rows and the run's scalars exactly equal.  Then the span kernel's
+    card time per one- and four-round span with the channels off and on,
+    in turns in this call (span_card_ms), and the bytes the sample rows
+    add to the span's bound.  Returns {"off": {1: ms, 4: ms}, "on": {...},
+    "sample_bytes": {1: B, 4: B}}."""
+    from shadow_tpu_torch.ops.span_common import sample_need_bytes
+    from shadow_tpu_torch.tools.relay_cases import clone_state
+    from shadow_tpu_torch.tools.window_cases import (tcp_window_mismatch,
+                                                     window_mismatch)
+    from shadow_tpu_torch.trace.fabricstat import FabricChannel
+    from shadow_tpu_torch.trace.netstat import NetstatChannel
+    tcp = hasattr(runner, "_tel_ident")
+    mismatch = tcp_window_mismatch if tcp else window_mismatch
+    saved = (runner.netstat, runner.fabric, runner.window_factory)
+    fns = {}
+    for on in (False, True):
+        runner.netstat = NetstatChannel(1) if on and tcp else None
+        runner.fabric = FabricChannel(1) if on else None
+        runner.window_factory = None
+        fns[on] = runner._build()
+        assert fns[on].span is not None
+    runner.window_factory = plain_factory
+    plain = runner._build()
+    assert plain.span is None
+    prefixes = ("tel", "fab") if tcp else ("fab",)
+    for mr in (1, 4):
+        a, b = clone_state(base), clone_state(base)
+        want = plain(a, *pay, *args, mr)
+        got = fns[True](b, *pay, *args, mr)
+        bad = mismatch(a, b) + [k for k in ("ks_fires", "ks_lanes")
+                                if not np.array_equal(a[k], b[k])]
+        rows = {p: b[f"{p}_n"] for p in prefixes}
+        if bad or tuple(want[1:]) != tuple(got[1:]) \
+                or any(n != want[3] for n in rows.values()):
+            raise AssertionError(f"{tag} channels on, {mr} rounds: {bad} "
+                                 f"differ, scalars {want[1:]} vs {got[1:]}, "
+                                 f"rows {rows}")
+        del a, b
+    n_conns = base["c_cwnd"].shape[0] - 1 if tcp else 0
+    out = {"sample_bytes": {
+        mr: sample_need_bytes(dict.fromkeys(
+            (f"{p}_n" for p in prefixes), mr), n_conns, runner._H)
+        for mr in (1, 4)}}
+    for on in (False, True):
+        out["on" if on else "off"] = {}
+    for _turn in range(2):
+        for on in (False, True):
+            for mr in (1, 4):
+                card, _ = span_card_ms(fns[on], base, args + (mr,), reps,
+                                       *pay)
+                out["on" if on else "off"].setdefault(mr, []).extend(card)
+    for k in ("off", "on"):
+        out[k] = {mr: float(np.median(v)) for mr, v in out[k].items()}
+    runner.netstat, runner.fabric, runner.window_factory = saved
+    print(f"{tag} channels on (every round sampled: "
+          f"{'sim-netstat and ' if tcp else ''}fabric rows): exact against "
+          f"the plain loop over 1 and 4 rounds, the rows included; card "
+          f"time per span, channels off / on (median of {2 * reps} single "
+          f"launches in turns, fresh copies): 1 round "
+          f"{out['off'][1] * 1e3:.3f} / {out['on'][1] * 1e3:.3f} us, 4 "
+          f"rounds {out['off'][4] * 1e3:.3f} / {out['on'][4] * 1e3:.3f} "
+          f"us; the rows add {out['sample_bytes'][1]} / "
+          f"{out['sample_bytes'][4]} B to the bound", flush=True)
+    return out
+
+
+def channel_cells() -> dict:
+    """Phase 8's cells: name -> config for a `tpu_device_spans` value,
+    every channel on and every round sampled."""
+    from shadow_tpu_torch.tools.span_loop_bench import stream_config
+    cells = phold_cells()
+
+    def on(make):
+        def cfg(spans):
+            c = make(spans)
+            for k, v in CHANNELS_ON.items():
+                setattr(c.experimental, k, v)
+            return c
+        return cfg
+
+    def stream(spans):
+        c = stream_config(16, "500ms", spans)
+        c.experimental.dev_span_k_init = 4
+        return c
+
+    return {"tcp-stream-16": on(stream),
+            "mesh-codel-10": on(cells["mesh-codel-10"][0]),
+            "phold-8k": on(cells["phold-8k"][0])}
+
+
+def channel_files(mgr, d: str) -> dict:
+    """The run's four channel files, written by the channels' own
+    writers into `d` and read back."""
+    import os
+    os.makedirs(d, exist_ok=True)
+    mgr.flight.write(d)
+    mgr.netstat.write(d)
+    mgr.fabric.write(d, mgr.collect_fct_rows())
+    mgr.kern.write(d)
+    out = {}
+    for f in CHANNEL_FILES:
+        with open(os.path.join(d, f), "rb") as fh:
+            out[f] = fh.read()
+    return out
+
+
+def channel_runs() -> dict:
+    """Phase 8: each channel cell spans off, through the span kernels
+    ("kernel") and through the plain loops ("plain": the eager loop, its
+    windows by the family's window kernel).  Returns each device run's
+    kernel launches by path."""
+    import hashlib
+    import tempfile
+
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
+    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
+    from shadow_tpu_torch.trace.events import (FAM_PHOLD, FAM_TCP,
+                                               KS_REC_BYTES)
+    from shadow_tpu_torch.trace.kernstat import family_trips
+    wrappers = kernel_wrappers()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make in channel_cells().items():
+            tag = f"[channels {name}]"
+            runs = {}
+            for path in ("off", "kernel", "plain"):
+                mgr = Manager(make("off" if path == "off" else "force"),
+                              device="cuda")
+                if path == "plain":
+                    for attr, make_runner, factory in (
+                            ("_dev_span", mgr.make_dev_span_runner,
+                             PHOLD_WINDOW.bind),
+                            ("_dev_span_tcp", mgr.make_tcp_span_runner,
+                             TCP_WINDOW.bind)):
+                        r = make_runner()
+                        r.window_factory = factory
+                        setattr(mgr, attr, r)
+                zero_counts(wrappers)
+                gc.collect()
+                t0 = time.perf_counter()
+                summary = mgr.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if not summary.ok:
+                    raise AssertionError(f"{tag} {path}: plugin errors "
+                                         f"{summary.plugin_errors[:3]}")
+                lines = mgr.trace_lines()
+                digest = hashlib.sha256(
+                    "\n".join(lines).encode()).hexdigest()
+                r = mgr._dev_span_tcp if name.startswith("tcp") \
+                    else mgr._dev_span
+                runs[path] = dict(
+                    digest=digest, r=r, wall=wall, summary=summary,
+                    launches={k: w.launches for k, w in wrappers.items()},
+                    host_reads={k: wrappers[k].host_reads
+                                for k in ("tcp_span", "phold_span")},
+                    files=channel_files(mgr, f"{tmp}/{name}-{path}"))
+                print(f"{tag} {path}: rounds {summary.rounds} (device "
+                      f"{r.rounds if r else 0} in {r.spans if r else 0} "
+                      f"spans), trace sha256 {digest[:16]}, wall "
+                      f"{wall:.2f}s, files "
+                      + ", ".join(f"{f} {len(b)} B" for f, b in
+                                  runs[path]["files"].items())
+                      + f", launches {runs[path]['launches']}", flush=True)
+            off, kern, plain = runs["off"], runs["kernel"], runs["plain"]
+            if len({off["digest"], kern["digest"], plain["digest"]}) != 1 \
+                    or (name in DIGESTS
+                        and not off["digest"].startswith(DIGESTS[name])):
+                raise AssertionError(f"{tag} traces differ: "
+                                     f"{[x['digest'][:16] for x in runs.values()]}")
+            bad = [f for f in CHANNEL_FILES
+                   if kern["files"][f] != plain["files"][f]]
+            bad += [f"{f} (engine)" for f in ("telemetry-sim.bin",
+                                              "fabric-sim.bin")
+                    if off["files"][f] != kern["files"][f]]
+            if off["files"]["kernel-sim.bin"] or any(
+                    off["launches"].values()):
+                bad.append("the C++ run's kernel records or launches")
+            tcp = name.startswith("tcp")
+            fam, kname = ((FAM_TCP, "tcp_span") if tcp
+                          else (FAM_PHOLD, "phold_span"))
+            r = kern["r"]
+            n = kern["launches"][kname]
+            trips = family_trips(kern["files"]["kernel-sim.bin"])
+            recs = len(kern["files"]["kernel-sim.bin"]) // KS_REC_BYTES
+            if r is None or r.spans == 0 or n != r.spans_all \
+                    or kern["host_reads"][kname] != n \
+                    or r.ks_spans != r.spans or r.ks_windows != r.rounds \
+                    or recs != r.spans or trips.get(fam) != r.micro_iters \
+                    or getattr(r, "eager_round_ends", 0):
+                bad.append(f"{kname} launches {n} for "
+                           f"{r and r.spans_all} dispatches, reads "
+                           f"{kern['host_reads'][kname]}, {recs} records "
+                           f"for {r and r.spans} spans, trips {trips} vs "
+                           f"{r and r.micro_iters}")
+            if not kern["files"]["fabric-sim.bin"][24:] or (
+                    tcp and not kern["files"]["telemetry-sim.bin"]):
+                bad.append("no sample rows")
+            if bad:
+                raise AssertionError(f"{tag} {bad}")
+            out[f"{name}/channels"] = kern["launches"]
+            print(f"{tag} PASS: one trace ({off['digest'][:16]}) in the "
+                  f"three runs; the four channel files identical through "
+                  f"{kname} and the plain loop, the samples equal to the "
+                  f"engine's; {n} {kname} launches ({r.rounds} rounds "
+                  f"inside, one read each), {recs} kernel records, trips "
+                  f"= micro-iterations {r.micro_iters}; walls "
+                  + ", ".join(f"{k} {v['wall']:.2f}s"
+                              for k, v in runs.items()), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.31s",
                     help="simulated time of the 10,000-host TCP stream")
     args = ap.parse_args(argv)
+    clock = {"t": time.perf_counter()}
+
+    def phase_done(what: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase] {what}: {now - clock['t']:.1f} s", flush=True)
+        clock["t"] = now
+
     kind = card()
+    phase_done("1 (the card)")
     build_all()
     law_stats = check_kernels()
     stats = {name: law_stats[(name, H_RING)]
@@ -2845,6 +3108,8 @@ def main(argv=None) -> int:
         del runner, st_np, legs
         gc.collect()
         torch.cuda.empty_cache()
+    phase_done("2 (builds; the law, relay, propagate, PHOLD and 16-host "
+               "TCP kernels against their plain versions)")
     by_path: dict = {}
     # The main path: the 10,000-host stream through the span kernel.  Its
     # fleet enters the TCP device-span domain only at 1.23 s simulated
@@ -2874,9 +3139,16 @@ def main(argv=None) -> int:
         profile=True)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("3 (tcp-stream-10k, the C++ prefix to the domain and "
+               "one span)")
     tcp_span_stats["stream-10k"] = check_tcp_span(
         "stream-10k", runner, base, capture["args"], plain4="kernel",
         reps=3)
+    # Phase 8's kernel leg on the same export: the channels on.
+    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
+    tcp_span_stats["stream-10k"]["channels"] = check_channel_spans(
+        "[channels stream-10k]", runner, base, capture["args"],
+        plain_factory=TCP_WINDOW.bind)
     del runner, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -2893,15 +3165,19 @@ def main(argv=None) -> int:
     # to EAGER_STOP.
     by_path["tcp-stream-16/eager-window"], _ = stream_pair(
         16, EAGER_STOP, min_share=0.0, k_init=4, path="eager")
+    phase_done("2 (the 10,000-host export's TCP window and span legs, "
+               "the channels' leg) and 3 (tcp-stream-16 on three paths)")
     # The main path of the standalone law kernels: the PHOLD/udp-mesh
     # family, phold-8k first.
     for name, (make, share, codel) in phold_cells().items():
         by_path.update(phold_pair(name, make, share, codel,
                                   side_runs=name == "phold-8k"))
+    phase_done("4 (phold-8k, mesh-24, mesh-codel-10)")
     # The law kernels' main path: phold-64k-ring with residency and the
     # speculative overlap; then the overlap through the CLI.
     by_path.update(ring_runs())
     cli_overlap()
+    phase_done("5 (phold-64k-ring, the CLI's overlap)")
     # Phase 6: per-round device propagation.  The main path of
     # stt_propagate: tier10k forced, every round through the kernel.
     for cell, runs in (("tier10k", tier10k_runs()),
@@ -2911,9 +3187,15 @@ def main(argv=None) -> int:
                 run["launches"], propagate_probes=run["probe_launches"])
             if cell == "tier10k" and name == "forced":
                 per_round = run["block"]["packets_per_round"]
+    phase_done("6 (tier10k, mesh-100)")
     # Phase 7: the data directory and the two schedulers, through the
     # CLI in child processes (their launches are not this process's).
     data_dir_runs(CARD_LINE)
+    phase_done("7 (the CLI's data directories, seven runs at once)")
+    # Phase 8: the sim-time channels through the span kernels and the
+    # plain loops.
+    by_path.update(channel_runs())
+    phase_done("8 (the channels: tcp-stream-16, mesh-codel-10, phold-8k)")
     # The kernel's row: timed at the main path's median round.
     print(f"[main] propagate: the forced tier10k run's packets per round "
           f"{per_round}; the kernels line's row is timed at the median",
@@ -2979,6 +3261,7 @@ def main(argv=None) -> int:
                 "team": s.get("team"), "ms_team1": s.get("ms_team1"),
                 "launch_shape": s.get("launch"),
                 "round_dispatch": s.get("dispatch"),
+                "channels": s.get("channels"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]
                                      for p, n in by_path.items()}}

@@ -230,11 +230,7 @@ _EXP_REFUSED = {
     "host_cpu_event_cost_ns": (lambda v: v != 0, _RM_OBJECT),
     "tpu_shards": (lambda v: v != 1, _RM_SHARDED),
     "native_dataplane": (lambda v: v == "off", _RM_OBJECT),
-    "flight_recorder": (lambda v: v != "off", _RM_OBS),
-    "sim_netstat": (lambda v: v != "off", _RM_OBS),
-    "sim_fabricstat": (lambda v: v != "off", _RM_OBS),
     "syscall_observatory": (lambda v: v != "off", _RM_OBS),
-    "kernel_observatory": (lambda v: v != "off", _RM_OBS),
     "openssl_crypto_noop": (bool, _RM_OBS),
     "use_perf_timers": (bool, _RM_OBJECT),
 }
@@ -554,8 +550,6 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
                                  h.get("host_options", {}) or {}))
         pcap_enabled = bool(h.get("pcap_enabled",
                                   opt.get("pcap_enabled", False)))
-        if pcap_enabled:
-            _refuse(f"hosts.{name}: pcap capture", _RM_OBS)
         native_dataplane = bool(h.get("native_dataplane",
                                       opt.get("native_dataplane", True)))
         if not native_dataplane:

@@ -35,6 +35,18 @@ heartbeat and status bar follow `general.progress`; `write_data_dir`
 writes what the reference writes for these runs: processed-config.yaml,
 hosts.txt, the processes' stdout and stderr, packet-trace.txt and
 sim-stats.json (trace/metrics.py's two channels).
+
+The sim-time channels, each opt-in as in the reference: the flight
+recorder (`flight-sim.bin`, and `flight-wall.json` from its wall half),
+sim-netstat (`telemetry-sim.bin`), the fabric observatory
+(`fabric-sim.bin`) and the kernel observatory (`kernel-sim.bin`), and
+pcap (`hosts/<name>/{lo,eth0}.pcap`).  The engine records its own rounds
+and C++ spans (drained after each span and sampled at each per-round
+boundary); a device span samples on the card (or in its plain loop) and
+its runner appends the rows after the span's import; pcap is captured by
+the engine and drained every round and span, its spans capped at
+`pcap_span_cap` rounds (the engine keeps a pcap host's sim off device
+spans, as the reference's does).
 """
 
 from __future__ import annotations
@@ -235,6 +247,24 @@ class Manager:
                 ScalarPropagator
             self.propagator = ScalarPropagator(runahead=self.runahead)
         self.propagator.engine = eng
+        # Pcap capture: the engine records its hosts' packets, drained
+        # each round and span into the writers.
+        self._pcap_engine: list = []  # (host, writer_lo, writer_eth)
+        for host in self.hosts:
+            hcfg = config.hosts[host.name]
+            if not hcfg.pcap_enabled:
+                continue
+            from shadow_tpu_torch.utils.pcap import PcapWriter
+            hdir = os.path.join(config.general.data_directory, "hosts",
+                                host.name)
+            os.makedirs(hdir, exist_ok=True)
+            writers = tuple(
+                PcapWriter(os.path.join(hdir, f"{name}.pcap"),
+                           hcfg.pcap_capture_size)
+                for name in ("lo", "eth0"))
+            for ifidx in (0, 1):
+                eng.set_pcap(host.id, ifidx, True)
+            self._pcap_engine.append((host,) + writers)
         # OS-thread width for the engine's run_hosts_mt sections (the
         # baseline's: its pool's width, min(workers, hosts)).
         self._mt_threads = config.general.parallelism or os.cpu_count() or 1
@@ -244,6 +274,29 @@ class Manager:
         # and the eligibility audit feed sim-stats.json.
         self.metrics = MetricsRegistry()
         self.audit = EligibilityAudit()
+        # The sim-time channels (opt-in).  "on" flight recording is the
+        # sim event stream and the wall phases, "wall" the phases only.
+        self.flight = None
+        if exp.flight_recorder in ("on", "wall"):
+            from shadow_tpu_torch.trace.recorder import FlightRecorder
+            self.flight = FlightRecorder(sim=exp.flight_recorder == "on")
+            if self.flight.sim is not None:
+                eng.set_flight(1)  # the engine's ring: C++ span rounds
+            self.propagator.wall = self.flight.wall
+        self.netstat = None
+        if exp.sim_netstat == "on":
+            from shadow_tpu_torch.trace.netstat import NetstatChannel
+            self.netstat = NetstatChannel(exp.netstat_interval_ns)
+            eng.set_netstat(1, max(int(exp.netstat_interval_ns), 1))
+        self.fabric = None
+        if exp.sim_fabricstat == "on":
+            from shadow_tpu_torch.trace.fabricstat import FabricChannel
+            self.fabric = FabricChannel(exp.fabricstat_interval_ns)
+            eng.set_fabric(1, max(int(exp.fabricstat_interval_ns), 1))
+        self.kern = None
+        if exp.kernel_observatory == "on":
+            from shadow_tpu_torch.trace.kernstat import KernChannel
+            self.kern = KernChannel()
         # Rounds and packets served inside spans (the reference credits
         # them to its propagator's split; the port's propagator counts
         # its per-round rounds only).
@@ -299,6 +352,15 @@ class Manager:
         for hid in slow.tolist():
             self.hosts[hid].execute(until)
 
+    def _drain_engine_pcap(self) -> None:
+        eng = self.plane.engine
+        for host, w_lo, w_eth in self._pcap_engine:
+            for (ifidx, t, src, seq, proto, sip, sport, dip, dport,
+                 payload, tcp) in eng.pcap_take(host.id):
+                w = w_lo if ifidx == 0 else w_eth
+                w.write_fields(t, src, seq, proto, sip, sport, dip, dport,
+                               payload, tcp)
+
     def run(self) -> SimSummary:
         exp = self.config.experimental
         stop = self.config.general.stop_time_ns
@@ -326,6 +388,12 @@ class Manager:
         start = self._min_next_event()
         prop = self.propagator
         audit = self.audit
+        eng = self.plane.engine
+        flight = self.flight
+        fr_sim = flight.sim if flight is not None else None
+        fr_wall = flight.wall if flight is not None else None
+        netstat = self.netstat
+        fabric = self.fabric
         # Spans serve only the tpu scheduler; the thread_per_core
         # baseline keeps the reference's per-round architecture.
         # Forced-device mode (min_device_batch <= 0) is the parity/audit
@@ -352,7 +420,9 @@ class Manager:
         dev_span_K = exp.dev_span_k_init
         dev_k_floor = exp.dev_span_k_floor
         dev_k_shrink = exp.dev_span_k_shrink
-        max_rounds = 1024
+        # With engine pcap, spans stop every pcap_span_cap rounds for the
+        # drain (the capture streams; a span must not buffer a sim).
+        max_rounds = exp.pcap_span_cap if self._pcap_engine else 1024
         # The overlapped pipeline: every device dispatch also carries the
         # next window's max rounds (the doubling after a clean commit,
         # computed up front so the in-flight window's params match the
@@ -372,12 +442,32 @@ class Manager:
                     status.update(t)
                     next_status_wall = wall + status_throttle
 
-        def account_span(res, reason, device=False) -> int | None:
+        def account_span(res, reason, device=False,
+                         family=trev.FAM_CPP) -> int | None:
             rounds, busy_rounds, pkts, next_start, busy_end, ra = res
+            base_round = summary.rounds
             summary.rounds += rounds
             summary.span_rounds += rounds
             summary.busy_end_ns = busy_end
             audit.add(reason, rounds)
+            if fr_sim is not None:
+                fr_sim.event(start, trev.FR_SPAN_START, family, 0,
+                             base_round)
+                if not device:
+                    # The engine's per-round records of the span, with
+                    # the manager's reason on them.
+                    fr_sim.extend_engine(*eng.flight_take(), reason=reason)
+                fr_sim.event(busy_end, trev.FR_SPAN_COMMIT, family, pkts,
+                             rounds)
+            if not device:
+                # A C++ span's samples, from the engine's rings (a device
+                # span's runner appends its own at commit).
+                if netstat is not None:
+                    netstat.extend(*eng.netstat_take())
+                if fabric is not None:
+                    fabric.extend(*eng.fabric_take())
+            if self._pcap_engine:
+                self._drain_engine_pcap()
             self.runahead.sync_from_span(ra)
             self._span_busy_rounds += busy_rounds
             self._span_packets += pkts
@@ -460,8 +550,11 @@ class Manager:
                             dev_ns_round = per if dev_ns_round is None \
                                 else 0.7 * dev_ns_round + 0.3 * per
                             dev_probe_countdown = 16
-                        start = account_span(res, trev.EL_DEVICE_SPAN,
-                                             device=True)
+                        start = account_span(
+                            res, trev.EL_DEVICE_SPAN, device=True,
+                            family=(trev.FAM_TCP
+                                    if runner is self._dev_span_tcp
+                                    else trev.FAM_PHOLD))
                         continue
                     if res is None and runner.ineligible:
                         dev_span_on = False  # no device-span family fits
@@ -477,6 +570,12 @@ class Manager:
                         # Abort: shrink the window batch, back off, and
                         # give up after repeated failures.
                         span_reason = trev.EL_ENGINE_ABORT
+                        if fr_sim is not None:
+                            fr_sim.event(
+                                start, trev.FR_SPAN_ABORT,
+                                trev.FAM_TCP if runner is self._dev_span_tcp
+                                else trev.FAM_PHOLD,
+                                runner.last_abort_code, 0)
                         dev_span_K = max(dev_k_floor,
                                          dev_span_K // dev_k_shrink)
                         dev_aborts_row += 1
@@ -505,9 +604,12 @@ class Manager:
                             "builds")
                     res = res[:6]
                     if res[0]:
-                        per = (time.perf_counter_ns() - t0) / res[0]
+                        dt = time.perf_counter_ns() - t0
+                        per = dt / res[0]
                         cpp_ns_round = per if cpp_ns_round is None \
                             else 0.7 * cpp_ns_round + 0.3 * per
+                        if fr_wall is not None:
+                            fr_wall.add("engine-span", dt, t0)
                         start = account_span(res, span_reason)
                         continue
                     # rounds == 0 (e.g. a heartbeat boundary due now):
@@ -515,9 +617,33 @@ class Manager:
                     round_reason = trev.EL_ROUND_BOUNDARY
             window_end = min(start + self.runahead.get(), stop)
             prop.begin_round(start, window_end)
-            self._run_hosts(window_end)
-            inflight_min = prop.finish_round()
+            if flight is not None:
+                pk0 = getattr(prop, "packets_batched", 0)
+                t0 = fr_wall.now()
+                self._run_hosts(window_end)
+                t1 = fr_wall.now()
+                fr_wall.add("host-loop", t1 - t0, t0)
+                inflight_min = prop.finish_round()
+                fr_wall.add("propagate", fr_wall.now() - t1, t1)
+                if fr_sim is not None:
+                    fr_sim.event(window_end, trev.FR_ROUND, round_reason,
+                                 getattr(prop, "packets_batched", 0) - pk0,
+                                 start)
+            else:
+                self._run_hosts(window_end)
+                inflight_min = prop.finish_round()
+            # The round boundary's samples, from the engine's rings.
+            if netstat is not None and netstat.sampled(start, window_end):
+                eng.netstat_sample(start, window_end)
+                netstat.extend(*eng.netstat_take())
+                netstat.sample_object_hosts(self.hosts, window_end)
+            if fabric is not None and fabric.sampled(start, window_end):
+                eng.fabric_sample(start, window_end)
+                fabric.extend(*eng.fabric_take())
+                fabric.sample_object_hosts(self.hosts, window_end)
             audit.add(round_reason, 1)
+            if self._pcap_engine:
+                self._drain_engine_pcap()
             summary.rounds += 1
             summary.busy_end_ns = window_end
             progress_at(window_end)
@@ -561,6 +687,11 @@ class Manager:
         for h in self.hosts:
             for proc in h.processes.values():
                 proc.close_all()
+        if self._pcap_engine:
+            self._drain_engine_pcap()
+            for _h, w_lo, w_eth in self._pcap_engine:
+                w_lo.close()
+                w_eth.close()
         return summary
 
     # ------------------------------------------------------------------
@@ -580,12 +711,23 @@ class Manager:
         return self.tpu and span_overlap_on(
             self.config.experimental.span_overlap, self.device)
 
+    def _configure_runner(self, runner):
+        """A span runner's Manager-wide settings: the overlap, the flight
+        recorder's wall phases and the channels whose records it appends
+        at each commit (sim-netstat is the TCP family's alone: PHOLD has
+        no TCP connection)."""
+        runner.overlap = self._span_overlap_on()
+        if self.flight is not None:
+            runner.wall = self.flight.wall
+        runner.fabric = self.fabric
+        runner.kern = self.kern
+        return runner
+
     def make_dev_span_runner(self):
         from shadow_tpu_torch.ops.phold_span import PholdSpanRunner
         runner = PholdSpanRunner(*self._span_runner_args(), tracing=True,
                                  device=self.device)
-        runner.overlap = self._span_overlap_on()
-        return runner
+        return self._configure_runner(runner)
 
     def make_tcp_span_runner(self):
         from shadow_tpu_torch.ops.tcp_span import TcpSpanRunner
@@ -593,8 +735,8 @@ class Manager:
                                device=self.device)
         runner.dctcp_k = (self.config.experimental.dctcp_k_pkts,
                           self.config.experimental.dctcp_k_bytes)
-        runner.overlap = self._span_overlap_on()
-        return runner
+        runner.netstat = self.netstat
+        return self._configure_runner(runner)
 
     def _device_span(self, start: int, stop: int, limit: int,
                      max_rounds: int, spec_mr: int = 0):
@@ -638,8 +780,10 @@ class Manager:
                               + self._dev_busy_rounds),
             "packets_device": (getattr(prop, "packets_device", 0)
                                + self._dev_packets),
-            # No engine-side pcap in the port: the generic clamp.
-            "pcap_span_cap": 1024,
+            # The engine-pcap span cap in effect (1024: no engine pcap,
+            # the generic clamp).
+            "pcap_span_cap": (exp.pcap_span_cap if self._pcap_engine
+                              else 1024),
             "span_overlap": exp.span_overlap,
             "pallas_queue_kernels": exp.pallas_queue_kernels,
             "dev_span_k": {"init": exp.dev_span_k_init,
@@ -762,6 +906,11 @@ class Manager:
         """The conservation ledger (the counters are always on)."""
         return self._fabric_sweep()[0]
 
+    def collect_fct_rows(self) -> list:
+        """Every flow record: the engine's teardown log and its live
+        connections with payload history."""
+        return [tuple(r) for r in self.plane.engine.fct_flows()]
+
     def sc_disposition_totals(self) -> dict:
         """Syscall dispositions summed over hosts: SC name -> count
         (nonzero only).  Engine-resident apps dispatch C++-side and sit
@@ -834,7 +983,9 @@ class Manager:
     def write_data_dir(self, summary: SimSummary) -> None:
         """The run's data directory, as the reference writes it for the
         same run: processed-config.yaml, hosts.txt, each process's
-        stdout and stderr, packet-trace.txt and sim-stats.json."""
+        stdout and stderr, packet-trace.txt, sim-stats.json and the
+        files of the channels that are on (the pcaps are written as the
+        run goes)."""
         import yaml
         base = self.config.general.data_directory
         os.makedirs(base, exist_ok=True)
@@ -871,11 +1022,39 @@ class Manager:
         # packets_dropped; the two TCP receiver discards sit outside.
         reg.ingest("netstat.drops", self.drop_cause_totals(),
                    channel="sim")
+        if self.netstat is not None:
+            reg.gauge("netstat.records", channel="sim").set(
+                self.netstat.records)
+            reg.gauge("netstat.dropped", channel="sim").set(
+                self.netstat.dropped)
+            self.netstat.write(base)
         reg.ingest("fabric", self.fabric_conservation(), channel="sim")
+        if self.fabric is not None:
+            reg.gauge("fabric.records", channel="sim").set(
+                self.fabric.records)
+            reg.gauge("fabric.dropped", channel="sim").set(
+                self.fabric.dropped)
+            fct_rows = self.collect_fct_rows()
+            reg.gauge("fabric.flows", channel="sim").set(len(fct_rows))
+            self.fabric.write(base, fct_rows)
+        if self.kern is not None:
+            reg.gauge("kern.records", channel="sim").set(self.kern.records)
+            reg.gauge("kern.dropped", channel="sim").set(self.kern.dropped)
+            self.kern.write(base)
         reg.ingest("syscalls.dispositions", self.sc_disposition_totals(),
                    channel="sim")
         # One reason code per conservative round.
         reg.ingest("eligibility", self.audit.as_dict(), channel="wall")
+        if self.flight is not None:
+            reg.ingest("phases", {name: ns for name, (ns, _c) in
+                                  self.flight.wall.phases.items()},
+                       channel="wall")
+            sim = self.flight.sim
+            reg.gauge("flight.sim_records", channel="sim").set(
+                sim.records if sim is not None else 0)
+            reg.gauge("flight.sim_dropped", channel="sim").set(
+                sim.dropped if sim is not None else 0)
+            self.flight.write(base)
         stats = {
             "end_time_ns": summary.end_time_ns,
             "rounds": summary.rounds,

@@ -50,6 +50,7 @@
 
 #include "phold_lane.cuh"
 #include "propagate_law.cuh"
+#include "sample_rows.cuh"
 
 #ifdef __CUDACC__
 // Words written by other blocks before a grid barrier: read from L2, so
@@ -92,14 +93,20 @@ inline void host_min(int64_t* word, int64_t v) {
   X(int64_t*, ib_seq, "ib_seq", "n,I")                                  \
   X(int64_t*, ib[kPk], "ib_*", "n,I")                                   \
   X(int64_t*, arrivals, "span.arrivals", "n") /* per row, a round */    \
-  X(int64_t*, words, "span.words", "span")
+  X(int64_t*, words, "span.words", "span")                              \
+  /* the fabric sample: the marks it reads, its rows (null when off) */ \
+  X(const int64_t*, codel_marked, "codel_marked", "n")                  \
+  X(int64_t*, fab_t, "span.fab_t", "rows")                              \
+  X(int64_t*, fab[kFabCols], "span.fab_&", "rows,n")
 
 // The span's constants, int64 words; the first five are the launch's
 // (start, stop, limit, runahead, max_rounds: the reference run's
 // arguments), the rest the build's.
 #define STT_ROUND_PARAMS(X)                                             \
   X(start) X(stop) X(limit) X(runahead) X(max_rounds)                   \
-  X(n_nodes) X(k0) X(k1) X(bootstrap_end) X(time_never)
+  X(n_nodes) X(k0) X(k1) X(bootstrap_end) X(time_never)                 \
+  X(fab_iv) /* the fabric channel's sampling interval, 0: off */        \
+  X(rows)   /* the sample rows' buffers' rows (the launch's) */
 
 // The span words (int64).  Out: the run's scalars (the eager run's
 // return values), the abort word at the end, and the phase clocks:
@@ -115,7 +122,7 @@ inline void host_min(int64_t* word, int64_t v) {
   X(SW_CLK_WINDOW, 7) X(SW_CLK_PROPAGATE, 8) X(SW_CLK_SETTLE, 9)        \
   X(SW_CLK_WAIT, 10) X(SW_CLK_SPAN, 11)                                 \
   X(SW_NEXT, 12) X(SW_MIN_LAT, 14) X(SW_OUT_N, 16) X(SW_CODE, 18)       \
-  X(SW_N, 20)
+  X(SW_FAB_N, 20) X(SW_N, 21)
 STT_SPAN_WORDS(STT_PHOLD_CONST_DEF)
 constexpr char kSpanWords[] = STT_SPAN_WORDS(STT_PHOLD_CONST_NAME);
 
@@ -145,8 +152,9 @@ constexpr char kSpanOperands[] =
 static_assert(sizeof(SpanParams) ==
                   count_char(kSpanParamNames, ' ') * sizeof(int64_t),
               "SpanParams: one int64 word per name");
-static_assert(sizeof(SpanOps) ==
-                  operand_pointers(kSpanOperands) * sizeof(void*),
+static_assert(sizeof(SpanOps) == (operand_pointers(kSpanOperands) +
+                                   sample_pointers(kSpanOperands)) *
+                                      sizeof(void*),
               "SpanOps: one pointer per name");
 
 constexpr int kInboxCols = 3 + kPk;  // time, src, seq, then PK_KEYS
@@ -416,6 +424,32 @@ STT_LAW void close_round(const Ops& o, const RoundOps& r, const Params& p,
   r.words[SW_CODE + slot] = STT_LOAD(o.abort_code);
 }
 
+// A thread's share of the round's fabric samples (hosts `first`,
+// `first` + `step`, ...), where the round [start, window_end) crosses
+// the channel's grid, into the row `s` has reached; thread `first` = 0
+// also stamps the row's time.
+STT_LAW void sample_part(const Ops& o, const RoundOps& r, const Params& p,
+                         const RoundParams& q, const SampleRun& s,
+                         int64_t start, int64_t window_end, int64_t first,
+                         int64_t step) {
+  if (!sampled(start, window_end, q.fab_iv) || s.fab_n >= q.rows) return;
+  const FabSrc src = {o.cq_len,         o.cq_pos,
+                      o.cq_enq,         o.codel_bytes,
+                      o.enq_pkts,       o.cd_dropped,
+                      r.codel_marked,   {o.r1_pending, o.r2_pending},
+                      {o.r1_bal, o.r2_bal},
+                      {o.r1_next, o.r2_next},
+                      {o.r1_cap, o.r2_cap},
+                      {o.r1_refill, o.r2_refill},
+                      {o.r1_stalls, o.r2_stalls},
+                      o.eth_psent,      o.eth_bsent,
+                      o.eth_precv,      o.eth_brecv};
+  for (int64_t i = first; i < p.n; i += step)
+    fab_sample(src, r.fab, s.fab_n, p.n, i, window_end, p.cap_c,
+               p.refill_ns);
+  if (first == 0) r.fab_t[s.fab_n] = window_end;
+}
+
 // The round loop's scalars: the reference round_cond (:1588-1592) and
 // round_body's updates, read from the round's slot after the last
 // barrier of the round.  An aggregate, so that the kernel keeps one copy
@@ -517,6 +551,7 @@ inline int span_serial(const SpanOps& so, const SpanParams& sp, int team,
   if (run.go(q))
     for (int64_t x = 0; x < p.n * p.cap_i; x++) fill_rows(o, r, p, x);
   SettleScratch* const x = new SettleScratch;
+  SampleRun smp = {0, 0};
   int err = 0;
   while (run.go(q) && !err) {
     const int slot = (int)(run.rounds & 1);
@@ -539,11 +574,15 @@ inline int span_serial(const SpanOps& so, const SpanParams& sp, int team,
     close_round(o, r, p, slot);
     for (int64_t i = 0; i < p.n; i++)
       STT_MIN(&r.words[SW_NEXT + slot], settle_team(r, p, i, team, *x));
+    for (int k = 0; k < team; k++)
+      sample_part(o, r, p, q, smp, run.start, p.window_end, k, team);
     // D: the next round's scalars.
+    smp.count(run.start, p.window_end, 0, q.fab_iv);
     run.advance(r.words, slot, p.window_end);
   }
   delete x;
   run.finish(r.words);
+  r.words[SW_FAB_N] = smp.fab_n;
   return err;
 }
 #endif

@@ -7,8 +7,8 @@
 //                      phold_span.py:1675-1790 (a jitted XLA while_loop
 //                      over rounds, round_cond :1588, round_body :1594:
 //                      the fused window loop, `propagate` :1454 with the
-//                      inbox lexsort :1574, the runahead update :1656),
-//                      without the fabric block (ROADMAP A7a), with the
+//                      inbox lexsort :1574, the fabric block
+//                      :1602-1655, the runahead update :1656), with the
 //                      relays' make_bucket_step / make_codel_head
 //                      (shadow_tpu/ops/pallas_queues.py:80, :119) as
 //                      queue_laws.cuh's laws in the lane
@@ -68,8 +68,11 @@
 //      the sorted remainder and the arrivals, the columns moved through
 //      the scratch; W = 1: the row's thread insertion-sorts it, a few
 //      entries at the ring's width) and its head time, reduced into the
-//      next-event word as the latency is; block 0's thread 0 closes the
-//      round (close_round);
+//      next-event word as the latency is; where the round crosses the
+//      fabric channel's sampling grid, every thread writes its hosts'
+//      columns of the round's sample row (sample_part, sample_rows.cuh;
+//      with the channel off the round decides that with no memory
+//      access); block 0's thread 0 closes the round (close_round);
 //   D  each block's thread 0: the round's scalars from the round's slot
 //      of the span words into the block's copy (SpanRun, in shared
 //      memory), and every thread the same round_cond decision from it.
@@ -323,13 +326,17 @@ __global__ void __launch_bounds__(kThreads, W == 1 ? kMinBlocks : 1)
   // keeps the phase clocks.
   const Params& p = sp.w;
   __shared__ SpanRun run;
+  __shared__ stt::SampleRun smp;
   __shared__ long long clk[CLK_MARK + 1];
   const Team<W> t = Team<W>::of_thread();
   const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t team = tid / W, teams = stride / W;
-  if (threadIdx.x == 0) run = SpanRun::begin(q);
+  if (threadIdx.x == 0) {
+    run = SpanRun::begin(q);
+    smp = {0, 0};
+  }
   // The round words' two slots reset before the first barrier: phase A
   // of the first round writes its slot's next-event word.
   if (lead) {
@@ -407,14 +414,19 @@ __global__ void __launch_bounds__(kThreads, W == 1 ? kMinBlocks : 1)
       next = e < next ? e : next;
     }
     block_min(next, &r.words[SW_NEXT + slot]);
+    sample_part(o, r, p, q, smp, run.start, window_end, tid, stride);
     if (lead) close_round(o, r, p, slot);
     phase_end(2);
     // D: the next round's scalars.
-    if (threadIdx.x == 0) run.advance(r.words, slot, window_end);
+    if (threadIdx.x == 0) {
+      smp.count(run.start, window_end, 0, q.fab_iv);
+      run.advance(r.words, slot, window_end);
+    }
     __syncthreads();
   }
   if (lead) {
     run.finish(r.words);
+    r.words[SW_FAB_N] = smp.fab_n;
     for (int k = 0; k < CLK_SPAN; k++) r.words[SW_CLK_WINDOW + k] = clk[k];
     r.words[SW_CLK_SPAN] = clock64() - clk[CLK_SPAN];
   }

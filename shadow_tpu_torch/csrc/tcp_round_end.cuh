@@ -33,7 +33,12 @@
 //                  window, completes the row's next-event time;
 //   close_round    (one thread) the round's outbox count, the trace
 //                  check and the overflow into the abort word, as the
-//                  eager round end marks them after the window's.
+//                  eager round end marks them after the window's;
+//   sample_part    (every thread, a share of the conns and hosts) the
+//                  round's sim-netstat and fabric rows where the round
+//                  crosses a channel's grid (sample_rows.cuh), after the
+//                  window's barrier, before the next window: the eager
+//                  loop's `sample`.
 //
 // (src, seq) is unique per packet (a host draws each seq once), so the
 // settled row does not depend on the order of the appends, and the drop
@@ -56,6 +61,7 @@
 #include <cstdint>
 
 #include "propagate_law.cuh"
+#include "sample_rows.cuh"
 #include "tcp_lane.cuh"
 
 #ifdef __CUDACC__
@@ -104,14 +110,21 @@ constexpr char kSpanConsts[] =
   X(int64_t*, ib[kPk], "ib_*", "n,I")                                   \
   X(int64_t*, timer, "span.timer", "n") /* heap least after a window */ \
   X(int64_t*, arrivals, "span.arrivals", "n") /* per row, a round */    \
-  X(int64_t*, words, "span.words", "span")
+  X(int64_t*, words, "span.words", "span")                              \
+  /* the channels' sample rows: null when the channel is off */         \
+  X(int64_t*, tel_t, "span.tel_t", "rows")                              \
+  X(int64_t*, tel[kTelCols], "span.tel_%", "rows,cc")                   \
+  X(int64_t*, fab_t, "span.fab_t", "rows")                              \
+  X(int64_t*, fab[kFabCols], "span.fab_&", "rows,n")
 
 // The span's constants, int64 words; the first five are the launch's
 // (start, stop, limit, runahead, max_rounds: the eager run's arguments),
-// the rest the build's.
+// then the build's, then the sample rows' buffers' rows (the launch's);
+// tel_iv and fab_iv are the channels' sampling intervals, 0 when off.
 #define STT_TCP_ROUND_PARAMS(X)                                         \
   X(start) X(stop) X(limit) X(runahead) X(max_rounds)                   \
-  X(n_nodes) X(k0) X(k1) X(bootstrap_end) X(time_never)
+  X(n_nodes) X(k0) X(k1) X(bootstrap_end) X(time_never)                 \
+  X(tel_iv) X(fab_iv) X(rows)
 
 // The span words (int64).  Out: the run's scalars (the eager run's
 // return values), the abort word at the end, and the phase clocks:
@@ -122,14 +135,14 @@ constexpr char kSpanConsts[] =
 // Scratch: four per-round values in two slots by the round's parity
 // (written before a barrier, read after it, reset a round later), and
 // the round's inbox overflow (raised by the appends, cleared by
-// close_round).
+// close_round).  Out again: the sample rows taken (tel, fab).
 #define STT_TCP_SPAN_WORDS(X)                                           \
   X(SW_START, 0) X(SW_RUNAHEAD, 1) X(SW_ROUNDS, 2) X(SW_BUSY_ROUNDS, 3) \
   X(SW_PACKETS, 4) X(SW_BUSY_END, 5) X(SW_ABORT, 6)                     \
   X(SW_CLK_WINDOW, 7) X(SW_CLK_PROPAGATE, 8) X(SW_CLK_SETTLE, 9)        \
   X(SW_CLK_WAIT, 10) X(SW_CLK_SPAN, 11)                                 \
   X(SW_NEXT, 12) X(SW_MIN_LAT, 14) X(SW_OUT_N, 16) X(SW_CODE, 18)       \
-  X(SW_OVER, 20) X(SW_N, 21)
+  X(SW_OVER, 20) X(SW_TEL_N, 21) X(SW_FAB_N, 22) X(SW_N, 23)
 STT_TCP_SPAN_WORDS(STT_TCP_CONST_DEF)
 constexpr char kSpanWords[] = STT_TCP_SPAN_WORDS(STT_TCP_CONST_NAME);
 
@@ -158,8 +171,9 @@ constexpr char kSpanOperands[] =
 static_assert(sizeof(SpanParams) ==
                   count_char(kSpanParamNames, ' ') * sizeof(int64_t),
               "SpanParams: one int64 word per name");
-static_assert(sizeof(SpanOps) ==
-                  operand_pointers(kSpanOperands) * sizeof(void*),
+static_assert(sizeof(SpanOps) == (operand_pointers(kSpanOperands) +
+                                   sample_pointers(kSpanOperands)) *
+                                      sizeof(void*),
               "SpanOps: one pointer per name");
 // Both tables go to the kernel as __grid_constant__ parameters.
 static_assert(sizeof(SpanOps) + sizeof(SpanParams) <= 4096,
@@ -412,6 +426,41 @@ STT_LAW void close_round(const Ops& o, const RoundOps& r, const Params& p,
   r.words[SW_CODE + slot] = *o.abort_code;
 }
 
+// A thread's share of the round's samples (`first`, `first` + `step`,
+// ... of the conns and of the hosts), where the round [start,
+// window_end) crosses a channel's grid, into the rows `s` has taken so
+// far; thread `first` = 0 also stamps the rows' times.
+STT_LAW void sample_part(const Ops& o, const RoundOps& r, const Params& p,
+                         const RoundParams& q, const SampleRun& s,
+                         int64_t start, int64_t window_end, int64_t first,
+                         int64_t step) {
+  if (sampled(start, window_end, q.tel_iv) && s.tel_n < q.rows) {
+    const int64_t* const cols[kTelCols] = {
+        o.c_cwnd, o.c_ssthresh, o.c_srtt,     o.c_rto,       o.c_rtobackoff,
+        o.c_sblen, o.c_rblen,   o.c_rtxcount, o.c_sackskip, o.c_ceseen};
+    for (int64_t c = first; c < p.conns; c += step)
+      tel_sample(cols, r.tel, s.tel_n, p.conns, c);
+    if (first == 0) r.tel_t[s.tel_n] = window_end;
+  }
+  if (sampled(start, window_end, q.fab_iv) && s.fab_n < q.rows) {
+    const FabSrc src = {o.cq_len,         o.cq_pos,
+                        o.cq_enq,         o.codel_bytes,
+                        o.enq_pkts,       o.cd_dropped,
+                        o.codel_marked,   {o.r1_pending, o.r2_pending},
+                        {o.r1_bal, o.r2_bal},
+                        {o.r1_next, o.r2_next},
+                        {o.r1_cap, o.r2_cap},
+                        {o.r1_refill, o.r2_refill},
+                        {o.r1_stalls, o.r2_stalls},
+                        o.eth_psent,      o.eth_bsent,
+                        o.eth_precv,      o.eth_brecv};
+    for (int64_t i = first; i < p.n; i += step)
+      fab_sample(src, r.fab, s.fab_n, p.n, i, window_end, p.cap_cq,
+                 p.refill_ns);
+    if (first == 0) r.fab_t[s.fab_n] = window_end;
+  }
+}
+
 // The round loop's scalars: the reference round_cond and round_body's
 // updates, read from the round's slot after the last barrier of the
 // round.  An aggregate, so that the kernel keeps one copy a block in
@@ -512,6 +561,7 @@ inline int span_serial(const SpanOps& so, const SpanParams& sp, int team,
   if (run.go(q))
     for (int64_t x = 0; x < p.n * p.cap_i; x++) fill_rows(r, p, x);
   SettleScratch* const x = new SettleScratch;
+  SampleRun smp = {0, 0};
   int err = 0;
   while (run.go(q) && !err) {
     const int slot = (int)(run.rounds & 1);
@@ -533,11 +583,16 @@ inline int span_serial(const SpanOps& so, const SpanParams& sp, int team,
     close_round(o, r, p, slot);
     for (int64_t i = 0; i < p.n; i++)
       STT_MIN(&r.words[SW_NEXT + slot], settle_row(r, p, i, team, *x));
+    for (int k = 0; k < team; k++)
+      sample_part(o, r, p, q, smp, run.start, p.window_end, k, team);
     // D: the next round's scalars.
+    smp.count(run.start, p.window_end, q.tel_iv, q.fab_iv);
     run.advance(r.words, slot, p.window_end);
   }
   delete x;
   run.finish(r.words);
+  r.words[SW_TEL_N] = smp.tel_n;
+  r.words[SW_FAB_N] = smp.fab_n;
   return err;
 }
 #endif

@@ -7,8 +7,8 @@
 //                    tcp_span.py:2373 (a jitted XLA while_loop over
 //                    rounds :2449, round_cond :2274, round_body :2280:
 //                    the fused window loop, `propagate` :2142 with the
-//                    inbox lexsort :2260, the runahead update), without
-//                    the netstat and fabric blocks (ROADMAP A7a), with
+//                    inbox lexsort :2260, the netstat and fabric blocks
+//                    :2288-2357, the runahead update), with
 //                    the relays' make_bucket_step / make_codel_head
 //                    (shadow_tpu/ops/pallas_queues.py:80, :119) as
 //                    queue_laws.cuh's laws in the lane
@@ -61,8 +61,12 @@
 //   C  each tile: its rows settled (the keys staged in the tile's
 //      scratch, each entry's final slot, the 24 columns moved through
 //      the scratch a column at a time) and their next-event times,
-//      reduced as the latency is; block 0's thread 0 closes the round
-//      (close_round);
+//      reduced as the latency is; where the round crosses a channel's
+//      sampling grid, every thread writes its share of the round's
+//      sample row (sample_part: a conn's TEL fields, a host's fabric
+//      row, from the state the windows left before the barrier; with
+//      the channels off the round decides that with no memory access);
+//      block 0's thread 0 closes the round (close_round);
 //   D  each block's thread 0: the round's scalars from the round's slot
 //      of the span words into the block's copy (SpanRun, in shared
 //      memory), and every thread the same round_cond decision from it.
@@ -237,6 +241,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 0 writes them, between block barriers).  Block 0's thread 0 keeps
   // the phase clocks.
   __shared__ SpanRun run;
+  __shared__ stt::SampleRun smp;
   __shared__ long long clk[CLK_MARK + 1];
   const int lane_id = threadIdx.x & 31;
   Team t;
@@ -251,7 +256,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tiles = (int64_t)gridDim.x * kTiles;
   const int64_t my_tile = (int64_t)blockIdx.x * kTiles + tile;
-  if (threadIdx.x == 0) run = SpanRun::begin(q);
+  if (threadIdx.x == 0) {
+    run = SpanRun::begin(q);
+    smp = {0, 0};
+  }
   if (lead) {
     for (int k = 0; k <= CLK_MARK; k++) clk[k] = 0;
     clk[CLK_SPAN] = clock64();
@@ -313,14 +321,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       next = e < next ? e : next;
     }
     block_min(next, &r.words[SW_NEXT + slot]);
+    sample_part(o, r, p, q, smp, run.start, window_end, tid, stride);
     if (lead) close_round(o, r, p, slot);
     phase_end(2);
     // D: the next round's scalars.
-    if (threadIdx.x == 0) run.advance(r.words, slot, window_end);
+    if (threadIdx.x == 0) {
+      smp.count(run.start, window_end, q.tel_iv, q.fab_iv);
+      run.advance(r.words, slot, window_end);
+    }
     __syncthreads();
   }
   if (lead) {
     run.finish(r.words);
+    r.words[SW_TEL_N] = smp.tel_n;
+    r.words[SW_FAB_N] = smp.fab_n;
     for (int k = 0; k < CLK_SPAN; k++) r.words[SW_CLK_WINDOW + k] = clk[k];
     r.words[SW_CLK_SPAN] = clock64() - clk[CLK_SPAN];
   }

@@ -68,10 +68,14 @@ from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
                                        threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
 from shadow_tpu_torch.ops.phold_span_kernel import PHOLD_SPAN
+from shadow_tpu_torch.trace.events import FAM_PHOLD
+from shadow_tpu_torch.trace.recorder import grid_sampled
 from shadow_tpu_torch.ops.queues import (BUCKET_STEP, CODEL_HEAD,
                                          CODEL_INTERVAL_NS, CODEL_TARGET_NS,
                                          MTU, REFILL_NS)
-from shadow_tpu_torch.ops.span_common import I64_MAX, merge_inbox
+from shadow_tpu_torch.ops.span_common import (FAB_COLS, I64_MAX,
+                                              fabric_values, make_rows,
+                                              merge_inbox, put_row)
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
 
@@ -237,6 +241,7 @@ class PholdSpanRunner(SpanMeshMixin):
 
     RESIDENT_STATIC = RESIDENT_STATIC
     RESIDENT_CARRIED = RESIDENT_CARRIED
+    FAMILY = FAM_PHOLD
 
     def __init__(self, engine, latency_ns, thresholds, host_node,
                  host_ips, seed, bootstrap_end, tracing: bool,
@@ -503,7 +508,7 @@ class PholdSpanRunner(SpanMeshMixin):
         """The built loop for peer width `P`, from the fn cache."""
         key = (self._H, P, self._caps(), self.cap_out, self.cap_tr,
                self.tracing, self.family, self.fused, str(self.device),
-               self.window_factory, self.span_factory)
+               self._sample_ivs(), self.window_factory, self.span_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
 
     def _window_shape(self) -> tuple:
@@ -534,7 +539,7 @@ class PholdSpanRunner(SpanMeshMixin):
         shape["v"] = len(self._lat)
         params.update(n_nodes=len(self._lat), k0=self._k[0], k1=self._k[1],
                       bootstrap_end=self.bootstrap_end,
-                      time_never=TIME_NEVER)
+                      time_never=TIME_NEVER, fab_iv=self._sample_ivs()[1])
         return shape, params
 
     def _span_step(self):
@@ -574,6 +579,7 @@ class PholdSpanRunner(SpanMeshMixin):
         i64 = torch.int64
         hidx = torch.arange(H, dtype=i64, device=dev)
         where = torch.where
+        fab_iv = self._sample_ivs()[1]
 
         def active(mask) -> bool:
             """Any lane active?  The reference guards each stage with
@@ -1443,6 +1449,10 @@ class PholdSpanRunner(SpanMeshMixin):
             st["ks_window_ms"] = 0.0
             st["ks_spans"] = 0
             st["ks_span_ms"] = 0.0
+            # The fabric observatory's sample rows (the reference's
+            # span-local fab_* buffers, zeroed at every span start).
+            if fab_iv:
+                make_rows(st, "fab", FAB_COLS, self.FAB_ROWS, H, dev)
 
         def round_end(st, window_end):
             """Propagation and the inbox merge after a window, then the
@@ -1454,12 +1464,21 @@ class PholdSpanRunner(SpanMeshMixin):
                 n_out, min_lat, torch.minimum(ib_t, th_t).min(),
                 st["abort_code"]]).tolist()
 
+        def sample(st, start, window_end):
+            """The round boundary's fabric row of every host (the
+            reference round_body's fabric block), at a round that
+            crosses the channel's grid."""
+            if fab_iv and grid_sampled(start, window_end, fab_iv):
+                put_row(st, "fab", window_end,
+                        fabric_values(st, window_end, C, REFILL_NS))
+
         def run(st, pay, start, stop, limit, runahead, max_rounds):
             prepare(st, pay)
             if span is not None:
                 # The whole loop in one launch and one read.
                 got = span(st, pay, start, stop, limit, runahead,
                            max_rounds)
+                st.update(got["rows"])
                 for k in ("fires", "lanes", "calls"):
                     st[f"ks_{k}"] += got[k]
                 st["ks_windows"] = got["rounds"]
@@ -1482,6 +1501,7 @@ class PholdSpanRunner(SpanMeshMixin):
                 else:
                     step(st, window_end)  # one launch, no host sync
                 n_out, min_lat, nxt, code = round_end(st, window_end)
+                sample(st, start, window_end)
                 if 0 < min_lat < runahead:
                     runahead = min_lat
                 start = nxt
@@ -1504,6 +1524,7 @@ class PholdSpanRunner(SpanMeshMixin):
         run.prepare, run.window_plain, run.round_end = (prepare,
                                                         window_plain,
                                                         round_end)
+        run.sample = sample
         run.span, run.step = span, step
         return run
 

@@ -49,6 +49,8 @@ from shadow_tpu_torch.ops.phold_window import (PK_KEYS, WindowTable,
                                                parse_words,
                                                window_read_bytes)
 from shadow_tpu_torch.ops.queues import KernelLibrary
+from shadow_tpu_torch.ops.span_common import FAB_COLS
+from shadow_tpu_torch.ops.window_table import SAMPLE_ROWS_MAX, SampleRows
 
 
 def _declare(lib) -> None:
@@ -80,37 +82,46 @@ LIBRARY = KernelLibrary("phold_span.cu", "libstt_phold_span.so", _declare,
 CLOCKS = ("window", "propagate", "settle", "wait", "span")
 
 
-class SpanTable(WindowTable):
+class SpanTable(SampleRows, WindowTable):
     """The span kernel's operand and parameter tables for one span build
     (WindowTable's over the window's and the round end's names).  `shape`
     adds v (the graph's nodes) to the window's dimension names; `params`
     adds the build's round-end words (n_nodes, k0, k1, bootstrap_end,
-    time_never)."""
+    time_never, and the fabric channel's interval fab_iv, 0 when
+    off)."""
 
     OPERANDS = "stt_phold_span_operands"
     PARAMS = "stt_phold_span_params"
     LAUNCH_WORDS = WindowTable.LAUNCH_WORDS + (
-        "start", "stop", "limit", "runahead", "max_rounds")
+        "start", "stop", "limit", "runahead", "max_rounds", "rows")
+    SAMPLE_CHANNELS = (("fab", "fab_iv", FAB_COLS, "n"),)
+    SAMPLE_EXPAND = {"&": FAB_COLS}
 
     def __init__(self, lib, shape: dict, params: dict):
         super().__init__(lib, shape, params)
         self.span_layout = parse_words(lib.stt_phold_span_words().decode())
         self.dims["span"] = self.span_layout["SW_N"]
 
-    def begin(self, st: dict, pay: int) -> None:
+    def begin(self, st: dict, pay: int,
+              rows: int = SAMPLE_ROWS_MAX) -> None:
         """A run's start: its buffers zeroed on the state's device; the
-        statistics and the span words share one block."""
+        statistics, the span words and the fabric channel's `rows` sample
+        rows share one block."""
         super().begin(st, pay)
         dev = st["now"].device
         n_st = self.layout["ST_N"]
-        self.block = torch.zeros(n_st + self.dims["span"],
+        n_sw = n_st + self.dims["span"]
+        self.block = torch.zeros(n_sw + self.sample_words(rows),
                                  dtype=torch.int64, device=dev)
         self.stats = self.block[:n_st]
-        self.span_words = self.block[n_st:]
+        self.span_words = self.block[n_st:n_sw]
+        self.place_rows(self.block, n_sw, rows)
         self.arrivals = torch.zeros(self.dims["n"], dtype=torch.int64,
                                     device=dev)
 
     def _tensor(self, st, key):
+        if key in self.rows:
+            return self.rows[key]
         if key == "span.words":
             return self.span_words
         if key == "span.arrivals":
@@ -131,6 +142,8 @@ class SpanTable(WindowTable):
             "busy_end", "abort")})
         out["clocks"] = {k: int(words[w["SW_CLK_WINDOW"] + j])
                          for j, k in enumerate(CLOCKS)}
+        out["rows"] = self.read_rows(b, n_st + self.dims["span"],
+                                     {"fab": int(words[w["SW_FAB_N"]])})
         return out
 
 
@@ -208,7 +221,8 @@ class BoundPholdSpan:
         self.team = team
         self.grids = {}
 
-    def begin(self, st: dict, pay: int) -> None:
+    def begin(self, st: dict, pay: int,
+              rows: int = SAMPLE_ROWS_MAX) -> None:
         dev = st["now"].device
         if dev.type != "cuda":
             raise ValueError(f"phold_span: expected CUDA tensors, got "
@@ -232,7 +246,7 @@ class BoundPholdSpan:
                                    "cooperative launches")
             self.table = SpanTable(lib, self.shape, self.params)
             self.team, self.blocks = team, blocks
-        self.table.begin(st, pay)
+        self.table.begin(st, pay, rows)
 
     def launch(self, st: dict, start: int, stop: int, limit: int,
                runahead: int, max_rounds: int) -> None:
@@ -248,7 +262,7 @@ class BoundPholdSpan:
 
     def __call__(self, st: dict, pay: int, start: int, stop: int,
                  limit: int, runahead: int, max_rounds: int) -> dict:
-        self.begin(st, pay)
+        self.begin(st, pay, min(SAMPLE_ROWS_MAX, max_rounds))
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -361,8 +375,10 @@ def span_need_bytes(fn, ops: list, st: dict, pay: int, start: int,
     stepped on `st` round by round, and the span kernel's operand table
     `ops` (SpanTable.ops): each window's reads (window_read_bytes), each
     round end's (round_end_need_bytes), and the span's changed words
-    once (span_state_bytes).  Returns those three totals, their sum and
-    the rounds."""
+    once (span_state_bytes), and with the fabric channel on, its sample
+    rows' (span_common.sample_need_bytes).  Returns those totals, their
+    sum and the rounds."""
+    from shadow_tpu_torch.ops.span_common import sample_need_bytes
     from shadow_tpu_torch.tools.relay_cases import clone_state
     fn.prepare(st, pay)
     first = clone_state(st)
@@ -375,13 +391,17 @@ def span_need_bytes(fn, ops: list, st: dict, pay: int, start: int,
         fn.window_plain(st, window_end)
         out["window"] += window_read_bytes(before, st)["total"]
         mid = clone_state(st)
-        n_out, min_lat, start, code = fn.round_end(st, window_end)
+        n_out, min_lat, nxt, code = fn.round_end(st, window_end)
         out["round_end"] += round_end_need_bytes(mid, st, n_out)["total"]
+        fn.sample(st, start, window_end)
+        start = nxt
         if 0 < min_lat < runahead:
             runahead = min_lat
         out["rounds"] += 1
     out["state"] = span_state_bytes(ops, first, st)
-    out["total"] = out["window"] + out["round_end"] + out["state"]
+    out["sample"] = sample_need_bytes(st, 0, st["now"].shape[0])
+    out["total"] = (out["window"] + out["round_end"] + out["state"]
+                    + out["sample"])
     return out
 
 

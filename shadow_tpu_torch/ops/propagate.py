@@ -794,6 +794,9 @@ class TpuPropagator:
         self.probes_async = 0
         # Last engine-round size: the span gate's typical round.
         self._last_engine_n = 0
+        # The flight recorder's wall channel (trace/recorder.WallChannel)
+        # or None: each round's propagation wall, by route.
+        self.wall = None
 
     def begin_round(self, window_start: int, window_end: int) -> None:
         self.window_end = window_end
@@ -838,8 +841,11 @@ class TpuPropagator:
             route = ROUTE_HOST
         if route == ROUTE_DEVICE:
             md, ml, exports = self._engine_device_round(n)
+            dt = time.perf_counter_ns() - t0
             with self._route_lock:
-                self.route.record_device(b, time.perf_counter_ns() - t0, n)
+                self.route.record_device(b, dt, n)
+            if self.wall is not None:
+                self.wall.add("propagate-device", dt, t0)
             self.rounds_device += 1
             self.packets_device += n
         else:
@@ -856,6 +862,8 @@ class TpuPropagator:
             with self._route_lock:
                 self.route.record_host(dt, n)
             self.host_route_ns += dt
+            if self.wall is not None:
+                self.wall.add("propagate-host", dt, t0)
         self.rounds_dispatched += 1
         if exports is not None:
             self._deliver_exports(exports)

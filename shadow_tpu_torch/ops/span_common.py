@@ -14,6 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from shadow_tpu_torch.trace.events import (FB_ACT_CODEL, FB_ACT_LINK,
+                                           FB_ACT_TB_IN, FB_ACT_TB_OUT,
+                                           FB_FIELD_NAMES)
+
 I64_MAX = 1 << 62  # "no event" sentinel (== TIME_NEVER)
 
 
@@ -75,3 +79,83 @@ def merge_inbox(st, keep, dst, new: dict):
     st["ib_pos"] = torch.zeros(H, dtype=i64, device=dev)
     st["ib_len"] = rem + add
     return keep & (slot >= I - 1)
+
+
+# ---------------------------------------------------------------------
+# The sim-time channels' rows (the reference round_body's netstat and
+# fabric blocks): at a round that crosses its channel's sampling grid,
+# row `<prefix>_n` of the span-local buffers takes the sample, and the
+# count advances.  The span kernels write the same rows on the card
+# (csrc/*_round_end.cuh `fab_sample` / `tel_sample`).
+
+# A fabric row's columns: the activity mask, then FB_REC's fields.
+FAB_COLS = ("flags",) + FB_FIELD_NAMES
+
+
+def make_rows(st, prefix: str, cols, rows: int, width: int, device):
+    """A span's empty `<prefix>_*` buffers: the count (a host int), the
+    rows' times (rows,) and one (rows, width) array a column."""
+    st[f"{prefix}_n"] = 0
+    st[f"{prefix}_t"] = torch.zeros(rows, dtype=torch.int64, device=device)
+    for c in cols:
+        st[f"{prefix}_{c}"] = torch.zeros((rows, width), dtype=torch.int64,
+                                          device=device)
+
+
+def put_row(st, prefix: str, window_end: int, values: dict) -> None:
+    """The next row of `<prefix>_*` from `values` (column -> (width,))."""
+    r = st[f"{prefix}_n"]
+    st[f"{prefix}_t"][r] = window_end
+    for c, v in values.items():
+        st[f"{prefix}_{c}"][r] = v
+    st[f"{prefix}_n"] = r + 1
+
+
+def bucket_peek(st, r: int, window_end: int, refill_ns: int):
+    """Relay r's bucket balance at `window_end` without stepping it: the
+    refills due by then added, up to the cap (the reference's
+    `bucket_peek`)."""
+    nr, bal = st[f"r{r}_next"], st[f"r{r}_bal"]
+    k = 1 + torch.div(window_end - nr, refill_ns, rounding_mode="floor")
+    adv = torch.minimum(st[f"r{r}_cap"], bal + k * st[f"r{r}_refill"])
+    return torch.where((nr == 0) | (window_end < nr), bal, adv)
+
+
+def fabric_values(st, window_end: int, cq_cap: int, refill_ns: int) -> dict:
+    """Every host's fabric row at a round boundary: FAB_COLS -> (H,)."""
+    depth = st["cq_len"] - st["cq_pos"]
+    flags = (torch.where(depth > 0, FB_ACT_CODEL, 0)
+             | torch.where(st["r1_pending"] == 1, FB_ACT_TB_OUT, 0)
+             | torch.where(st["r2_pending"] == 1, FB_ACT_TB_IN, 0)
+             | torch.where(st["eth_psent"] + st["eth_precv"] > 0,
+                           FB_ACT_LINK, 0))
+    hidx = torch.arange(depth.shape[0], device=depth.device)
+    head = st["cq_enq"][hidx, st["cq_pos"] % cq_cap]
+    sojourn = torch.where(depth > 0, window_end - head, 0)
+    return {"flags": flags, "qdepth": depth, "qbytes": st["codel_bytes"],
+            "sojourn": sojourn, "qenq": st["codel_enq_pkts"],
+            "qdrops": st["codel_dropped"], "qmarks": st["codel_marked"],
+            "r1_bal": bucket_peek(st, 1, window_end, refill_ns),
+            "r1_stalls": st["r1_stalls"],
+            "r2_bal": bucket_peek(st, 2, window_end, refill_ns),
+            "r2_stalls": st["r2_stalls"],
+            "psent": st["eth_psent"], "bsent": st["eth_bsent"],
+            "precv": st["eth_precv"], "brecv": st["eth_brecv"]}
+
+
+# The state words a host's fabric sample reads (csrc/sample_rows.cuh
+# fab_sample: the ring's length, position and head time, six queue and
+# stall counters, each relay's pending bit, balance, next refill, cap and
+# refill amount, the four link counters) and a conn's TEL sample.
+FAB_READ_WORDS = 23
+TEL_READ_WORDS = 10
+
+
+def sample_need_bytes(st, conns: int, hosts: int) -> int:
+    """The bytes a span's sample rows must move: each row taken (its
+    time and a column a conn or host) written once, and what each row's
+    samples read, once a row."""
+    tel = st.get("tel_n", 0) * 8 * (1 + 2 * TEL_READ_WORDS * conns)
+    fab = st.get("fab_n", 0) * 8 * (1 + (len(FAB_COLS) + FAB_READ_WORDS)
+                                    * hosts)
+    return tel + fab

@@ -42,6 +42,8 @@ import time
 import numpy as np
 import torch
 
+from shadow_tpu_torch.ops.window_table import SAMPLE_ROWS_MAX
+
 # Abort reason bits: trace/outbox overflows are capacity problems the
 # runner fixes by growing the buffer and retrying; AB_STRUCT means the
 # state left the modelled domain (the C++ path re-runs those rounds);
@@ -52,9 +54,11 @@ AB_STRUCT = 4
 AB_EXCH = 8
 
 # Keys of a span's output that are span-local (abort bits, trace and
-# outbox buffers, stage counters; the loops make them anew on entry):
-# never carried into the next span.
-SPAN_LOCAL = ("abort_", "tr_", "ks_", "out_")
+# outbox buffers, stage counters, the channels' sample rows; the loops
+# make them anew on entry): never carried into the next span.
+SPAN_LOCAL = ("abort_", "tr_", "ks_", "out_", "tel_", "fab_")
+# The channels' sample rows of a span's output.
+SAMPLE_ROWS = ("tel_", "fab_")
 # Per-stage counters credited when a span commits.
 COMMIT_COUNTS = ("ks_fires", "ks_lanes", "ks_wall_s", "ks_calls",
                  "ks_windows", "ks_window_ms", "ks_spans", "ks_span_ms")
@@ -179,6 +183,20 @@ class SpanMeshMixin:
     clone_bytes = 0          # bytes the windows' input clones copied
     clone_ms = 0.0           # their time (CUDA events on the card)
 
+    # The sim-time channels (the Manager sets those that are on): the
+    # sample rows a span buffers for sim-netstat (the TCP family's) and
+    # the fabric observatory, at most TEL_ROWS / FAB_ROWS a span (a span
+    # that records is clamped to that many rounds, so no sampled round
+    # is ever skipped), appended to the channels after the import; the
+    # kernel observatory's record of each committed span; the flight
+    # recorder's wall phases.
+    netstat = None
+    fabric = None
+    kern = None
+    wall = None
+    TEL_ROWS = FAB_ROWS = SAMPLE_ROWS_MAX
+    FAMILY = 0  # the FAM_* code of the runner's records
+
     # Whether an over-caps export is a transient refusal the router
     # re-probes soon (the TCP family's handshake/close stretches).
     OVER_CAPS_TRANSIENT = False
@@ -198,7 +216,40 @@ class SpanMeshMixin:
         return self._statics
 
     def _clamp_mr(self, mr: int | None) -> int:
-        return self.MAX_ROUNDS if mr is None else min(mr, self.MAX_ROUNDS)
+        mr = self.MAX_ROUNDS if mr is None else min(mr, self.MAX_ROUNDS)
+        if self.netstat is not None:
+            mr = min(mr, self.TEL_ROWS)
+        if self.fabric is not None:
+            mr = min(mr, self.FAB_ROWS)
+        return mr
+
+    def _sample_ivs(self) -> tuple:
+        """(netstat, fabric) sampling intervals of the loop, 0 for a
+        channel that is off (a build's constants)."""
+        def iv(ch):
+            return 0 if ch is None else max(int(ch.interval_ns), 1)
+        return iv(self.netstat), iv(self.fabric)
+
+    def _emit_netstat(self, rows: dict) -> None:
+        """Append the span's connection rows to sim-netstat (the TCP
+        family's)."""
+
+    def _emit(self, st_out: dict, start: int, rounds: int,
+              span_iters: int) -> None:
+        """A committed span's channel records, after its import: the
+        sample rows (on the host already when the span kernel's one read
+        brought them) and the kernel observatory's record."""
+        rows = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in st_out.items() if k.startswith(SAMPLE_ROWS)}
+        if self.netstat is not None:
+            self._emit_netstat(rows)
+        if self.fabric is not None:
+            from shadow_tpu_torch.trace.fabricstat import emit_device_rows
+            emit_device_rows(self.fabric, rows, self._H)
+        if self.kern is not None:
+            self.kern.record_span(start, self.FAMILY, self._H, rounds,
+                                  span_iters, st_out["ks_fires"],
+                                  st_out["ks_lanes"])
 
     def _cache_fn(self, cache: dict, key, build):
         """The built-fn cache with explicit hit/miss accounting; a miss's
@@ -528,7 +579,12 @@ class SpanMeshMixin:
                 bool(dynamic), self._clamp_mr(spec_mr)))
         t0 = time.perf_counter_ns()
         self._engine_import(*host)
-        self.import_wall_ns += t_copy + time.perf_counter_ns() - t0
+        self._emit(st_out, int(start), rounds, span_iters)
+        t1 = time.perf_counter_ns()
+        self.import_wall_ns += t_copy + t1 - t0
+        if self.wall is not None:
+            self.wall.add("execute", dt)
+            self.wall.add("import", t_copy + t1 - t0, t0)
         self._keep_resident(st_out)
         self.last_was_cold = not self.compiled
         self.compiled = True

@@ -80,10 +80,14 @@ from shadow_tpu_torch.core.simtime import TIME_NEVER
 from shadow_tpu_torch.ops.queues import (BUCKET_STEP, CODEL_HEAD,  # noqa: F401
                                          CODEL_TARGET_NS, MTU, REFILL_NS)
 from shadow_tpu_torch.ops.relay import RelayConsts, RelayLaw
-from shadow_tpu_torch.ops.span_common import I64_MAX, merge_inbox
+from shadow_tpu_torch.ops.span_common import (FAB_COLS, I64_MAX,
+                                              fabric_values, make_rows,
+                                              merge_inbox, put_row)
 from shadow_tpu_torch.ops.span_mesh import (AB_OUT, AB_STRUCT, AB_TRACE,
                                             SpanMeshMixin)
 from shadow_tpu_torch.ops.tcp_span_kernel import TCP_SPAN
+from shadow_tpu_torch.trace.events import FAM_TCP, TEL_DTYPE
+from shadow_tpu_torch.trace.recorder import grid_sampled
 
 SEQ_HALF = 1 << 31
 SEQ_MOD = 1 << 32
@@ -379,6 +383,7 @@ class TcpSpanRunner(SpanMeshMixin):
     # Out of the steady-stream domain for now (handshake, close,
     # over caps): the router re-probes within a few windows.
     OVER_CAPS_TRANSIENT = True
+    FAMILY = FAM_TCP
 
     def __init__(self, engine, latency_ns, thresholds, host_node,
                  host_ips, seed, bootstrap_end, tracing: bool,
@@ -452,6 +457,10 @@ class TcpSpanRunner(SpanMeshMixin):
         self.dctcp_k = (DCTCP_K_PKTS, DCTCP_K_BYTES)
         self._fn = None
         self._fn_cache: dict = {}
+        # Sim-netstat's connection identity in its canonical (host,
+        # lport, rport, rip) order, taken at each export: (host, lport,
+        # rport, rip, perm, n).
+        self._tel_ident = None
 
     def _caps(self):
         return (self.CAP_I, self.CAP_T, self.CAP_CQ, self.CAP_RT,
@@ -724,7 +733,7 @@ class TcpSpanRunner(SpanMeshMixin):
     def _cached_build(self):
         key = (self._H, self._CC, self._caps(), self.cap_out,
                self.cap_tr, self.tracing, self.dctcp_k, str(self.device),
-               self.window_factory, self.span_factory)
+               self._sample_ivs(), self.window_factory, self.span_factory)
         return self._cache_fn(self._fn_cache, key, self._build)
 
     def _window_shape(self) -> tuple:
@@ -755,9 +764,10 @@ class TcpSpanRunner(SpanMeshMixin):
         words."""
         shape, params = self._window_shape()
         shape["v"] = len(self._lat)
+        tel_iv, fab_iv = self._sample_ivs()
         params.update(n_nodes=len(self._lat), k0=self._k[0], k1=self._k[1],
                       bootstrap_end=self.bootstrap_end,
-                      time_never=TIME_NEVER)
+                      time_never=TIME_NEVER, tel_iv=tel_iv, fab_iv=fab_iv)
         return shape, params
 
     def _span_step(self):
@@ -798,6 +808,7 @@ class TcpSpanRunner(SpanMeshMixin):
         TRASH = CC
         relay1 = RELAY1_LAW.bind(H, OP, CC)
         relay2 = RELAY2_LAW.bind(H, CQ, CC)
+        tel_iv, fab_iv = self._sample_ivs()
         where = torch.where
 
         def full(n, v, dtype=i64):
@@ -2009,6 +2020,13 @@ class TcpSpanRunner(SpanMeshMixin):
             st["ks_window_ms"] = 0.0
             st["ks_spans"] = 0
             st["ks_span_ms"] = 0.0
+            # The channels' sample rows (the reference's span-local
+            # tel_* / fab_* buffers, zeroed at every span start).
+            if tel_iv:
+                make_rows(st, "tel", [n for n, _ in TEL_FIELDS],
+                          self.TEL_ROWS, CC, dev)
+            if fab_iv:
+                make_rows(st, "fab", FAB_COLS, self.FAB_ROWS, H, dev)
 
         def round_end(st, window_end):
             """Propagation and the inbox merge after a window, then the
@@ -2021,11 +2039,24 @@ class TcpSpanRunner(SpanMeshMixin):
                 n_out, min_lat, torch.minimum(ib_t, th_t).min(),
                 st["abort_code"]]).tolist()
 
+        def sample(st, start, window_end):
+            """The round boundary's channel rows (the reference
+            round_body's netstat and fabric blocks): every conn's
+            TEL_FIELDS and every host's fabric row, each at a round that
+            crosses its channel's grid."""
+            if tel_iv and grid_sampled(start, window_end, tel_iv):
+                put_row(st, "tel", window_end,
+                        {n: st[c][:CC] for n, c in TEL_FIELDS})
+            if fab_iv and grid_sampled(start, window_end, fab_iv):
+                put_row(st, "fab", window_end,
+                        fabric_values(st, window_end, CQ, REFILL_NS))
+
         def run(st, start, stop, limit, runahead, max_rounds):
             prepare(st)
             if span is not None:
                 # The whole loop in one launch and one read.
                 got = span(st, start, stop, limit, runahead, max_rounds)
+                st.update(got["rows"])
                 for k in ("fires", "lanes", "calls"):
                     st[f"ks_{k}"] += got[k]
                 st["ks_windows"] = got["rounds"]
@@ -2047,6 +2078,7 @@ class TcpSpanRunner(SpanMeshMixin):
                 else:
                     step(st, window_end)  # one launch, no host sync
                 n_out, min_lat, nxt, code = round_end(st, window_end)
+                sample(st, start, window_end)
                 if 0 < min_lat < runahead:
                     runahead = min_lat
                 start = nxt
@@ -2069,6 +2101,7 @@ class TcpSpanRunner(SpanMeshMixin):
         run.prepare, run.window_plain, run.round_end = (prepare,
                                                         window_plain,
                                                         round_end)
+        run.sample = sample
         run.span, run.step = span, step
         return run
 
@@ -2088,7 +2121,19 @@ class TcpSpanRunner(SpanMeshMixin):
         self.export_bytes += sum(
             len(v) for v in d.values()
             if isinstance(v, (bytes, bytearray, memoryview)))
-        st = state_from_numpy(self._to_arrays(d), self.device)
+        arrays = self._to_arrays(d)
+        if self.netstat is not None:
+            # The telemetry identity and its canonical order, from the
+            # export's static columns.
+            n = arrays["_n_conns"]
+            host = arrays["c_host"][:n].astype(np.int32)
+            lport = arrays["c_lport"][:n].astype(np.uint16)
+            rport = arrays["c_pport"][:n].astype(np.uint16)
+            rip = arrays["c_pip"][:n].astype(np.uint32)
+            perm = np.lexsort((rip, rport, lport, host))
+            self._tel_ident = (host[perm], lport[perm], rport[perm],
+                               rip[perm], perm, n)
+        st = state_from_numpy(arrays, self.device)
         self._n_conns = st.pop("_n_conns")
         st.update(self._statics_on_device())
         self._cache_statics(st)
@@ -2143,6 +2188,26 @@ class TcpSpanRunner(SpanMeshMixin):
         st_np = state_to_numpy(st_out, keys=list(st_out["_np_dtypes"]))
         st_np["_n_conns"] = self._n_conns
         return st_np, traces
+
+    def _emit_netstat(self, rows: dict) -> None:
+        """The span's connection rows as TEL_RECs: per sampled round,
+        the live conns in the canonical (host, lport, rport, rip)
+        order, byte-identical to the engine ring's for the same
+        rounds."""
+        tn = int(rows.get("tel_n", 0))
+        host, lport, rport, rip, perm, n = self._tel_ident
+        if tn == 0 or n == 0:
+            return
+        arr = np.zeros(tn * n, dtype=np.dtype(TEL_DTYPE))
+        arr["t"] = np.repeat(rows["tel_t"][:tn].astype(np.int64), n)
+        arr["host"] = np.tile(host, tn)
+        arr["lport"] = np.tile(lport, tn)
+        arr["rport"] = np.tile(rport, tn)
+        arr["rip"] = np.tile(rip, tn)
+        arr["state"] = ST_ESTABLISHED
+        for name, _col in TEL_FIELDS:
+            arr[name] = rows[f"tel_{name}"][:tn][:, perm].reshape(-1)
+        self.netstat.extend(arr.tobytes())
 
     def _engine_import(self, st_np: dict, traces) -> None:
         back = self._from_arrays(st_np)

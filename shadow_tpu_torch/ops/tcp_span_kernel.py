@@ -47,7 +47,10 @@ from shadow_tpu_torch.ops import window_table
 from shadow_tpu_torch.ops.queues import KernelLibrary
 from shadow_tpu_torch.ops.tcp_window import (PK_KEYS, TcpWindowTable,
                                              _real_rows, window_read_bytes)
-from shadow_tpu_torch.ops.window_table import parse_words
+from shadow_tpu_torch.ops.span_common import FAB_COLS
+from shadow_tpu_torch.ops.window_table import (SAMPLE_ROWS_MAX, SampleRows,
+                                               parse_words)
+from shadow_tpu_torch.trace.events import TEL_FIELD_NAMES
 
 
 def _declare(lib) -> None:
@@ -85,12 +88,13 @@ LIBRARY = KernelLibrary("tcp_span.cu", "libstt_tcp_span.so", _declare_card,
 CLOCKS = ("window", "propagate", "settle", "wait", "span")
 
 
-class TcpSpanTable(TcpWindowTable):
+class TcpSpanTable(SampleRows, TcpWindowTable):
     """The span kernel's operand and parameter tables for one span build
     (TcpWindowTable's over the window's and the round end's names).
     `shape` adds v (the graph's nodes) to the window's dimension names;
     `params` adds the build's round-end words (n_nodes, k0, k1,
-    bootstrap_end, time_never)."""
+    bootstrap_end, time_never, and the channels' intervals tel_iv and
+    fab_iv, 0 when off)."""
 
     FAMILY = "tcp_span"
     OPERANDS = "stt_tcp_span_operands"
@@ -98,7 +102,10 @@ class TcpSpanTable(TcpWindowTable):
     STATS = "stt_tcp_span_stats"
     BITMAP_WORDS = "stt_tcp_span_bitmap_words"
     LAUNCH_WORDS = TcpWindowTable.LAUNCH_WORDS + (
-        "start", "stop", "limit", "runahead", "max_rounds")
+        "start", "stop", "limit", "runahead", "max_rounds", "rows")
+    SAMPLE_CHANNELS = (("tel", "tel_iv", TEL_FIELD_NAMES, "cc"),
+                       ("fab", "fab_iv", FAB_COLS, "n"))
+    SAMPLE_EXPAND = {"%": TEL_FIELD_NAMES, "&": FAB_COLS}
 
     def __init__(self, lib, shape: dict, params: dict):
         super().__init__(lib, shape, params)
@@ -114,23 +121,27 @@ class TcpSpanTable(TcpWindowTable):
             raise RuntimeError("tcp_span: packet columns differ from "
                                "ops/tcp_span.py PK_KEYS")
 
-    def begin(self, st: dict) -> None:
+    def begin(self, st: dict, rows: int = SAMPLE_ROWS_MAX) -> None:
         """A run's start: its buffers on the state's device; the
-        statistics (as TcpWindowTable starts them) and the span words
-        share one block."""
+        statistics (as TcpWindowTable starts them), the span words and
+        the channels' `rows` sample rows (zeroed) share one block."""
         super().begin(st)
         dev = st["now"].device
         n_st = self.layout["ST_N"]
-        self.block = torch.zeros(n_st + self.dims["span"],
+        n_sw = n_st + self.dims["span"]
+        self.block = torch.zeros(n_sw + self.sample_words(rows),
                                  dtype=torch.int64, device=dev)
         self.block[:n_st] = self.stats
         self.stats = self.block[:n_st]
-        self.span_words = self.block[n_st:]
+        self.span_words = self.block[n_st:n_sw]
+        self.place_rows(self.block, n_sw, rows)
         n = self.dims["n"]
         self.arrivals = torch.zeros(n, dtype=torch.int64, device=dev)
         self.timer = torch.zeros(n, dtype=torch.int64, device=dev)
 
     def _tensor(self, st, key):
+        if key in self.rows:
+            return self.rows[key]
         if key == "span.words":
             return self.span_words
         if key == "span.arrivals":
@@ -153,6 +164,10 @@ class TcpSpanTable(TcpWindowTable):
             "busy_end", "abort")})
         out["clocks"] = {k: int(words[w["SW_CLK_WINDOW"] + j])
                          for j, k in enumerate(CLOCKS)}
+        out["rows"] = self.read_rows(
+            b, n_st + self.dims["span"],
+            {"tel": int(words[w["SW_TEL_N"]]),
+             "fab": int(words[w["SW_FAB_N"]])})
         return out
 
 
@@ -187,7 +202,7 @@ class BoundTcpSpan:
         self.table = None
         self.blocks = 0
 
-    def begin(self, st: dict) -> None:
+    def begin(self, st: dict, rows: int = SAMPLE_ROWS_MAX) -> None:
         dev = st["now"].device
         if dev.type != "cuda":
             raise ValueError(f"tcp_span: expected CUDA tensors, got "
@@ -202,7 +217,7 @@ class BoundTcpSpan:
                                    "cooperative launches")
             self.table = TcpSpanTable(lib, self.shape, self.params)
             self.blocks = blocks
-        self.table.begin(st)
+        self.table.begin(st, rows)
 
     def launch(self, st: dict, start: int, stop: int, limit: int,
                runahead: int, max_rounds: int) -> None:
@@ -218,7 +233,7 @@ class BoundTcpSpan:
 
     def __call__(self, st: dict, start: int, stop: int, limit: int,
                  runahead: int, max_rounds: int) -> dict:
-        self.begin(st)
+        self.begin(st, min(SAMPLE_ROWS_MAX, max_rounds))
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -356,7 +371,8 @@ def tcp_span_need_bytes(fn, ops: list, st: dict, start: int, stop: int,
     then `round_end`), and the span kernel's operand table `ops`
     (TcpSpanTable.ops): each window's reads (window_read_bytes), each
     round end's (round_end_need_bytes), and the span's changed words
-    once (span_state_bytes).  Returns those three totals, their sum,
+    once (span_state_bytes), and with a channel on, its sample rows'
+    (span_common.sample_need_bytes).  Returns those totals, their sum,
     under "run" what `fn(st, ...)` returns after `st` (start, runahead,
     rounds, busy_rounds, packets, busy_end, iters: `st` is left as the
     plain loop leaves it), and under "loop_s" the host wall of the
@@ -364,6 +380,7 @@ def tcp_span_need_bytes(fn, ops: list, st: dict, start: int, stop: int,
     left out."""
     import time
 
+    from shadow_tpu_torch.ops.span_common import sample_need_bytes
     from shadow_tpu_torch.tools.relay_cases import clone_state
     fn.prepare(st)
     first = clone_state(st)
@@ -388,7 +405,9 @@ def tcp_span_need_bytes(fn, ops: list, st: dict, start: int, stop: int,
         out["window"] += window_read_bytes(before, st)["total"]
         mid = {k: st[k].clone() for k in ROUND_END_KEYS}
         t0 = time.perf_counter()
-        n_out, min_lat, start, code = fn.round_end(st, window_end)
+        n_out, min_lat, nxt, code = fn.round_end(st, window_end)
+        fn.sample(st, start, window_end)
+        start = nxt
         loop_s += time.perf_counter() - t0
         out["round_end"] += round_end_need_bytes(mid, st, n_out)["total"]
         if 0 < min_lat < runahead:
@@ -403,7 +422,10 @@ def tcp_span_need_bytes(fn, ops: list, st: dict, start: int, stop: int,
             st[f"ks_{k}"] += got[k]
         iters = got["iters"]
     out["state"] = span_state_bytes(ops, first, st)
-    out["total"] = out["window"] + out["round_end"] + out["state"]
+    out["sample"] = sample_need_bytes(st, st["c_cwnd"].shape[0] - 1,
+                                      st["now"].shape[0])
+    out["total"] = (out["window"] + out["round_end"] + out["state"]
+                    + out["sample"])
     out["rounds"] = rounds
     out["run"] = (start, runahead, rounds, busy_rounds, packets, busy_end,
                   iters)

@@ -102,7 +102,7 @@ class LaneTable:
         self.lib = lib
         self.check_consts(lib)
         self.ops = parse_operands(getattr(lib, self.OPERANDS)().decode(),
-                                  self.EXPAND)
+                                  self.expand())
         self.names = getattr(lib, self.PARAMS)().decode().split()
         self.layout = parse_words(getattr(lib, self.STATS)().decode())
         self.words = int(getattr(lib, self.BITMAP_WORDS)())
@@ -122,6 +122,10 @@ class LaneTable:
 
     def check_consts(self, lib) -> None:
         raise NotImplementedError
+
+    def expand(self) -> dict:
+        """The operand string's column expansions (EXPAND)."""
+        return self.EXPAND
 
     def fixed_params(self) -> dict:
         """Parameters every build of the family passes alike."""
@@ -146,9 +150,14 @@ class LaneTable:
             return self.stats
         return st.get(key)
 
+    def optional(self, key: str) -> bool:
+        """May the operand `key` be absent (a null pointer)?  The trace's
+        when the span is not traced."""
+        return key.startswith("tr_") and not self.params["tracing"]
+
     def _check(self, o: Operand, t) -> None:
         if t is None:
-            if o.key.startswith("tr_") and not self.params["tracing"]:
+            if self.optional(o.key):
                 return
             raise KeyError(f"{self.FAMILY}: no operand {o.key!r}")
         if not isinstance(t, torch.Tensor) or t.dtype != o.dtype:
@@ -194,3 +203,72 @@ class LaneTable:
                 "lanes": s[lay["ST_LANES"]:lay["ST_CALLS"]].copy(),
                 "calls": s[lay["ST_CALLS"]:lay["ST_ITERS"]].copy(),
                 "iters": int(s[lay["ST_ITERS"]])}
+
+
+# The sample rows a launch's buffers hold at most (a span that records
+# is clamped to this many rounds: ops/span_mesh.py TEL_ROWS / FAB_ROWS).
+SAMPLE_ROWS_MAX = 64
+
+
+class SampleRows:
+    """The span kernels' sample-row buffers, a mixin of their operand
+    tables: the sim-netstat (`tel`) and fabric (`fab`) rows of one
+    launch, laid after the statistics and span words in the one block
+    the span's single host read brings back.  A channel's interval
+    parameter (`tel_iv` / `fab_iv`) of 0 leaves its operands null."""
+
+    # (prefix, interval parameter, columns, width dimension)
+    SAMPLE_CHANNELS: tuple = ()
+    # Operand-key suffixes of the rows' column expansions.
+    SAMPLE_EXPAND: dict = {}
+
+    def expand(self) -> dict:
+        return {**self.EXPAND, **self.SAMPLE_EXPAND}
+
+    def sample_on(self) -> list:
+        return [c for c in self.SAMPLE_CHANNELS if self.params.get(c[1])]
+
+    def optional(self, key: str) -> bool:
+        if key.startswith("span.") and key[5:9] in ("tel_", "fab_"):
+            return not self.params.get(f"{key[5:8]}_iv")
+        return super().optional(key)
+
+    def sample_words(self, rows: int) -> int:
+        """The rows' words for `rows` rows of every channel that is on."""
+        return sum(rows * (1 + len(cols) * self.dims[width])
+                   for _p, _iv, cols, width in self.sample_on())
+
+    def place_rows(self, block, at: int, rows: int) -> None:
+        """Views of the rows in `block` from word `at`, and the launch's
+        `rows` parameter."""
+        self.rows = {}
+        self.params["rows"] = rows
+        self.dims["rows"] = rows
+        for prefix, _iv, cols, width in self.sample_on():
+            w = self.dims[width]
+            self.rows[f"span.{prefix}_t"] = block[at:at + rows]
+            at += rows
+            for c in cols:
+                self.rows[f"span.{prefix}_{c}"] = \
+                    block[at:at + rows * w].view(rows, w)
+                at += rows * w
+
+    def read_rows(self, b, at: int, counts: dict) -> dict:
+        """The rows from the host copy `b` of the block (laid out as
+        place_rows laid them), under the eager loop's keys, with each
+        channel's count (`counts`: prefix -> rows taken)."""
+        out = {}
+        rows = self.params["rows"]
+        for prefix, _iv, cols, width in self.sample_on():
+            n = counts[prefix]
+            if n > rows:
+                raise RuntimeError(f"{self.FAMILY}: {n} {prefix} sample "
+                                   f"rows in a buffer of {rows}")
+            w = self.dims[width]
+            out[f"{prefix}_n"] = n
+            out[f"{prefix}_t"] = b[at:at + rows].copy()
+            at += rows
+            for c in cols:
+                out[f"{prefix}_{c}"] = b[at:at + rows * w].reshape(rows, w)
+                at += rows * w
+        return out

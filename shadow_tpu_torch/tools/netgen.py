@@ -1,5 +1,5 @@
 """Deterministic workload config generation (the port's copy of the
-TCP stream, UDP mesh and PHOLD generators in
+TCP stream, incast, UDP mesh and PHOLD generators in
 `shadow_tpu/tools/netgen.py`).
 
 Everything is derived from the arguments with pure integer arithmetic,
@@ -338,3 +338,55 @@ def mesh100_yaml(scheduler: str = "tpu") -> str:
                      + [p for p in names if p != name], "any", "1s") + "]}"
              for name in names]
     return _bench_yaml("30s", 3, MESH_GML, scheduler, None, hosts)
+
+
+def incast_yaml(fan_in: int, nbytes: int = 500_000,
+                server_bw: str = "20 Mbit", client_bw: str = "100 Mbit",
+                latency: str = "2 ms", stop_time: str = "3s",
+                seed: int = 17, scheduler: str = "serial",
+                device_spans: str | None = None,
+                tcp: dict | None = None) -> str:
+    """Minimal N->1 fan-in (incast): ONE sink host runs `fan_in`
+    tgen-client downloads — one from each of `fan_in` source servers —
+    all opened at the SAME instant, with the sink's downlink as the
+    shared bottleneck.  The N response streams converge on the sink's
+    inbound router queue: the canonical queue-buildup smoke for the
+    fabric observatory (CoDel depth climbs, head sojourn crosses the
+    5 ms target, the control law drops, and every drop must reconcile
+    in the byte-conservation sweep).  With tcp={"cc": "dctcp", "ecn":
+    "on"} the sink's queue marks instead.  The JAX package's
+    `shadow_tpu/tools/netgen.py` generator of the same name, copied."""
+    gml_lines = ["graph [ directed 0",
+                 f'  node [ id 0 host_bandwidth_down "{server_bw}" '
+                 f'host_bandwidth_up "{server_bw}" ]',
+                 f'  node [ id 1 host_bandwidth_down "{client_bw}" '
+                 f'host_bandwidth_up "{client_bw}" ]',
+                 f'  edge [ source 0 target 0 latency "{latency}" ]',
+                 f'  edge [ source 1 target 1 latency "{latency}" ]',
+                 f'  edge [ source 0 target 1 latency "{latency}" ]',
+                 "]"]
+    gml = "\n".join(gml_lines)
+    sink_procs = []
+    for i in range(fan_in):
+        sink_procs.append(
+            f'      - {{ path: tgen-client, '
+            f'args: [src{i:03d}, "8080", "{nbytes}", "1"], '
+            f"start_time: 100ms, expected_final_state: any }}")
+    tl = _tcp_line(tcp)
+    blocks = [f"  sink:\n    network_node_id: 0\n{tl}    processes:\n"
+              + "\n".join(sink_procs)]
+    for i in range(fan_in):
+        blocks.append(
+            f"  src{i:03d}:\n    network_node_id: 1\n{tl}    processes:\n"
+            f'      - {{ path: tgen-server, args: ["8080"], '
+            f"expected_final_state: running }}")
+    exp = [f"  scheduler: {scheduler}",
+           "  socket_send_autotune: false",
+           "  socket_recv_autotune: false"]
+    if device_spans is not None:
+        exp.append(f"  tpu_device_spans: {device_spans}")
+    return (f"general: {{ stop_time: {stop_time}, seed: {seed} }}\n"
+            f"network:\n  graph:\n    type: gml\n    inline: |\n"
+            f"{_indent(gml, '      ')}\n"
+            f"experimental:\n" + "\n".join(exp) + "\n"
+            f"hosts:\n" + "\n".join(blocks) + "\n")

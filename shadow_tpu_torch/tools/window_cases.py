@@ -28,6 +28,7 @@ import torch
 from shadow_tpu_torch.ops import tcp_span
 from shadow_tpu_torch.ops.phold_span import (OUT_KEYS, TR_KEYS,
                                              state_from_numpy)
+from shadow_tpu_torch.ops.span_mesh import SAMPLE_ROWS
 
 # The TCP span's outbox and trace columns (ops/tcp_span.py).
 TCP_OUT_KEYS = ("src", "dst", "seq", "t") + tcp_span.PK_KEYS
@@ -267,9 +268,11 @@ def tcp_window_mismatch(a: dict, b: dict) -> list:
     """The names of what differs between two TCP span states: tensor
     columns (conn-major ones without their trash row), then "outbox" /
     "trace" (counts and canonical rows)."""
-    ta = {k for k, v in a.items() if isinstance(v, torch.Tensor)}
-    tb = {k for k, v in b.items() if isinstance(v, torch.Tensor)}
-    bad = sorted(ta ^ tb)
+    ta = {k for k, v in a.items() if isinstance(v, torch.Tensor)
+          and not k.startswith(SAMPLE_ROWS)}
+    tb = {k for k, v in b.items() if isinstance(v, torch.Tensor)
+          and not k.startswith(SAMPLE_ROWS)}
+    bad = sorted(ta ^ tb) + sample_rows_mismatch(a, b)
     for k in ta & tb:
         if k.startswith(("out_", "tr_")):
             continue
@@ -303,11 +306,35 @@ def canon(st: dict, prefix: str, keys, count: str) -> np.ndarray:
     return cols[:, np.lexsort(cols[::-1])] if n else cols
 
 
+def sample_rows_mismatch(a: dict, b: dict) -> list:
+    """The channels' sample rows that differ between two span states
+    (the eager loop's tensors or a span kernel's rows read to the host):
+    each channel's count, then its rows' times and columns up to it."""
+    bad = []
+    for prefix in ("tel", "fab"):
+        n = f"{prefix}_n"
+        if n not in a and n not in b:
+            continue
+        if a.get(n) != b.get(n):
+            bad.append(n)
+            continue
+        keys = {k for k in (*a, *b) if k.startswith(f"{prefix}_") and k != n}
+        for k in sorted(keys):
+            x, y = (np.asarray(v[k].cpu() if isinstance(v[k], torch.Tensor)
+                               else v[k])[:a[n]] if k in v else None
+                    for v in (a, b))
+            if x is None or y is None or not np.array_equal(x, y):
+                bad.append(k)
+    return bad
+
+
 def window_mismatch(a: dict, b: dict) -> list:
     """The names of what differs between two span states: tensor
     columns, then "outbox" / "trace" (counts and canonical rows)."""
-    bad = sorted(set(a) ^ set(b))
-    for k in set(a) & set(b):
+    keys_a = {k for k in a if not k.startswith(SAMPLE_ROWS)}
+    keys_b = {k for k in b if not k.startswith(SAMPLE_ROWS)}
+    bad = sorted(keys_a ^ keys_b) + sample_rows_mismatch(a, b)
+    for k in keys_a & keys_b:
         if k.startswith(("out_", "tr_")) \
                 or not isinstance(a[k], torch.Tensor):
             continue

@@ -145,9 +145,9 @@ def test_torch_cli_progress_on_and_off_same_directory(tmp_path, capsys):
     """`--progress` prints heartbeats (stderr is no TTY here) and
     changes nothing else: the heartbeat caps span limits without moving
     a window."""
-    cfg = _stream(tmp_path, stop="500ms")
+    cfg = _stream(tmp_path, stop="300ms")
     text = open(cfg).read().replace(
-        "general: {", "general: { heartbeat_interval: 100ms,", 1)
+        "general: {", "general: { heartbeat_interval: 50ms,", 1)
     with open(cfg, "w") as f:
         f.write(text)
     args = [cfg, "--scheduler", "tpu", "--device", "cpu",

@@ -15,8 +15,12 @@ spans, the 10-host CoDel mesh (so `netstat.drops` and the fabric's
 drop side are not empty), the 200-host tier with every round through
 the per-round kernel (`tpu_min_device_batch: 0`), and the 16-host
 stream at 2% loss with forced device spans (against the JAX package's
-engine `thread_per_core` run, which compiles no JAX span).  Each run
-also holds the conservation contract: the wire causes sum to
+engine `thread_per_core` run, which compiles no JAX span).  The PHOLD
+run's spans go through the port's plain loop; the meshes' and the
+stream's through the host builds of the span kernels
+(tests/test_torch_channels.py `libs`: the kernels' phases in turn),
+which step the same states in a fraction of the eager loop's time.
+Each run also holds the conservation contract: the wire causes sum to
 `packets_dropped`, and `fabric.violations` is 0.
 """
 
@@ -29,11 +33,12 @@ import torch
 from shadow_tpu.core.config import ConfigOptions as JConfig
 from shadow_tpu.core.manager import run_simulation as jrun
 from shadow_tpu_torch.core.config import ConfigOptions
-from shadow_tpu_torch.core.manager import run_simulation
+from shadow_tpu_torch.core.manager import Manager, run_simulation
 from shadow_tpu_torch.tools.netgen import tcp_stream_yaml, tier10k_yaml
 from shadow_tpu_torch.trace.events import (EL_ROUND_FORCED, TEL_NAMES,
                                            TEL_WIRE_N)
 from test_determinism import collect
+from test_torch_channels import libs, phold_factory, tcp_factory  # noqa: F401
 from test_torch_phold_span import codel_yaml, mesh_yaml, phold_yaml
 
 
@@ -62,23 +67,35 @@ def tier_yaml(scheduler):
                         experimental_extra={"tpu_min_device_batch": 0})
 
 
-# name -> (YAML for a scheduler, the JAX package's scheduler)
+# name -> (YAML for a scheduler, the JAX package's scheduler, the span
+# kernels' host builds step the port's spans)
 CASES = {
-    "phold-8": (lambda s: phold_yaml(s, spans="force"), "tpu"),
-    "mesh-8": (lambda s: mesh_yaml(s, spans="force"), "tpu"),
-    "codel-mesh-10": (lambda s: codel_yaml(s, spans="force"), "tpu"),
-    "tier-200": (tier_yaml, "tpu"),
-    "tcp-stream-16": (stream_yaml, "thread_per_core"),
+    "phold-8": (lambda s: phold_yaml(s, spans="force"), "tpu", False),
+    "mesh-8": (lambda s: mesh_yaml(s, spans="force"), "tpu", True),
+    "codel-mesh-10": (lambda s: codel_yaml(s, spans="force"), "tpu", True),
+    "tier-200": (tier_yaml, "tpu", False),
+    "tcp-stream-16": (stream_yaml, "thread_per_core", True),
 }
 
 
-def port_dir(text: str, data: str, scheduler="tpu"):
+def port_dir(text: str, data: str, scheduler="tpu", libs=None):
+    """The port's run into `data`; with `libs`, the span kernels' host
+    builds step every device span (a team of 8 ranks)."""
     cfg = ConfigOptions.from_yaml_text(text)
     cfg.general.parallelism = 1
     cfg.general.data_directory = data
     cfg.experimental.scheduler = scheduler
-    device = "cpu" if scheduler == "tpu" else None
-    m, s = run_simulation(cfg, device=device, write_data=True)
+    if libs is None:
+        device = "cpu" if scheduler == "tpu" else None
+        m, s = run_simulation(cfg, device=device, write_data=True)
+    else:
+        m = Manager(cfg, device="cpu")
+        m._dev_span = m.make_dev_span_runner()
+        m._dev_span.span_factory = phold_factory(libs["phold"], 8)
+        m._dev_span_tcp = m.make_tcp_span_runner()
+        m._dev_span_tcp.span_factory = tcp_factory(libs["tcp"], 8)
+        s = m.run()
+        m.write_data_dir(s)
     assert s.ok, s.plugin_errors
     return m, s
 
@@ -112,9 +129,10 @@ def assert_conserved(data: str) -> dict:
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_torch_data_dir_matches_jax_package(tmp_path, name):
-    make, jsched = CASES[name]
-    m, s = port_dir(make("tpu"), str(tmp_path / "port"))
+def test_torch_data_dir_matches_jax_package(tmp_path, request, name):
+    make, jsched, host = CASES[name]
+    m, s = port_dir(make("tpu"), str(tmp_path / "port"),
+                    libs=request.getfixturevalue("libs") if host else None)
     jax_dir(make(jsched), str(tmp_path / "jax"))
     port, ref = collect(str(tmp_path / "port")), \
         collect(str(tmp_path / "jax"))

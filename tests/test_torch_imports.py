@@ -57,6 +57,11 @@ def test_torch_port_file_list_is_complete():
                  "shadow_tpu_torch/utils/object_counter.py",
                  "shadow_tpu_torch/utils/shadow_log.py",
                  "shadow_tpu_torch/utils/status_bar.py",
+                 "shadow_tpu_torch/utils/pcap.py",
+                 "shadow_tpu_torch/trace/recorder.py",
+                 "shadow_tpu_torch/trace/netstat.py",
+                 "shadow_tpu_torch/trace/fabricstat.py",
+                 "shadow_tpu_torch/trace/kernstat.py",
                  "shadow_tpu_torch/__main__.py"):
         assert want in files
 
@@ -93,7 +98,23 @@ _EVENTS = ("EL_DEVICE_SPAN EL_ENGINE_SPAN EL_ENGINE_ROUTED EL_ENGINE_COLD "
            "EL_OBJ_PYTASK EL_OBJ_OTHER EL_DEVICE_SHARDED "
            "EL_ENGINE_EXCHANGE EL_ENGINE_UNSHARDED EL_SVC_QUIESCENT EL_N "
            "EL_NAMES TEL_CODEL TEL_RTR_LIMIT TEL_WIRE_N TEL_N TEL_NAMES "
-           "MARK_N MARK_NAMES SC_N SC_NAMES").split()
+           "MARK_N MARK_NAMES SC_N SC_NAMES "
+           # the sim-time channels' tables and record layouts
+           "FLIGHT_REC_BYTES FR_ROUND FR_SPAN_START FR_SPAN_COMMIT "
+           "FR_SPAN_ABORT FR_FAULT_KILL FR_FAULT_RESTORE FR_FAULT_LINK_DOWN "
+           "FR_FAULT_LINK_UP FR_FAULT_BLACKHOLE FR_FAULT_CLEAR "
+           "FR_FAULT_QUARANTINE FR_N REC.format REC.size REC_DTYPE FAM_CPP "
+           "FAM_PHOLD FAM_TCP FAM_NAMES TEL_LOSS_EDGE TEL_UNREACHABLE "
+           "TEL_NO_ROUTE TEL_NO_SOCKET TEL_TCP_STATE TEL_BACKLOG_FULL "
+           "TEL_UDP_FILTER TEL_RECVBUF_FULL TEL_BUCKET_DEFER TEL_HOST_DOWN "
+           "TEL_LINK_DOWN TEL_REASM_FULL TEL_RECVWIN_TRUNC TEL_REC_BYTES "
+           "TEL_REC.format TEL_DTYPE FB_ACT_CODEL FB_ACT_TB_OUT FB_ACT_TB_IN "
+           "FB_ACT_LINK FB_REC_BYTES FB_REC.format FB_DTYPE FCT_F_COMPLETE "
+           "FCT_F_RECEIVER FCT_REC_BYTES FCT_REC.format FCT_DTYPE FAB_MAGIC "
+           "FAB_VERSION FAB_HDR.format FAB_HDR_BYTES KS_POP KS_STEP "
+           "KS_CODEL KS_ON_PACKET KS_REASM KS_ACK KS_PUSH KS_FLUSH "
+           "KS_INET_OUT KS_ARM KS_TIMERS KS_EXCHANGE KS_N KS_NAMES "
+           "KS_REC_BYTES KS_REC.format").split()
 PINS = (
     [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.phold_span", n, n)
      for n in _PHOLD]
@@ -146,6 +167,18 @@ PINS = (
        for n in _EVENTS]
     + [("shadow_tpu_torch.trace.metrics", "shadow_tpu.trace.metrics",
         "CHANNELS", "CHANNELS")]
+    # The channel writers' constants and the span loops' sample rows.
+    + [("shadow_tpu_torch.trace.fabricstat", "shadow_tpu.tcp.connection",
+        "MSS", "MSS")]
+    + [("shadow_tpu_torch.utils.pcap", "shadow_tpu.net.packet",
+        "PROTO_UDP", "PROTO_UDP")]
+    + [("shadow_tpu_torch.ops.tcp_span", "shadow_tpu.ops.tcp_span",
+        f"TcpSpanRunner.{n}", f"TcpSpanRunner.{n}")
+       for n in ("TEL_ROWS", "FAB_ROWS")]
+    + [("shadow_tpu_torch.ops.tcp_span", "shadow_tpu.ops.tcp_span", n, n)
+       for n in ("TEL_FIELDS", "ST_ESTABLISHED")]
+    + [("shadow_tpu_torch.ops.phold_span", "shadow_tpu.ops.phold_span",
+        "PholdSpanRunner.FAB_ROWS", "PholdSpanRunner.FAB_ROWS")]
     + [("shadow_tpu_torch.core.config", "shadow_tpu.core.config",
         "ON_FAILURE_POLICIES", "ON_FAILURE_POLICIES")]
 )

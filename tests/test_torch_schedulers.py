@@ -13,6 +13,9 @@ baseline (`native_dataplane: on`).
 4. The schedulers the port does not serve (`serial`,
    `thread_per_host`, `thread_per_core` without `native_dataplane: on`)
    raise, naming ROADMAP A2b, from the YAML and from an override.
+
+Each cell's `tpu` run is made once (module-scoped) and read by every
+test that needs it.
 """
 
 import pytest
@@ -59,17 +62,32 @@ CELLS = {
 }
 
 
+@pytest.fixture(scope="module")
+def tpu_runs(tmp_path_factory):
+    """Each cell's `tpu` run, made once for every test that reads it:
+    name -> (manager, summary, data directory)."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            d = str(tmp_path_factory.mktemp(f"{name}-tpu"))
+            made[name] = port_dir(CELLS[name]("tpu"), d, "tpu") + (d,)
+        return made[name]
+    return get
+
+
 @pytest.mark.parametrize("name", list(CELLS))
-def test_torch_baseline_matches_tpu_and_jax_baseline(tmp_path, name):
+def test_torch_baseline_matches_tpu_and_jax_baseline(tmp_path, tpu_runs,
+                                                      name):
     text = CELLS[name]("tpu")
     mb, sb = port_dir(text, str(tmp_path / "tpc"), "thread_per_core")
-    mt, st = port_dir(text, str(tmp_path / "tpu"), "tpu")
+    mt, st, tpu_dir = tpu_runs(name)
     jcfg = JConfig.from_yaml_text(CELLS[name]("thread_per_core"))
     jcfg.general.parallelism = 1
     jcfg.general.data_directory = str(tmp_path / "jax")
     _jm, sj = jrun(jcfg, write_data=True)
     base = collect(str(tmp_path / "tpc"))
-    assert_same_dirs(base, collect(str(tmp_path / "tpu")), f"{name} tpu")
+    assert_same_dirs(base, collect(tpu_dir), f"{name} tpu")
     assert_same_dirs(base, collect(str(tmp_path / "jax")), f"{name} jax")
     assert_conserved(str(tmp_path / "tpc"))
     # bench.py's cross-scheduler gate
@@ -86,11 +104,11 @@ def test_torch_baseline_matches_tpu_and_jax_baseline(tmp_path, name):
     assert sb.span_rounds == 0
 
 
-def test_torch_audit_sums_to_rounds_on_every_route(tmp_path):
+def test_torch_audit_sums_to_rounds_on_every_route(tpu_runs):
     """The C++-span, device-span and per-round routes of one `tpu` run
     (the stream's handshake is out of the device domain) each credit
     their own reasons, and the reasons sum to the rounds."""
-    m, s = port_dir(stream_yaml("tpu"), str(tmp_path / "d"), "tpu")
+    m, s, _d = tpu_runs("tcp-stream-16")
     counts = m.audit.as_dict()
     assert sum(counts.values()) == s.rounds
     assert counts["device-span"] == m._dev_span_tcp.rounds > 0

@@ -90,9 +90,10 @@ def test_torch_routing_arrays_match_reference(gml):
 @pytest.mark.parametrize("patch,needle", [
     ("  scheduler: tpu", "  scheduler: serial"),
     ("experimental:\n", "experimental:\n  tpu_shards: 2\n"),
-    ("experimental:\n", "experimental:\n  sim_netstat: on\n"),
-    ("experimental:\n", "experimental:\n  kernel_observatory: on\n"),
-    ("experimental:\n", "experimental:\n  flight_recorder: wall\n"),
+    ("experimental:\n", "experimental:\n  syscall_observatory: on\n"),
+    ("experimental:\n",
+     "experimental:\n  strace_logging_mode: deterministic\n"),
+    ("experimental:\n", "experimental:\n  openssl_crypto_noop: true\n"),
     # an engine app with an argv shape only the object path takes
     ("path: tgen-server", "path: udp-pinger"),
     ("hosts:\n", "checkpoint: {at: [1s]}\nhosts:\n"),
