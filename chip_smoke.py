@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Eight phases; any failed check raises, so the script exits non-zero:
+Nine phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
@@ -218,6 +218,28 @@ Eight phases; any failed check raises, so the script exits non-zero:
    loop on the 10,000-host TCP export and the phold-64k-ring export over
    spans of one and four rounds, the sample rows included, and times it
    with the channels off and on in the same call.
+9. Object-path hosts.  object-1k (bench.py config3: 1,000 hosts on the
+   3-tier graph, 100 tgen-servers, 900 clients x 5 x 50,000 B, seed 7,
+   30 s, nothing cut) with every host on the object path
+   (`native_dataplane: off`: Python hosts, sockets and TCP, their sends
+   in the propagator's outbox) three times: tpu forced
+   (`tpu_min_device_batch: 0`, every outbox chunk through
+   stt_propagate_round), tpu auto (the route model and its probes) and
+   serial (the CPU twin, in a child process through the CLI, no device).
+   Requires one trace sha256 and equal counters in the three runs,
+   forced launches = object-path device rounds = dispatched rounds with
+   no host-route round, no probe and no other kernel, auto launches +
+   probe launches = device rounds + probes, and no device work in the
+   serial run.  mixed-pcap-10k (bench.py mixed_pcap_rung: config_10k to
+   3 s beside 4 pcap'd object-path clients, per-host `native_dataplane:
+   false`) under tpu on the card and under the engine thread_per_core
+   (`native_dataplane: on`, in a child process through the CLI):
+   equal packet counts, spans over at least half of the tpu run's
+   rounds, one trace sha256 and the 8 pcap files byte-identical.  Prints
+   the route split, the packets per chunk and the dispatch per device
+   chunk (pack, call, views, scatter, the kernel's events); the kernels
+   line's stt_propagate_round row carries the forced run's launches and
+   the kernel timed at its median chunk (`object_path`).
 
 Each phase prints its own seconds on a line of its own.  The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
@@ -3058,6 +3080,221 @@ def channel_runs() -> dict:
     return out
 
 
+# Phase 9's cells.  object-1k: bench.py config3 with every host on the
+# object path; mixed-pcap-10k: bench.py mixed_pcap_rung (config_10k to
+# 3 s beside 4 pcap'd object-path clients).
+MIXED_PCAP_CLIENTS = 4
+MIXED_STOP_S = 3
+
+
+def start_cli(cfg, data: str, scheduler: str):
+    """`python -m shadow_tpu_torch` on `cfg` (a ConfigOptions' YAML dict)
+    into `data`, started in a child process; finish_cli waits for it."""
+    import os
+
+    import yaml
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = data + ".yaml"
+    with open(path, "w") as f:
+        yaml.dump(cfg, f, Dumper=getattr(yaml, "CSafeDumper",
+                                         yaml.SafeDumper), sort_keys=False)
+    err = open(data + ".stderr", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch", path, "--scheduler",
+         scheduler, "--data-directory", data], cwd=root,
+        stdout=subprocess.DEVNULL, stderr=err)
+    return proc, err, time.perf_counter(), data
+
+
+def finish_cli(tag: str, child, timeout_s: float = 600) -> dict:
+    """Wait for a start_cli child (killed past `timeout_s`): its wall,
+    sim-stats.json and its trace's sha256 (the lines joined by newlines,
+    as trace_digest takes them)."""
+    import hashlib
+    import os
+    proc, err, t0, data = child
+    try:
+        proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{tag}: the CLI run passed {timeout_s} s")
+    finally:
+        err.close()
+    wall = time.perf_counter() - t0
+    with open(data + ".stderr") as f:
+        stderr = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exit {proc.returncode}: "
+                             f"{stderr[-3000:]}")
+    with open(os.path.join(data, "sim-stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(data, "packet-trace.txt"), "rb") as f:
+        text = f.read()
+    lines = text.count(b"\n")
+    digest = hashlib.sha256(text[:-1] if text else text).hexdigest()
+    return {"wall": wall, "stats": stats, "digest": digest, "lines": lines,
+            "data": data}
+
+
+def print_object_dispatch(tag: str, name: str, block: dict) -> dict:
+    """The object path's dispatch per device chunk, in the per-round
+    route's words: pack (the outbox's columns built and written into
+    the round buffer), call (the one C call: launch and wait), views
+    (the results read), scatter (the kept packets delivered in outbox
+    order), and the kernel's own events."""
+    us = block["per_device_round_us"]
+    d = {"pack_us": us["export"] + us["upload"], "call_us": us["launch"],
+         "views_us": us["download"], "scatter_us": us["scatter"],
+         "kernel_us": us["kernel"]}
+    print(f"{tag} {name}: outbox chunks {block['object_chunks']} "
+          f"({block['object_rounds_device']} on the card), packets per "
+          f"chunk {block['packets_per_chunk']}; per device chunk (us): "
+          f"{json.dumps({k: round(v, 2) for k, v in d.items()})}",
+          flush=True)
+    return d
+
+
+def object_runs() -> dict:
+    """Phase 9.  object-1k (bench.py config3: 1,000 hosts on the 3-tier
+    graph, 100 tgen-servers, 900 clients x 5 x 50,000 B, seed 7, 30 s)
+    with every host on the object path (`native_dataplane: off`): tpu
+    forced (`tpu_min_device_batch: 0`, every outbox chunk through
+    stt_propagate_round), tpu auto (the route model and its probes) and
+    serial (the CPU twin, in a child process, no device).  mixed-pcap-10k
+    (bench.py mixed_pcap_rung: config_10k to 3 s with 4 pcap'd clients on
+    the object path, per-host `native_dataplane: false`) under tpu on the
+    card and under the engine thread_per_core (`native_dataplane: on`,
+    in a child process).  Requires, for object-1k, one trace sha256 and
+    equal counters across the three runs, forced launches = object-path
+    device rounds = dispatched rounds with no host-route round and no
+    other kernel, auto launches + probe launches = device rounds +
+    probes, and no device work in the serial run; for mixed-pcap-10k,
+    equal packet counts, device or C++ spans over at least half of the
+    tpu run's rounds, one trace sha256 and the 8 pcap files
+    byte-identical."""
+    import os
+    import tempfile
+
+    from shadow_tpu_torch.tools.netgen import (pcap_clients, tier1k_yaml,
+                                               tier10k_yaml)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = parse_yaml(tier1k_yaml("tpu"))
+        obj["experimental"]["native_dataplane"] = "off"
+        mixed = parse_yaml(tier10k_yaml(
+            "tpu", stop_s=MIXED_STOP_S,
+            extra_hosts=pcap_clients(MIXED_PCAP_CLIENTS)))
+        base_mixed = dict(mixed, experimental=dict(
+            mixed["experimental"], native_dataplane="on"))
+        # The two CPU runs go in child processes beside this one's card
+        # runs (each wall is its own, on a shared host).
+        children = {
+            "object-1k/serial": start_cli(obj, os.path.join(
+                tmp, "object-serial"), "serial"),
+            "mixed-pcap-10k/thread_per_core": start_cli(
+                base_mixed, os.path.join(tmp, "mixed-tpc"),
+                "thread_per_core")}
+        tag = "[object-1k]"
+        runs = {name: propagate_run(tag, name, config_with(
+                    obj, tpu_min_device_batch=mdb))
+                for name, mdb in (("forced", 0), ("auto", 2048))}
+        serial = finish_cli(tag, children.pop("object-1k/serial"))
+        check_forced(tag, runs["forced"])
+        same_results(tag, runs)
+        f = runs["forced"]
+        fb = f["block"]
+        if not (fb["object_rounds_device"] == fb["rounds_device"]
+                == fb["object_chunks"] == fb["rounds_dispatched"]
+                == f["launches"]["propagate"] > 0):
+            raise AssertionError(f"{tag} forced: object-path device rounds "
+                                 f"{fb['object_rounds_device']}, chunks "
+                                 f"{fb['object_chunks']}, {fb}")
+        auto = runs["auto"]
+        ab = auto["block"]
+        if auto["launches"]["propagate"] + auto["probe_launches"] \
+                != ab["rounds_device"] + ab["probes_async"] \
+                or any(v for k, v in auto["launches"].items()
+                       if k != "propagate"):
+            raise AssertionError(f"{tag} auto: launches {auto['launches']} "
+                                 f"+ probes {auto['probe_launches']} vs "
+                                 f"{ab}")
+        s = f["summary"]
+        st = serial["stats"]
+        disp = st["metrics"]["wall"]["dispatch"]
+        if serial["digest"] != f["digest"] or (
+                st["packets_sent"], st["packets_recv"],
+                st["packets_dropped"], st["events"]) != (
+                s.packets_sent, s.packets_recv, s.packets_dropped,
+                s.events) or "propagate" in disp or disp["rounds_device"]:
+            raise AssertionError(f"{tag} serial: sha256 "
+                                 f"{serial['digest'][:16]} vs "
+                                 f"{f['digest'][:16]}, {st['packets_sent']} "
+                                 f"packets vs {s.packets_sent}, {disp}")
+        print(f"{tag} serial (child process, no device): trace sha256 "
+              f"{serial['digest'][:16]}, {serial['lines']} lines, "
+              f"{st['packets_sent']} packets, {st['events']} events, "
+              f"process wall {serial['wall']:.2f}s", flush=True)
+        for name, run in runs.items():
+            run["dispatch"] = print_object_dispatch(tag, name, run["block"])
+        print(f"{tag} PASS: one trace in the three runs; forced "
+              f"{fb['rounds_device']} object-path device rounds, each one "
+              f"stt_propagate_round launch, no host-route round; auto "
+              f"{ab['rounds_device']} device rounds + {ab['probes_async']} "
+              f"probes = {auto['launches']['propagate']} + "
+              f"{auto['probe_launches']} launches; walls forced "
+              f"{f['wall']:.2f}s, auto {auto['wall']:.2f}s, serial "
+              f"{serial['wall']:.2f}s (process)", flush=True)
+        out["object-1k"] = runs
+        # mixed-pcap-10k under tpu on the card, its pcaps beside the
+        # baseline's.
+        tag = "[mixed-pcap-10k]"
+        cfg = config_with(mixed)
+        cfg.general.data_directory = os.path.join(tmp, "mixed-tpu")
+        run = propagate_run(tag, "tpu", cfg)
+        base = finish_cli(tag, children.pop(
+            "mixed-pcap-10k/thread_per_core"))
+        s = run["summary"]
+        st = base["stats"]
+        cov = s.span_rounds / max(s.rounds, 1)
+        if (st["packets_sent"], st["packets_recv"],
+                st["packets_dropped"]) != (s.packets_sent, s.packets_recv,
+                                           s.packets_dropped):
+            raise AssertionError(f"{tag} packets {s.packets_sent} / "
+                                 f"{s.packets_recv} / {s.packets_dropped} "
+                                 f"vs the baseline's {st['packets_sent']} / "
+                                 f"{st['packets_recv']} / "
+                                 f"{st['packets_dropped']}")
+        if run["digest"] != base["digest"]:
+            raise AssertionError(f"{tag} trace sha256 "
+                                 f"{run['digest'][:16]} vs the baseline's "
+                                 f"{base['digest'][:16]}")
+        if cov < 0.5:
+            raise AssertionError(f"{tag} span coverage {s.span_rounds}/"
+                                 f"{s.rounds} < 50%")
+        pcaps = []
+        for i in range(MIXED_PCAP_CLIENTS):
+            for iface in ("lo", "eth0"):
+                rel = os.path.join("hosts", f"pcap{i:02d}", f"{iface}.pcap")
+                with open(os.path.join(tmp, "mixed-tpu", rel), "rb") as f1, \
+                        open(os.path.join(base["data"], rel), "rb") as f2:
+                    a, b = f1.read(), f2.read()
+                if a != b:
+                    raise AssertionError(f"{tag} {rel} differs "
+                                         f"({len(a)} vs {len(b)} bytes)")
+                pcaps.append((rel, len(a)))
+        if not all(n > 24 for rel, n in pcaps if rel.endswith("eth0.pcap")):
+            raise AssertionError(f"{tag} an eth0 capture is empty: {pcaps}")
+        print(f"{tag} PASS: {s.packets_sent} packets in both runs, trace "
+              f"sha256 {run['digest'][:16]} in both, span coverage "
+              f"{s.span_rounds}/{s.rounds} rounds ({100 * cov:.1f}%), the "
+              f"8 pcaps byte-identical ({json.dumps(dict(pcaps))}); walls "
+              f"tpu {run['wall']:.2f}s, thread_per_core {base['wall']:.2f}s "
+              f"(process, the data directory's files included)", flush=True)
+        out["mixed-pcap-10k"] = run
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.31s",
@@ -3196,11 +3433,29 @@ def main(argv=None) -> int:
     # plain loops.
     by_path.update(channel_runs())
     phase_done("8 (the channels: tcp-stream-16, mesh-codel-10, phold-8k)")
+    # Phase 9: object-path hosts, their sends through stt_propagate_round.
+    obj = object_runs()
+    for name, run in obj["object-1k"].items():
+        by_path[f"object-1k/{name}"] = dict(
+            run["launches"], propagate_probes=run["probe_launches"])
+    by_path["mixed-pcap-10k/tpu"] = dict(
+        obj["mixed-pcap-10k"]["launches"],
+        propagate_probes=obj["mixed-pcap-10k"]["probe_launches"])
+    obj_chunk = obj["object-1k"]["forced"]["block"]["packets_per_chunk"]
+    phase_done("9 (object-1k, mixed-pcap-10k)")
     # The kernel's row: timed at the main path's median round.
     print(f"[main] propagate: the forced tier10k run's packets per round "
           f"{per_round}; the kernels line's row is timed at the median",
           flush=True)
     stats["propagate"] = time_propagate(per_round["median"])
+    # The object path's rounds: object-1k forced's chunks, at their median.
+    print(f"[main] propagate: object-1k forced's packets per chunk "
+          f"{obj_chunk}; timed at the median", flush=True)
+    stats["propagate"]["object_path"] = dict(
+        time_propagate(obj_chunk["median"]),
+        launches=by_path["object-1k/forced"]["propagate"],
+        dispatch_per_chunk_us=obj["object-1k"]["forced"]["dispatch"],
+        packets_per_chunk=obj_chunk)
     # The relay kernels' row: the mask density nearest the main path's
     # mean lanes per fire of the relay stage.
     from shadow_tpu_torch.ops.tcp_span import KS_CODEL, KS_INET_OUT
@@ -3262,6 +3517,7 @@ def main(argv=None) -> int:
                 "launch_shape": s.get("launch"),
                 "round_dispatch": s.get("dispatch"),
                 "channels": s.get("channels"),
+                "object_path": s.get("object_path"),
                 "main_path": main_path[name],
                 "launches_by_path": {p: n[name]
                                      for p, n in by_path.items()}}

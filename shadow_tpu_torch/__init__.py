@@ -8,10 +8,14 @@ JAX: the constants and framework-free layers it needs are its own
 copies, pinned to the reference values by the tier-1 tests.
 
 Layering (the JAX package's layout, cut to the ported slice):
-  core/    config, simtime, rng, the engine-resident Manager
-  net/     GML graph + routing matrices, DNS
+  core/    config, simtime, rng, events, the Manager, the scalar
+           propagator
+  net/     GML graph + routing matrices, DNS, the object path's
+           packets, interfaces, router, CoDel, relays and token buckets
   native/  loader for the shared C++ engine (native/netplane.cpp)
-  host/    engine-resident hosts and their tgen app proxies
+  host/    hosts (engine-resident or the object path), internal apps,
+           processes, syscalls, UDP and TCP sockets, the CPU model
+  tcp/     the object path's sans-I/O TCP
   ops/     device code: queue-scan and relay kernels, the TCP and
            PHOLD/udp-mesh device-span loops, per-round propagation
   tools/   config generators

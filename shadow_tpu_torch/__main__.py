@@ -3,7 +3,9 @@
 The port's counterpart of `python -m shadow_tpu`: load the YAML, apply
 the overrides, run the simulation (under `scheduler: tpu` on the card,
 or on the CPU with `--device cpu`; the engine `thread_per_core`
-baseline always on the CPU), write the data directory, print the
+baseline and the object path's `serial`, `thread_per_host` and
+pure-Python `thread_per_core` always on the CPU), write the data
+directory, print the
 summary, and exit nonzero if any process ended in an unexpected state
 or the config needs a path the port has not ported yet.
 """
@@ -18,7 +20,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="shadow-tpu-torch",
-        description="shadow-tpu on PyTorch/CUDA (engine-resident slice)")
+        description="shadow-tpu on PyTorch/CUDA")
     p.add_argument("config", nargs="?", help="YAML simulation config")
     p.add_argument("--seed", type=int, help="override general.seed")
     p.add_argument("--stop-time", help="override general.stop_time")
@@ -28,9 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler",
                    choices=["serial", "thread_per_core", "thread_per_host",
                             "tpu"],
-                   help="override experimental.scheduler (the port serves "
-                        "tpu, and thread_per_core with native_dataplane: "
-                        "on)")
+                   help="override experimental.scheduler")
     p.add_argument("--progress", action="store_true",
                    help="print heartbeat progress to stderr")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

@@ -7,15 +7,20 @@ reference carries (with the reference's defaults), and writes the same
 needs a path the port has not ported yet raises NotImplementedError
 naming the ROADMAP item, instead of running some other path silently.
 
-The slice: engine-resident hosts (the tgen TCP apps and the UDP/PHOLD
-apps) under two schedulers.  `scheduler: tpu`: the TCP and
+What the port serves: the internal apps on engine-resident and
+object-path hosts under every scheduler.  `scheduler: tpu`: the TCP and
 PHOLD/udp-mesh device spans and the per-round propagation kernel on the
 card, the C++ engine serving every round the device does not (C++
 spans, and the per-round rounds the route model gives its twin);
-`tpu_min_device_batch <= 0` forces every round through the kernel.
-`scheduler: thread_per_core` with `native_dataplane: on`: the engine
-baseline, every round on the per-round path over OS threads with the
-engine's scalar propagation, no device at all.
+`tpu_min_device_batch <= 0` forces every round through the kernel;
+`native_dataplane: off` puts every host on the object path, whose
+sends the same kernel propagates.  `scheduler: thread_per_core` with
+`native_dataplane: on`: the engine baseline, every round on the
+per-round path over OS threads with the engine's scalar propagation,
+no device at all.  `serial`, `thread_per_host` and the pure-Python
+`thread_per_core`: the object path on the CPU.  Per-host
+`native_dataplane: false` and the CPU model keep a host on the object
+path beside the engine's hosts.
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from typing import Any
 
 import yaml
 
-from shadow_tpu_torch.host.engine_app import ENGINE_ARGC, argv_fits
 from shadow_tpu_torch.net import graph as netgraph
 from shadow_tpu_torch.utils import units
 
@@ -35,8 +39,6 @@ QDISC_MODES = ("fifo", "round_robin")
 ON_FAILURE_POLICIES = ("abort", "quarantine", "restart")
 
 # ROADMAP queue A items that the refusals below name.
-_RM_OBJECT = ("ROADMAP A2b (object-path hosts and the propagator's "
-              "object leg)")
 _RM_SHARDED = "ROADMAP A5 (sharded multi-GPU)"
 _RM_OBS = ("ROADMAP A7 (observatories, checkpoint and faults, managed "
            "processes)")
@@ -86,7 +88,7 @@ class GeneralConfig:
     progress: bool = False
     heartbeat_interval_ns: int = units.parse_time_ns("1 s")
     log_level: str = "info"
-    # Managed-process timing: inert on engine-resident hosts.
+    # Managed-process timing: inert on the internal apps.
     model_unblocked_syscall_latency: bool = True
 
 
@@ -99,7 +101,7 @@ class NetworkConfig:
 @dataclass
 class ExperimentalConfig:
     """Every reference key, at the reference's default.  The ones that
-    shape an engine-resident run are read by the Manager; the others
+    shape a run the port serves are read by the Manager; the others
     are carried into processed-config.yaml, or refused when their value
     needs an unported path (`_EXP_REFUSED`)."""
     scheduler: str = "thread_per_core"
@@ -122,7 +124,7 @@ class ExperimentalConfig:
     native_preemption_sim_interval_ns: int = units.parse_time_ns("10 ms")
     native_file_io_bandwidth_bps: int = units.parse_bytes("1 GiB")
     unblocked_vdso_latency_ns: int = units.parse_time_ns("10 ns")
-    # Chunks only the object path's sends (A2b): inert here.
+    # The object path's outbox chunk under `tpu`.
     tpu_max_packets_per_round: int = 1 << 20
     tpu_min_device_batch: int = 2048
     tpu_shards: int = 1
@@ -221,18 +223,13 @@ _EXP_KEYS = {
 
 # Values that need an unported path: attr -> (predicate on the parsed
 # value that says the path is needed, ROADMAP item).  Every other key
-# changes nothing on the engine-resident path (managed-process timing,
-# sharded sizing, wall-side knobs) and is carried as read.
+# changes nothing on the paths the port serves (managed-process timing,
+# sharded sizing, wall-side knobs) or is read by the Manager.
 _EXP_REFUSED = {
     "strace_logging_mode": (lambda v: v != "off", _RM_OBS),
-    "host_cpu_threshold_ns": (lambda v: v is not None, _RM_OBJECT),
-    "host_cpu_precision_ns": (lambda v: v is not None, _RM_OBJECT),
-    "host_cpu_event_cost_ns": (lambda v: v != 0, _RM_OBJECT),
     "tpu_shards": (lambda v: v != 1, _RM_SHARDED),
-    "native_dataplane": (lambda v: v == "off", _RM_OBJECT),
     "syscall_observatory": (lambda v: v != "off", _RM_OBS),
     "openssl_crypto_noop": (bool, _RM_OBS),
-    "use_perf_timers": (bool, _RM_OBJECT),
 }
 
 # The reference's closed value sets.
@@ -258,22 +255,13 @@ def _refuse(what: str, item: str):
 
 
 def check_scheduler(exp: ExperimentalConfig) -> None:
-    """The schedulers the port serves: `tpu`, and the engine
-    `thread_per_core` baseline (`native_dataplane: on`).  Under the
-    reference, `thread_per_core` with `native_dataplane` auto or off is
-    the pure-Python scheduler; it, `serial` and `thread_per_host` run
-    object-path hosts."""
+    """Every scheduler of the reference is served: `tpu`, the engine
+    `thread_per_core` baseline (`native_dataplane: on`), and the object
+    path's `serial`, `thread_per_host` and pure-Python
+    `thread_per_core` (`native_dataplane` auto or off)."""
     if exp.scheduler not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {exp.scheduler!r}; "
                          f"expected one of {SCHEDULERS}")
-    if exp.scheduler == "tpu" or (exp.scheduler == "thread_per_core"
-                                  and exp.native_dataplane == "on"):
-        return
-    what = (f"scheduler: {exp.scheduler} with native_dataplane: "
-            f"{exp.native_dataplane} (the pure-Python scheduler)"
-            if exp.scheduler == "thread_per_core"
-            else f"scheduler: {exp.scheduler} (the object path)")
-    _refuse(what, _RM_OBJECT)
 
 
 def _ns(v: int | None):
@@ -552,8 +540,6 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
                                   opt.get("pcap_enabled", False)))
         native_dataplane = bool(h.get("native_dataplane",
                                       opt.get("native_dataplane", True)))
-        if not native_dataplane:
-            _refuse(f"hosts.{name}: native_dataplane false", _RM_OBJECT)
         procs = []
         for p in h.get("processes", []) or []:
             where = f"hosts.{name}.processes[{len(procs)}]"
@@ -562,7 +548,8 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
             if isinstance(args, str):
                 args = shlex.split(args)
             args = [str(a) for a in args]
-            _check_engine_app(where, path, args)
+            if "/" in path:
+                _refuse(f"{where}: {path} (a managed process)", _RM_OBS)
             if "shutdown_time" in p:
                 _refuse(f"{where}: shutdown_time (signal delivery)",
                         _RM_OBS)
@@ -608,17 +595,6 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
             native_dataplane=native_dataplane,
             tcp_cc=tcp_cc, tcp_ecn=tcp_ecn)
     return hosts
-
-
-def _check_engine_app(where: str, path: str, args: list[str]) -> None:
-    """Only engine-resident apps are served: anything else runs on the
-    object path or under the shim."""
-    if path not in ENGINE_ARGC:
-        _refuse(f"{where}: {path} (object-path or managed process)",
-                _RM_OBS if "/" in path else _RM_OBJECT)
-    if not argv_fits(path, args):
-        _refuse(f"{where}: {path} with args {args} (object-path app)",
-                _RM_OBJECT)
 
 
 def _require(mapping: dict, key: str, where: str):

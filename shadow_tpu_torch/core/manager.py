@@ -1,11 +1,18 @@
-"""Manager: build an engine-resident simulation, run the conservative
-round loop, and write the run's data directory.
+"""Manager: build a simulation, run the conservative round loop, and
+write the run's data directory.
 
-The port's counterpart of `shadow_tpu/core/manager.py`, for
-engine-resident hosts only.  Every host lives on the C++ engine
-(`native/netplane.cpp`); the loop picks the global minimum next-event
-time and serves the rounds from it.  Under `scheduler: tpu` it does so
-in one of three ways, exactly as the reference does:
+The port's counterpart of `shadow_tpu/core/manager.py`.  A host runs on
+one of two planes: the C++ engine (`native/netplane.cpp`: its inet
+plane, its apps and their TCP state; under `tpu` unless
+`native_dataplane: off`, and under the engine `thread_per_core`
+baseline), or the object path (host/host.py's Python network devices,
+host/apps.py's internal apps over host/socket_*.py and tcp/): every
+host under `serial`, `thread_per_host` and the pure-Python
+`thread_per_core`, and, beside engine hosts, those with per-host
+`native_dataplane: false` or the CPU model.  The loop picks the global
+minimum next-event time and serves the rounds from it.  Under
+`scheduler: tpu` with the engine it does so in one of three ways,
+exactly as the reference does:
 
 - a device span: whole conservative windows of exported state stepped
   in PyTorch on the card and imported back transactionally, by the
@@ -14,21 +21,29 @@ in one of three ways, exactly as the reference does:
   span that follows a clean one reuses its output on the card, and
   with `span_overlap` on the next window runs while the host imports
   this one (ops/span_mesh.py);
-- a C++ span (engine.run_span): whole windows inside one engine call;
-- one per-round iteration: hosts with Python-side work (spawn tasks)
-  run through Host.execute, the rest in one engine batch, and the
-  propagator (ops/propagate.py) propagates the round's packets, on the
-  card (`stt_propagate`) or through the engine's bit-identical C++
-  twin, as its route model decides.
+- a C++ span (engine.run_span): whole windows inside one engine call,
+  capped before the first window that could touch a host with
+  Python-side work (an object-path host, or an engine host's spawn
+  task); a span whose round sent to an object-path host ends there and
+  hands those packets back (exports);
+- one per-round iteration: hosts with Python-side work run through
+  Host.execute, the rest in one engine batch, and the propagator
+  (ops/propagate.py) propagates the round's packets: the object path's
+  outbox in chunks, then the engine's round, each on the card
+  (`stt_propagate_round`) or through a bit-identical twin, as its route
+  model decides.
 
 `tpu_min_device_batch <= 0` forces every round through the kernel:
-no span of either kind runs, and no round goes to the twin.
+no span of either kind runs, and no round goes to a twin.
 
-Under the engine `thread_per_core` scheduler (`native_dataplane: on`)
-every round takes the per-round path: the engine runs the due hosts
-over `general.parallelism` OS threads and the engine's C++ twin
-propagates (core/propagate_scalar.py).  No torch device is resolved and
-no card is touched: it is the reference's honest CPU baseline.
+Under the CPU schedulers every round takes the per-round path and no
+torch device is resolved: the object path's sends propagate one by one
+(core/propagate_scalar.py) and the engine baseline's hosts run over
+`general.parallelism` OS threads with the engine's C++ twin.
+`thread_per_host` runs one task a host on a pool, `thread_per_core`
+blocks of hosts claimed off a shared cursor (`use_cpu_pinning` pins the
+pool's threads), and `use_perf_timers` times each host's execution
+serially.
 
 Every round is credited one eligibility reason (trace/audit.py); the
 heartbeat and status bar follow `general.progress`; `write_data_dir`
@@ -43,10 +58,13 @@ sim-netstat (`telemetry-sim.bin`), the fabric observatory
 pcap (`hosts/<name>/{lo,eth0}.pcap`).  The engine records its own rounds
 and C++ spans (drained after each span and sampled at each per-round
 boundary); a device span samples on the card (or in its plain loop) and
-its runner appends the rows after the span's import; pcap is captured by
-the engine and drained every round and span, its spans capped at
+its runner appends the rows after the span's import; the object-path
+hosts' connections and queues are sampled at each per-round boundary
+after the engine's block.  An engine host's pcap is captured by the
+engine and drained every round and span, its spans capped at
 `pcap_span_cap` rounds (the engine keeps a pcap host's sim off device
-spans, as the reference's does).
+spans, as the reference's does); an object-path host's interfaces write
+theirs as packets pass.
 """
 
 from __future__ import annotations
@@ -54,18 +72,27 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from shadow_tpu_torch.core.config import ConfigOptions, check_scheduler
+from shadow_tpu_torch.core.event import TaskRef
+from shadow_tpu_torch.core.propagate_scalar import (ScalarPropagator,
+                                                    deliver_engine_exports)
 from shadow_tpu_torch.core.rng import STREAM_PACKET_LOSS, mix_key
 from shadow_tpu_torch.core.simtime import TIME_NEVER
+from shadow_tpu_torch.host import apps as app_registry
+from shadow_tpu_torch.host.cpu import Cpu
 from shadow_tpu_torch.host.engine_app import (EngineAppProcess,
                                               engine_app_args)
 from shadow_tpu_torch.host.host import Host
+from shadow_tpu_torch.host.process import Process
+from shadow_tpu_torch.host.syscalls import SyscallHandler
 from shadow_tpu_torch.net.dns import Dns
 from shadow_tpu_torch.net.graph import IpAssignment, routing_arrays
 from shadow_tpu_torch.trace import events as trev
@@ -136,35 +163,54 @@ def span_overlap_on(mode: str, device) -> bool:
 
 
 class SpawnTask:
-    """One configured process spawn: an engine-resident app."""
+    """One configured process spawn.  On an engine host an app with an
+    engine twin spawns engine-side; otherwise the app runs as an
+    internal (Python-coroutine) process on the object path."""
 
-    __slots__ = ("pcfg", "index", "spec", "bufs")
+    __slots__ = ("pcfg", "index", "bufs")
 
-    def __init__(self, pcfg, index: int, spec, bufs):
+    def __init__(self, pcfg, index: int, bufs):
         self.pcfg = pcfg
         self.index = index
-        self.spec = spec  # engine_app_args tuple
         self.bufs = bufs  # (send_buf, recv_buf, send_at, recv_at)
 
     def __call__(self, h) -> None:
-        kind, a, b, c, d, e = self.spec[:6]
-        extra = self.spec[6:]  # the peer-IP buffer of udp-mesh / phold
-        send_buf, recv_buf, send_at, recv_at = self.bufs
-        process = EngineAppProcess(
-            h, f"{self.pcfg.path}.{self.index}",
-            expected_final_state=self.pcfg.expected_final_state)
-        process.app_idx = h.plane.engine.app_spawn(
-            h.id, kind, a, b, c, d, e, send_buf, recv_buf, int(send_at),
-            int(recv_at), h.now(), *extra)
+        pcfg = self.pcfg
+        if h.plane is not None:
+            spec = engine_app_args(pcfg, h.dns)
+            if spec is not None:
+                kind, a, b, c, d, e = spec[:6]
+                extra = spec[6:]  # the peer-IP buffer of udp-mesh / phold
+                send_buf, recv_buf, send_at, recv_at = self.bufs
+                process = EngineAppProcess(
+                    h, f"{pcfg.path}.{self.index}",
+                    expected_final_state=pcfg.expected_final_state)
+                process.app_idx = h.plane.engine.app_spawn(
+                    h.id, kind, a, b, c, d, e, send_buf, recv_buf,
+                    int(send_at), int(recv_at), h.now(), *extra)
+                return
+        factory = app_registry.lookup(pcfg.path)
+        process = Process(h, f"{pcfg.path}.{self.index}", pcfg.args,
+                          pcfg.environment,
+                          expected_final_state=pcfg.expected_final_state)
+        if factory is None:
+            process.stderr += (f"[shadow-tpu] unknown app "
+                               f"{pcfg.path!r}\n").encode()
+            process.exited = True
+            process.exit_code = 127
+            return
+        process.start(h, factory(process, pcfg.args))
 
 
 class Manager:
     def __init__(self, config: ConfigOptions, device=None):
         object_counter.reset()
-        check_scheduler(config.experimental)
-        self.tpu = config.experimental.scheduler == "tpu"
-        # The engine thread_per_core baseline is the CPU run the user
-        # asked for: no torch device, no card.
+        exp = config.experimental
+        check_scheduler(exp)
+        sched = exp.scheduler
+        self.tpu = sched == "tpu"
+        # The CPU schedulers are the CPU runs the user asked for: no torch
+        # device, no card.
         self.device = resolve_device(device) if self.tpu else None
         self.config = config
         graph = config.network.graph
@@ -173,16 +219,17 @@ class Manager:
         self.latency_ns = lat
         self.loss_thresholds = thr
         self.dns = Dns()
-        exp = config.experimental
         bufs = (exp.socket_send_buffer, exp.socket_recv_buffer,
                 exp.socket_send_autotune, exp.socket_recv_autotune)
+        self.syscall_handler = SyscallHandler(*bufs)
 
-        # Hosts in sorted-name order: host ids — and with them every RNG
-        # stream and ordering tiebreak — are config-deterministic.
+        # Hosts in sorted-name order: host ids, and with them every RNG
+        # stream and ordering tiebreak, are config-deterministic.  Spawn
+        # tasks draw their event seqs from the host's own counter, before
+        # the engine takes the host over (the reference's order).
         ipa = IpAssignment()
         self.hosts: list[Host] = []
         seed = config.general.seed
-        pending = []
         for host_id, name in enumerate(sorted(config.hosts)):
             hcfg = config.hosts[name]
             node = graph.by_gml_id.get(hcfg.network_node_id)
@@ -196,59 +243,78 @@ class Manager:
                 raise ValueError(f"host {name!r}: no bandwidth configured "
                                  "(host or graph node must provide it)")
             host = Host(host_id, name, ip, node.index, seed, bw_down,
-                        bw_up)
+                        bw_up, qdisc=exp.interface_qdisc)
             host.tcp_cc = hcfg.tcp_cc
             host.tcp_ecn = hcfg.tcp_ecn
+            host.dctcp_k_pkts = exp.dctcp_k_pkts
+            host.dctcp_k_bytes = exp.dctcp_k_bytes
+            if exp.host_cpu_threshold_ns is not None:
+                host.cpu = Cpu(threshold=exp.host_cpu_threshold_ns,
+                               precision=exp.host_cpu_precision_ns)
+                host.cpu_event_cost_ns = exp.host_cpu_event_cost_ns
+            host.dns = self.dns
+            host.syscall_handler = self.syscall_handler
             self.dns.register(host_id, ip, name)
             self.hosts.append(host)
-            pending.append((host, hcfg))
-        # Spawn tasks draw their event seqs from the host's own counter
-        # before the engine takes the host over (the reference's order).
-        for host, hcfg in pending:
             for i, pcfg in enumerate(hcfg.processes):
-                spec = engine_app_args(pcfg, self.dns)
-                if spec is None:
-                    raise NotImplementedError(
-                        f"shadow_tpu_torch does not serve host "
-                        f"{host.name!r} process {pcfg.path} "
-                        f"{pcfg.args} yet: it needs the object path "
-                        f"(ROADMAP A2b)")
                 host.schedule_task_at(pcfg.start_time_ns,
-                                      SpawnTask(pcfg, i, spec, bufs))
+                                      TaskRef("spawn",
+                                              SpawnTask(pcfg, i, bufs)))
 
         self.runahead = Runahead(exp.runahead_ns, graph.min_latency_ns(),
                                  exp.use_dynamic_runahead)
 
-        from shadow_tpu_torch.native import plane as native_plane
-        self.plane = native_plane.NativePlane(self.hosts)
-        qdisc_rr = exp.interface_qdisc == "round_robin"
-        for host in self.hosts:
-            self.plane.add_host(host, qdisc_rr)
-        eng = self.plane.engine
-        eng.set_dctcp_k(exp.dctcp_k_pkts, exp.dctcp_k_bytes)
-        # Routing state for the engine's scalar propagation twin.
-        k0, k1 = mix_key(seed, STREAM_PACKET_LOSS)
-        eng.set_routing(
-            np.ascontiguousarray([h.node_index for h in self.hosts],
-                                 dtype=np.int32),
-            np.ascontiguousarray([h.ip for h in self.hosts],
-                                 dtype=np.uint32),
-            lat, thr, lat.shape[0], k0, k1,
-            config.general.bootstrap_end_time_ns, TIME_NEVER)
+        # The C++ engine: every host runs on it under `tpu` (unless
+        # `native_dataplane: off`) and under the engine `thread_per_core`
+        # baseline (`native_dataplane: on`), but for the hosts that stay
+        # on the object path: per-host `native_dataplane: false` and the
+        # CPU model.  Both planes meet in the propagators.
+        native_mode = exp.native_dataplane
+        self.plane = None
+        if (self.tpu and native_mode != "off") or \
+                (sched == "thread_per_core" and native_mode == "on"):
+            from shadow_tpu_torch.native import plane as native_plane
+            self.plane = native_plane.NativePlane(self.hosts)
+            qdisc_rr = exp.interface_qdisc == "round_robin"
+            for host in self.hosts:
+                if host.cpu is None and \
+                        config.hosts[host.name].native_dataplane:
+                    self.plane.add_host(host, qdisc_rr)
+            self.plane.engine.set_dctcp_k(exp.dctcp_k_pkts,
+                                          exp.dctcp_k_bytes)
+            self._check_engine_apps()
+        eng = self.plane.engine if self.plane is not None else None
+        threaded = sched in ("thread_per_core", "thread_per_host")
+        self._per_host_tasks = sched == "thread_per_host"
         if self.tpu:
             from shadow_tpu_torch.ops.propagate import TpuPropagator
             self.propagator = TpuPropagator(
                 lat, thr, seed, config.general.bootstrap_end_time_ns,
                 runahead=self.runahead,
                 min_device_batch=exp.tpu_min_device_batch,
-                device=self.device)
+                device=self.device, hosts=self.hosts, dns=self.dns,
+                max_batch=exp.tpu_max_packets_per_round)
         else:
-            from shadow_tpu_torch.core.propagate_scalar import \
-                ScalarPropagator
-            self.propagator = ScalarPropagator(runahead=self.runahead)
-        self.propagator.engine = eng
+            self.propagator = ScalarPropagator(
+                self.hosts, self.dns, lat, thr, seed,
+                config.general.bootstrap_end_time_ns, threaded=threaded,
+                runahead=self.runahead)
+        for host in self.hosts:
+            host._send_packet_fn = self.propagator.send
+        if eng is not None:
+            # Routing state for the engine's scalar propagation twin.
+            k0, k1 = mix_key(seed, STREAM_PACKET_LOSS)
+            eng.set_routing(
+                np.ascontiguousarray([h.node_index for h in self.hosts],
+                                     dtype=np.int32),
+                np.ascontiguousarray([h.ip for h in self.hosts],
+                                     dtype=np.uint32),
+                lat, thr, lat.shape[0], k0, k1,
+                config.general.bootstrap_end_time_ns, TIME_NEVER)
+            self.propagator.engine = eng
         # Pcap capture: the engine records its hosts' packets, drained
-        # each round and span into the writers.
+        # each round and span into the writers; an object-path host's
+        # interfaces write theirs as they pass.  The files are the same.
         self._pcap_engine: list = []  # (host, writer_lo, writer_eth)
         for host in self.hosts:
             hcfg = config.hosts[host.name]
@@ -262,14 +328,29 @@ class Manager:
                 PcapWriter(os.path.join(hdir, f"{name}.pcap"),
                            hcfg.pcap_capture_size)
                 for name in ("lo", "eth0"))
-            for ifidx in (0, 1):
-                eng.set_pcap(host.id, ifidx, True)
-            self._pcap_engine.append((host,) + writers)
-        # OS-thread width for the engine's run_hosts_mt sections (the
-        # baseline's: its pool's width, min(workers, hosts)).
+            if host.plane is not None:
+                for ifidx in (0, 1):
+                    eng.set_pcap(host.id, ifidx, True)
+                self._pcap_engine.append((host,) + writers)
+            else:
+                host.lo.pcap, host.eth0.pcap = writers
+        # OS-thread width for the engine's run_hosts_mt sections.
         self._mt_threads = config.general.parallelism or os.cpu_count() or 1
-        if not self.tpu:
-            self._mt_threads = min(self._mt_threads, len(self.hosts))
+        self._perf_timers = exp.use_perf_timers
+        if self._perf_timers and threaded:
+            # Per-host timing means something only serially (threads
+            # share the GIL).
+            print("[shadow-tpu] use_perf_timers forces serial host "
+                  "execution; parallelism ignored", file=sys.stderr)
+            threaded = False
+        self._pool = None
+        if threaded:
+            workers = config.general.parallelism or os.cpu_count() or 1
+            self._pool = ThreadPoolExecutor(
+                max_workers=min(workers, len(self.hosts)),
+                initializer=(_make_pinner() if exp.use_cpu_pinning
+                             else None))
+            self._steal_lock = threading.Lock()
         # Always on (integer adds a round or span): the metrics registry
         # and the eligibility audit feed sim-stats.json.
         self.metrics = MetricsRegistry()
@@ -280,19 +361,21 @@ class Manager:
         if exp.flight_recorder in ("on", "wall"):
             from shadow_tpu_torch.trace.recorder import FlightRecorder
             self.flight = FlightRecorder(sim=exp.flight_recorder == "on")
-            if self.flight.sim is not None:
+            if self.flight.sim is not None and eng is not None:
                 eng.set_flight(1)  # the engine's ring: C++ span rounds
             self.propagator.wall = self.flight.wall
         self.netstat = None
         if exp.sim_netstat == "on":
             from shadow_tpu_torch.trace.netstat import NetstatChannel
             self.netstat = NetstatChannel(exp.netstat_interval_ns)
-            eng.set_netstat(1, max(int(exp.netstat_interval_ns), 1))
+            if eng is not None:
+                eng.set_netstat(1, max(int(exp.netstat_interval_ns), 1))
         self.fabric = None
         if exp.sim_fabricstat == "on":
             from shadow_tpu_torch.trace.fabricstat import FabricChannel
             self.fabric = FabricChannel(exp.fabricstat_interval_ns)
-            eng.set_fabric(1, max(int(exp.fabricstat_interval_ns), 1))
+            if eng is not None:
+                eng.set_fabric(1, max(int(exp.fabricstat_interval_ns), 1))
         self.kern = None
         if exp.kernel_observatory == "on":
             from shadow_tpu_torch.trace.kernstat import KernChannel
@@ -313,29 +396,73 @@ class Manager:
     # The round loop
     # ------------------------------------------------------------------
 
+    def _check_engine_apps(self) -> None:
+        """An engine host runs the apps with an engine twin; an internal
+        app of another shape would need Python-side sockets on the
+        engine host, which the port does not serve yet."""
+        for host in self.hosts:
+            if host.plane is None:
+                continue
+            for pcfg in self.config.hosts[host.name].processes:
+                if app_registry.lookup(pcfg.path) is not None \
+                        and engine_app_args(pcfg, self.dns) is None:
+                    raise NotImplementedError(
+                        f"shadow_tpu_torch does not serve host "
+                        f"{host.name!r} process {pcfg.path} {pcfg.args} "
+                        f"on the engine yet: ROADMAP A7b (Python-side "
+                        f"sockets on engine hosts, host/socket_native.py);"
+                        f" set native_dataplane: false on the host")
+
     def _init_next_times(self) -> None:
-        """Shared next-event snapshot (one slot per host) and the
-        Python-work flags; the engine writes both in place."""
+        """The shared next-event snapshot (one slot a host) and the
+        Python-work flags.  From here on each host writes its own slot
+        at the end of execute() and cross-host deliveries lower the
+        destination's slot; the engine writes its hosts' in place.
+        Object-path hosts' flags stay True; engine hosts' follow their
+        Python heap and inbox."""
         nt = np.empty(len(self.hosts), dtype=np.int64)
-        pw = np.ones(len(self.hosts), dtype=bool)
         for h in self.hosts:
             t = h.next_event_time()
             nt[h.id] = TIME_NEVER if t is None else t
+        pw = np.ones(len(self.hosts), dtype=bool)
+        for h in self.hosts:
             h._nt_list = nt
-            h._py_work_arr = pw
-            pw[h.id] = bool(h.heap)
+            if h.plane is not None:
+                h._py_work_arr = pw
+                pw[h.id] = bool(h.queue._heap) or bool(h._inbox)
         self._nt = nt
         self._py_work = pw
-        self.plane.engine.set_nt(nt)
-        self.plane.engine.set_py_work(pw)
+        if self.plane is not None:
+            self.plane.engine.set_nt(nt)
+            self.plane.engine.set_py_work(pw)
 
     def _min_next_event(self) -> int | None:
         best = int(self._nt.min())
         return None if best >= TIME_NEVER else best
 
-    def _run_hosts(self, until: int) -> None:
-        """Hosts whose pending work is entirely engine-side run the window
-        in one C call; hosts with Python-side work run Host.execute."""
+    def _object_block_reason(self, py_min: int) -> int:
+        """Why the earliest-due Python-side host keeps this round off the
+        span path: an engine host's transient Python work, or an
+        object-path host by cause (CPU model, pcap, other config)."""
+        idx = np.flatnonzero(self._py_work & (self._nt == py_min))
+        h = self.hosts[int(idx[0])]
+        if h.plane is not None:
+            return trev.EL_OBJ_PYTASK
+        if h.cpu is not None:
+            return trev.EL_OBJ_CPU
+        if self.config.hosts[h.name].pcap_enabled:
+            return trev.EL_OBJ_PCAP
+        return trev.EL_OBJ_OTHER
+
+    def _active_hosts(self, until: int) -> list:
+        """Hosts whose execute(until) has work by the shared snapshot."""
+        hosts = self.hosts
+        return [hosts[i] for i in np.flatnonzero(self._nt < until)]
+
+    def _run_engine_batch(self, until: int, nthreads: int) -> list:
+        """Hosts whose pending work is all engine-side run the window in
+        one C call (over `nthreads` OS threads); returns the hosts that
+        need the Python path."""
         eng = self.plane.engine
         mask = self._nt < until
         fast = np.flatnonzero(mask & ~self._py_work)
@@ -343,14 +470,63 @@ class Manager:
         if fast.size:
             stop = eng.run_hosts_mt(
                 np.ascontiguousarray(fast, dtype=np.uint32), until,
-                self._mt_threads)
+                nthreads)
             if stop >= 0:
                 # A Python callback fired in the serial tail: finish that
                 # host and the remainder through the merge loop.
                 for hid in fast[stop:].tolist():
                     self.hosts[hid].execute(until)
-        for hid in slow.tolist():
-            self.hosts[hid].execute(until)
+        hosts = self.hosts
+        return [hosts[i] for i in slow.tolist()]
+
+    def _run_hosts(self, until: int) -> None:
+        """One round's host execution under the configured scheduler."""
+        if self._perf_timers:
+            # use_perf_timers: each host's execution wall, serially.
+            for h in self.hosts:
+                t0 = time.perf_counter_ns()
+                h.execute(until)
+                h.perf_exec_ns += time.perf_counter_ns() - t0
+            return
+        if self._pool is None:
+            if self.plane is not None:
+                active = self._run_engine_batch(until, self._mt_threads)
+            else:
+                active = self._active_hosts(until)
+            for h in active:
+                h.execute(until)
+            return
+        if self._per_host_tasks:
+            # thread_per_host: one task a host.
+            list(self._pool.map(lambda h: h.execute(until),
+                                self._active_hosts(until)))
+            return
+        if self.plane is not None:
+            active = self._run_engine_batch(until,
+                                            self._pool._max_workers)
+        else:
+            active = self._active_hosts(until)
+        if not active:
+            return
+        # thread_per_core: workers claim blocks of hosts off one shared
+        # cursor, so a thread that drew cheap hosts takes the rest of an
+        # expensive neighbour's share.
+        n = self._pool._max_workers
+        block = max(1, len(active) // (n * 8))
+        cursor = [0]
+        lock = self._steal_lock
+
+        def run_worker(_):
+            while True:
+                with lock:
+                    i = cursor[0]
+                    cursor[0] = i + block
+                if i >= len(active):
+                    return
+                for h in active[i:i + block]:
+                    h.execute(until)
+
+        list(self._pool.map(run_worker, range(n)))
 
     def _drain_engine_pcap(self) -> None:
         eng = self.plane.engine
@@ -388,21 +564,24 @@ class Manager:
         start = self._min_next_event()
         prop = self.propagator
         audit = self.audit
-        eng = self.plane.engine
+        eng = self.plane.engine if self.plane is not None else None
         flight = self.flight
         fr_sim = flight.sim if flight is not None else None
         fr_wall = flight.wall if flight is not None else None
         netstat = self.netstat
         fabric = self.fabric
-        # Spans serve only the tpu scheduler; the thread_per_core
-        # baseline keeps the reference's per-round architecture.
-        # Forced-device mode (min_device_batch <= 0) is the parity/audit
-        # path: every round must go through the kernel, so spans (whose
-        # propagation runs the C++ twin or a span loop) stay out.
-        span_ok = self.tpu and prop.route.min_device_batch > 0
+        # Spans serve only the tpu scheduler with the engine; the CPU
+        # schedulers keep the reference's per-round architecture, and so
+        # do perf timers.  Forced-device mode (min_device_batch <= 0) is
+        # the parity/audit path: every round must go through the kernel,
+        # so spans (whose propagation runs the C++ twin or a span loop)
+        # stay out.
+        span_static = (self.tpu and eng is not None
+                       and not self._perf_timers)
+        span_ok = span_static and prop.route.min_device_batch > 0
         # Why the per-round path runs when spans are statically out.
         per_round_static = (trev.EL_ROUND_FORCED
-                            if self.tpu and not span_ok
+                            if span_static and not span_ok
                             else trev.EL_ROUND_SCHED)
         # Device-resident spans: "auto" measures device vs C++ span
         # throughput per round and routes, "force"/"on" always take the
@@ -481,22 +660,26 @@ class Manager:
             round_reason = per_round_static
             span_now = False
             if span_ok:
-                # A device measured winning per round keeps the rounds.
-                span_now = prop.span_gate()
-                if not span_now:
+                if prop._outbox:
+                    round_reason = trev.EL_ROUND_OUTBOX
+                elif not prop.span_gate():
+                    # A device measured winning per round keeps them.
                     round_reason = trev.EL_ROUND_GATE
+                else:
+                    span_now = True
             py_limit = None
             if span_now and self._py_work.any():
-                # Python-side work pending (spawn tasks): spans may still
+                # Python-side work pending (an engine host's spawn task,
+                # or an object-path host in a mixed sim): spans may still
                 # serve the stretch up to the earliest window that could
-                # touch it.
+                # touch it.  An object-path host may also receive from
+                # engine hosts mid-span: the engine then ends the span at
+                # that round and hands the packets back (exports).
                 py_min = int(self._nt[self._py_work].min())
                 ra = self.runahead.get()
                 if start > py_min - ra:
                     span_now = False
-                    # Every host is an engine host: the due one carries a
-                    # transient Python task.
-                    round_reason = trev.EL_OBJ_PYTASK
+                    round_reason = self._object_block_reason(py_min)
                 else:
                     py_limit = py_min - ra + 1
             if span_now:
@@ -597,12 +780,13 @@ class Manager:
                     per_round_static = trev.EL_ROUND_CALLBACK
                     round_reason = per_round_static
                 else:
-                    if res[6]:
-                        raise RuntimeError(
-                            "engine span exported packets to an "
-                            "object-path host, which this slice never "
-                            "builds")
+                    exports = res[6]
                     res = res[:6]
+                    if exports:
+                        # Mixed sim: the span stopped at the round that
+                        # addressed an object-path host; its packets are
+                        # delivered at their recorded times.
+                        deliver_engine_exports(self.hosts, exports)
                     if res[0]:
                         dt = time.perf_counter_ns() - t0
                         per = dt / res[0]
@@ -611,6 +795,12 @@ class Manager:
                         if fr_wall is not None:
                             fr_wall.add("engine-span", dt, t0)
                         start = account_span(res, span_reason)
+                        if exports:
+                            # the deliveries lowered object hosts' slots
+                            nxt = self._min_next_event()
+                            if nxt is not None and (start is None
+                                                    or nxt < start):
+                                start = nxt
                         continue
                     # rounds == 0 (e.g. a heartbeat boundary due now):
                     # one per-round iteration.
@@ -633,13 +823,17 @@ class Manager:
                 self._run_hosts(window_end)
                 inflight_min = prop.finish_round()
             # The round boundary's samples, from the engine's rings.
+            # The engine's block first, then the object-path hosts', each
+            # in ascending host id.
             if netstat is not None and netstat.sampled(start, window_end):
-                eng.netstat_sample(start, window_end)
-                netstat.extend(*eng.netstat_take())
+                if eng is not None:
+                    eng.netstat_sample(start, window_end)
+                    netstat.extend(*eng.netstat_take())
                 netstat.sample_object_hosts(self.hosts, window_end)
             if fabric is not None and fabric.sampled(start, window_end):
-                eng.fabric_sample(start, window_end)
-                fabric.extend(*eng.fabric_take())
+                if eng is not None:
+                    eng.fabric_sample(start, window_end)
+                    fabric.extend(*eng.fabric_take())
                 fabric.sample_object_hosts(self.hosts, window_end)
             audit.add(round_reason, 1)
             if self._pcap_engine:
@@ -656,6 +850,8 @@ class Manager:
             else stop
         if status is not None:
             status.finish(summary.end_time_ns)
+        if self._pool is not None:
+            self._pool.shutdown()
         if overlap_on:
             # A window the run ended before landing: join and discard.
             for r in (self._dev_span, self._dev_span_tcp):
@@ -683,10 +879,20 @@ class Manager:
         for h in self.hosts:
             if h._now < summary.end_time_ns:
                 h._now = summary.end_time_ns
-        self.plane.engine.advance_clocks(summary.end_time_ns)
+        if eng is not None:
+            eng.advance_clocks(summary.end_time_ns)
         for h in self.hosts:
             for proc in h.processes.values():
-                proc.close_all()
+                if not proc.exited:
+                    # The forced teardown releases the fd table.
+                    proc.fds.close_all(h)
+        # Object-path captures (an engine host's interfaces are never
+        # built).
+        for h in self.hosts:
+            if h.net_built():
+                for iface in (h.lo, h.eth0):
+                    if iface.pcap is not None:
+                        iface.pcap.close()
         if self._pcap_engine:
             self._drain_engine_pcap()
             for _h, w_lo, w_eth in self._pcap_engine:
@@ -846,10 +1052,44 @@ class Manager:
         return out
 
     def netstat_summary(self) -> dict:
-        """Per-cause drop counts plus the engine's TCP stream totals
-        (segments / retransmits).  Wall-side reporting only."""
-        return {"drops": self.drop_cause_totals(),
-                "tcp": self.plane.engine.netstat_totals()}
+        """Per-cause drop counts plus the TCP stream totals (segments /
+        retransmits): the engine's, or with no engine the object-path
+        connections'.  Wall-side reporting only."""
+        out = {"drops": self.drop_cause_totals()}
+        if self.plane is not None:
+            out["tcp"] = self.plane.engine.netstat_totals()
+            return out
+        from shadow_tpu_torch.trace.netstat import iter_host_tcp_sockets
+        totals = {"conns": 0, "segments_sent": 0, "segments_received": 0,
+                  "retransmits": 0, "sacked_skips": 0, "reasm_discards": 0,
+                  "rcvwin_trunc": 0}
+        for h in self.hosts:
+            if not h.net_built():
+                continue
+            for sock in iter_host_tcp_sockets(h):
+                conn = sock.conn
+                if conn is None:
+                    continue
+                totals["conns"] += 1
+                totals["segments_sent"] += conn.segments_sent
+                totals["segments_received"] += conn.segments_received
+                totals["retransmits"] += conn.retransmit_count
+                totals["sacked_skips"] += conn.sacked_skip_count
+                totals["reasm_discards"] += conn.reasm_discards
+                totals["rcvwin_trunc"] += conn.rcvwin_trunc
+        out["tcp"] = totals
+        return out
+
+    def _fabric_host_counters(self, h) -> tuple | None:
+        """One host's fabric counter tuple from whichever plane owns its
+        queues; None for an object-path host that never built its
+        network plane."""
+        if h.plane is not None:
+            return self.plane.engine.fabric_counters(h.id)
+        if not h.net_built():
+            return None
+        from shadow_tpu_torch.trace.fabricstat import host_fabric_counters
+        return host_fabric_counters(h)
 
     def _fabric_sweep(self) -> tuple:
         """One walk over every host's engine fabric counters: the
@@ -867,11 +1107,13 @@ class Manager:
                   "refill_stalls": 0, "violations": 0}
         mark_causes = [0] * trev.MARK_N
         max_link_s = 0.0
-        eng = self.plane.engine
         for h in self.hosts:
+            c = self._fabric_host_counters(h)
+            if c is None:
+                continue
             (enq_p, enq_b, fwd_p, fwd_b, drop_p, drop_b, marked,
              depth, qbytes, peak, r1s, r2s, _ps, bsent, _pr, _br,
-             park_p, park_b) = eng.fabric_counters(h.id)
+             park_p, park_b) = c
             h.merge_native_counters()
             totals["enqueued_pkts"] += enq_p
             totals["enqueued_bytes"] += enq_b
@@ -908,13 +1150,22 @@ class Manager:
 
     def collect_fct_rows(self) -> list:
         """Every flow record: the engine's teardown log and its live
-        connections with payload history."""
-        return [tuple(r) for r in self.plane.engine.fct_flows()]
+        connections with payload history, then each object-path host's
+        (the channel's writer sorts them)."""
+        rows: list = []
+        if self.plane is not None:
+            rows.extend(tuple(r) for r in self.plane.engine.fct_flows())
+        from shadow_tpu_torch.trace.fabricstat import object_host_flow_rows
+        for h in self.hosts:
+            if h.plane is None and h.net_built():
+                rows.extend(object_host_flow_rows(h))
+        return rows
 
     def sc_disposition_totals(self) -> dict:
         """Syscall dispositions summed over hosts: SC name -> count
-        (nonzero only).  Engine-resident apps dispatch C++-side and sit
-        outside this accounting, so a port run's table is empty."""
+        (nonzero only).  They count the internal apps' Python-dispatched
+        syscalls; engine-resident apps dispatch C++-side and sit outside
+        this accounting."""
         totals = [0] * trev.SC_N
         for h in self.hosts:
             for i in range(trev.SC_N):
@@ -1068,8 +1319,92 @@ class Manager:
             "objects": object_counter.snapshot(),
             "hosts": {h.name: dict(h.counters) for h in self.hosts},
         }
+        if self._perf_timers:
+            stats["perf"] = {"host_exec_ns":
+                             {h.name: h.perf_exec_ns for h in self.hosts}}
         with open(os.path.join(base, "sim-stats.json"), "w") as f:
             json.dump(stats, f, indent=2, sort_keys=True)
+
+
+def _topology_cpu_order(cpus: list[int]) -> list[int]:
+    """The pool's CPU order: one logical CPU a physical core first
+    (hyperthread siblings last), the cores interleaved round-robin over
+    NUMA nodes, then the remaining siblings in the same order.  The input
+    order when the topology is unreadable."""
+    def read_int(path: str) -> int:
+        try:
+            with open(path) as f:
+                return int(f.read().strip())
+        except (OSError, ValueError):
+            return 0
+
+    cpu_node: dict[int, int] = {}
+    try:
+        for entry in os.listdir("/sys/devices/system/node"):
+            if not entry.startswith("node") or not entry[4:].isdigit():
+                continue
+            node = int(entry[4:])
+            for sub in os.listdir(f"/sys/devices/system/node/{entry}"):
+                if sub.startswith("cpu") and sub[3:].isdigit():
+                    cpu_node[int(sub[3:])] = node
+    except OSError:
+        pass
+
+    core_seen: set[tuple] = set()
+    primaries: list[tuple] = []   # (node, pkg, core, cpu)
+    siblings: list[tuple] = []
+    for cpu in cpus:
+        base = f"/sys/devices/system/cpu/cpu{cpu}/topology"
+        pkg = read_int(f"{base}/physical_package_id")
+        core = read_int(f"{base}/core_id")
+        row = (cpu_node.get(cpu, 0), pkg, core, cpu)
+        if (pkg, core) in core_seen:
+            siblings.append(row)
+        else:
+            core_seen.add((pkg, core))
+            primaries.append(row)
+
+    def node_interleave(rows: list[tuple]) -> list[int]:
+        by_node: dict[int, list[int]] = {}
+        for node, _pkg, _core, cpu in sorted(rows):
+            by_node.setdefault(node, []).append(cpu)
+        out: list[int] = []
+        queues = [by_node[n] for n in sorted(by_node)]
+        while any(queues):
+            for q in queues:
+                if q:
+                    out.append(q.pop(0))
+        return out
+
+    ordered = node_interleave(primaries) + node_interleave(siblings)
+    return ordered if ordered else cpus
+
+
+def _make_pinner():
+    """`use_cpu_pinning`: each worker thread of the Python host pool pins
+    itself to the next CPU in the topology order (its own affinity
+    only); None when the affinity cannot be read."""
+    import itertools
+
+    try:
+        cpus = sorted(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return None
+    if not cpus:
+        return None
+    cpus = _topology_cpu_order(cpus)
+    counter = itertools.count()
+    lock = threading.Lock()
+
+    def pin():
+        with lock:
+            i = next(counter)
+        try:
+            os.sched_setaffinity(0, {cpus[i % len(cpus)]})
+        except OSError:
+            pass
+
+    return pin
 
 
 def _rss_kb() -> int:

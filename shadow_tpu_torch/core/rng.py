@@ -136,3 +136,17 @@ class HostRng:
                                  self._counter >> 32)
         self._counter += 1
         return (b1 << 32) | b0
+
+    def next_u32(self) -> int:
+        return self.next_u64() & 0xFFFFFFFF
+
+    def randrange(self, lo: int, hi: int) -> int:
+        """Integer in [lo, hi) (ephemeral ports)."""
+        return lo + self.next_u64() % (hi - lo)
+
+    def bytes(self, n: int) -> bytes:
+        """n bytes of the stream (getrandom)."""
+        out = bytearray()
+        while len(out) < n:
+            out += self.next_u64().to_bytes(8, "little")
+        return bytes(out[:n])

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import struct
 
+from shadow_tpu_torch.host.process import matches_final_state
+
 # (config path, argv shape) -> engine app kind (netplane.cpp twins)
 KIND_SERVER = 0
 KIND_CLIENT = 1
@@ -22,6 +24,23 @@ KIND_UDP_MESH = 5
 KIND_PHOLD = 7
 KIND_UDP_ECHO = 9
 KIND_UDP_PING = 10
+
+
+class _EngineFdView:
+    """The fd-table face of an engine app for the Manager's teardown
+    sweep: `close_all` on a still-running app closes its engine sockets
+    like the object path's fd table (FINs for mid-stream connections,
+    traced at the host's current instant)."""
+
+    __slots__ = ("_proc",)
+
+    def __init__(self, proc):
+        self._proc = proc
+
+    def close_all(self, host) -> None:
+        p = self._proc
+        if p.app_idx is not None and not p.exited:
+            host.plane.engine.app_teardown(p.app_idx, host.now())
 
 
 class EngineAppProcess:
@@ -55,24 +74,16 @@ class EngineAppProcess:
         _e, _c, _t, out = self.host.plane.engine.app_poll(self.app_idx)
         return bytearray(out)
 
-    def close_all(self) -> None:
-        """The teardown sweep: a still-running app's engine sockets close
-        like the object path's fd table (FINs for mid-stream
-        connections, traced at the host's current instant)."""
-        if self.app_idx is not None and not self.exited:
-            self.host.plane.engine.app_teardown(self.app_idx,
-                                                self.host.now())
+    @property
+    def fds(self) -> "_EngineFdView":
+        return _EngineFdView(self)
 
     def matches_expected_final_state(self) -> bool:
-        """Engine apps take no signals in this slice (config refuses
-        shutdown_time), so the terminating signal is always None."""
+        """Engine apps take no signals (the config refuses
+        shutdown_time)."""
         exited, code, _t = self._status()
-        expected = self.expected_final_state
-        if expected in ("running", "any"):
-            return expected == "any" or not exited
-        parts = expected.split()
-        want = int(parts[1]) if len(parts) > 1 else 0
-        return bool(exited) and code == want
+        return matches_final_state(self.expected_final_state, exited,
+                                   code if exited else None)
 
 
 # Engine-runnable app -> the (least, most) argv length its engine twin

@@ -1,11 +1,12 @@
 """Per-round packet propagation: the plain law, the hand-written CUDA
 kernel behind its wrapper, the route model and the per-round
-propagator of engine-resident hosts.
+propagator.
 
-The port's counterpart of `shadow_tpu/ops/propagate.py`, engine half.
-Every round the per-round loop serves, the C++ engine gathers the
-packets its hosts sent (`export_round`); a whole round of them, across
-all hosts, goes through one law:
+The port's counterpart of `shadow_tpu/ops/propagate.py`.  Every round
+the per-round loop serves, the C++ engine gathers the packets its hosts
+sent (`export_round`), and the object path's hosts' sends wait in the
+propagator's outbox; a whole round of them, across all hosts, goes
+through one law:
 
     latency  = L[src_node, dst_node]
     bits     = threefry2x32(key, (src_host, pkt_seq))
@@ -13,11 +14,13 @@ all hosts, goes through one law:
     deliver  = max(t_send + latency, window_end)
     minima   = min(deliver | keep), min(latency | keep)
 
-and the engine applies the decisions (`scatter_round`).  Both routes
-are bit-identical: the engine's C++ twin (`finish_round`, ROUTE_HOST)
-and the kernel (ROUTE_DEVICE) use the same integer matrices and the
-same threefry bits, so routing is a choice of speed only, made online
-by `DeviceRouteModel` (a copy of the reference's, decisions unchanged).
+and the engine applies the decisions (`scatter_round`), or the
+propagator delivers the outbox's kept packets in order.  The routes are
+bit-identical: the engine's C++ twin (`finish_round`) or the law's numpy
+twin for the outbox (ROUTE_HOST), and the kernel (ROUTE_DEVICE), use the
+same integer matrices and the same threefry bits, so routing is a
+choice of speed only, made online by `DeviceRouteModel` (a copy of the
+reference's, decisions unchanged).
 
 - `propagate_ref` is the law in plain PyTorch.  The wrapper uses it
   only for tensors that lie on the CPU (the tier-1 tests, and a Manager
@@ -36,8 +39,12 @@ by `DeviceRouteModel` (a copy of the reference's, decisions unchanged).
   engine's twin, or export -> the columns written into the stage's
   buffer -> one call (the kernel reads and writes the buffer in place
   over the bus, or, for a round of at least `COPY_MIN_PACKETS`, through
-  one copy each way) -> scatter.  Object-path hosts (`send`) are ROADMAP
-  A2b.
+  one copy each way) -> scatter.  Object-path hosts' sends (`send`)
+  gather in an outbox; each chunk of at most `tpu_max_packets_per_round`
+  of them takes the same route decision: the same one call over a stage
+  packed from the outbox's columns, or the law's numpy twin
+  (`_compute_host`, the port's threefry); the kept packets are then
+  delivered in outbox order, to either plane.
 
 The kernel builds at first use with nvcc for sm_90a into the gitignored
 `shadow_tpu_torch/csrc/build/` and binds through a plain C interface
@@ -57,9 +64,12 @@ import weakref
 import numpy as np
 import torch
 
+from shadow_tpu_torch.core.propagate_scalar import (deliver_engine_exports,
+                                                    deliver_to_host)
 from shadow_tpu_torch.core.rng import (STREAM_PACKET_LOSS, mix_key,
-                                       threefry2x32_torch)
+                                       threefry2x32_np, threefry2x32_torch)
 from shadow_tpu_torch.core.simtime import TIME_NEVER
+from shadow_tpu_torch.net import packet as pktmod
 from shadow_tpu_torch.ops.queues import KernelLibrary, _stream_ptr
 
 I64_MAX = (1 << 63) - 1
@@ -67,12 +77,10 @@ _MIN_BUCKET = 256
 _M32 = 0xFFFFFFFF
 
 # DeviceRouteModel.decide() outcomes.
-ROUTE_HOST = 0    # the engine's bit-identical C++ twin serves the round
+ROUTE_HOST = 0    # the bit-identical C++ (or numpy) twin serves the round
 ROUTE_DEVICE = 1  # the kernel serves it: measured and winning (or forced)
 ROUTE_PROBE = 2   # the twin serves it; the kernel is measured off the
 #                   critical path (async) to keep the model honest
-
-_RM_OBJECT_PATH = "ROADMAP A2b (object-path hosts)"
 
 # A `tpu_min_device_batch` no round reaches: every per-round round goes to
 # the C++ twin (the span loops' timing tools and chip_smoke.py's span
@@ -742,26 +750,35 @@ _PHASES = ("export", "upload", "launch", "kernel", "download", "scatter")
 
 
 class TpuPropagator:
-    """The per-round propagation phase of engine-resident hosts behind
-    `scheduler: tpu` (the reference's TpuPropagator, engine leg).
+    """The per-round propagation phase behind `scheduler: tpu` (the
+    reference's TpuPropagator).
 
-    Each round: the route model decides; ROUTE_HOST runs the engine's
-    C++ twin (`finish_round`), ROUTE_DEVICE exports the round's columns,
-    runs `stt_propagate_round` on the card over its `RoundStage` and
-    scatters the decisions back; ROUTE_PROBE runs the twin and measures
-    the kernel on the exported columns on a worker thread, through a
-    stage of its own (its own buffer, plan and CUDA stream).
-    `tpu_min_device_batch <= 0` forces every round through the kernel."""
+    Engine hosts' rounds: the route model decides; ROUTE_HOST runs the
+    engine's C++ twin (`finish_round`), ROUTE_DEVICE exports the round's
+    columns, runs `stt_propagate_round` on the card over its
+    `RoundStage` and scatters the decisions back; ROUTE_PROBE runs the
+    twin and measures the kernel on the exported columns on a worker
+    thread, through a stage of its own (its own buffer, plan and CUDA
+    stream).  Object-path hosts' sends (`send`) buffer in an outbox that
+    `finish_round` propagates first, in chunks of at most `max_batch`,
+    each chunk routed the same way (`_dispatch_chunk`): the kernel over
+    the chunk's columns, or the law's numpy twin.
+    `tpu_min_device_batch <= 0` forces every round and chunk through the
+    kernel."""
 
     def __init__(self, latency_ns, loss_thresholds, seed: int,
                  bootstrap_end_ns: int, runahead=None,
-                 min_device_batch: int = 2048, device="cuda"):
+                 min_device_batch: int = 2048, device="cuda", hosts=None,
+                 dns=None, max_batch: int = 1 << 20):
         self.device = torch.device(device)
+        self.hosts = hosts
+        self.dns = dns
+        self.max_batch = max_batch
         self._keys = mix_key(seed, STREAM_PACKET_LOSS)
-        self._lat = torch.as_tensor(np.ascontiguousarray(
-            latency_ns, dtype=np.int64), device=self.device)
-        self._thr = torch.as_tensor(np.ascontiguousarray(
-            loss_thresholds, dtype=np.int64), device=self.device)
+        self._lat_np = np.ascontiguousarray(latency_ns, dtype=np.int64)
+        self._thr_np = np.ascontiguousarray(loss_thresholds, dtype=np.int64)
+        self._lat = torch.as_tensor(self._lat_np, device=self.device)
+        self._thr = torch.as_tensor(self._thr_np, device=self.device)
         self.bootstrap_end = bootstrap_end_ns
         # A CPU "device" keeps its own floor, apart from the card's.
         self.route = DeviceRouteModel(
@@ -771,12 +788,17 @@ class TpuPropagator:
         self.runahead = runahead
         self.window_end = 0
         self.engine = None  # the native plane's engine (set by the Manager)
+        # The object path's outbox: one tuple a send, (src_host,
+        # dst_host, evt_seq, packet, pkt_seq, t_send, is_ctl).
+        self._outbox: list = []
         self.rounds_dispatched = 0
         self.packets_batched = 0
         # How much propagation ran on the card vs the C++ twin.
         self.rounds_device = 0
         self.packets_device = 0
         self.round_sizes: list[int] = []  # packets of every engine round
+        self.chunk_sizes: list[int] = []  # packets of every outbox chunk
+        self.rounds_device_object = 0     # outbox chunks on the kernel
         # Host walls of the device route's phases, ns (the kernel's is
         # its CUDA-event time on the card), and of the twin's rounds.
         self.phase_ns = dict.fromkeys(_PHASES, 0)
@@ -802,28 +824,159 @@ class TpuPropagator:
         self.window_end = window_end
 
     def send(self, src_host, packet) -> None:
-        raise NotImplementedError(
-            f"shadow_tpu_torch does not propagate object-path sends yet: "
-            f"{_RM_OBJECT_PATH}")
-
-    def _dispatch_chunk(self, lo: int, hi: int):
-        raise NotImplementedError(
-            f"shadow_tpu_torch does not propagate object-path sends yet: "
-            f"{_RM_OBJECT_PATH}")
+        """Buffer one object-path send; the event seq is drawn now, the
+        decisions come in finish_round."""
+        dst_id = self.dns.host_id_for_ip(packet.dst_ip)
+        if dst_id is None:
+            src_host.trace_drop(packet, "no-route")
+            return
+        self._outbox.append((src_host, self.hosts[dst_id],
+                             src_host.next_event_seq(), packet, packet.seq,
+                             src_host.now(), packet.is_empty_control()))
 
     def finish_round(self):
-        """Propagate the round the engine's hosts sent; returns the
-        earliest delivery (None if nothing is in flight) and feeds the
-        dynamic runahead with the least latency of a kept packet."""
+        """Propagate the round: the object path's outbox first, then what
+        the engine's hosts sent.  Returns the earliest delivery (None if
+        nothing is in flight) and feeds the dynamic runahead with the
+        least latency of a kept packet."""
         self._raise_probe_error()
-        n = self.engine.round_size()
-        if not n:
-            return None
-        md, ml = self._engine_round(n)
-        self.packets_batched += n
-        if self.runahead is not None and ml < I64_MAX:
-            self.runahead.update_lowest_used_latency(ml)
-        return md if md < I64_MAX else None
+        min_deliver = min_latency = I64_MAX
+        total = len(self._outbox)
+        if total:
+            for lo in range(0, total, self.max_batch):
+                md, ml = self._dispatch_chunk(lo, min(lo + self.max_batch,
+                                                      total))
+                min_deliver = min(min_deliver, md)
+                min_latency = min(min_latency, ml)
+            self.packets_batched += total
+            self._outbox.clear()
+        eng = self.engine
+        n = eng.round_size() if eng is not None else 0
+        if n:
+            md, ml = self._engine_round(n)
+            min_deliver = min(min_deliver, md)
+            min_latency = min(min_latency, ml)
+            self.packets_batched += n
+        if self.runahead is not None and min_latency < I64_MAX:
+            self.runahead.update_lowest_used_latency(min_latency)
+        return min_deliver if min_deliver < I64_MAX else None
+
+    def _dispatch_chunk(self, lo: int, hi: int):
+        """Propagate outbox[lo:hi] on the route the model picks and
+        deliver the kept packets in outbox order (so each source's event
+        order holds); returns the chunk's two minima."""
+        n = hi - lo
+        b = _bucket(n)
+        self.chunk_sizes.append(n)
+        t0 = time.perf_counter_ns()
+        with self._route_lock:
+            route = self.route.decide(n, b)
+        if route == ROUTE_DEVICE and self._probe_pending:
+            route = ROUTE_HOST  # do not queue behind the probe
+        if route == ROUTE_DEVICE:
+            deliver, keep, reachable, lossy, md, ml = \
+                self._compute_device(lo, hi)
+            dt = time.perf_counter_ns() - t0
+            with self._route_lock:
+                self.route.record_device(b, dt, n)
+            if self.wall is not None:
+                self.wall.add("propagate-device", dt, t0)
+            self.rounds_device += 1
+            self.rounds_device_object += 1
+            self.packets_device += n
+        else:
+            if self.forced:
+                raise AssertionError("forced-device mode routed an "
+                                     "object-path chunk to the host")
+            if route == ROUTE_PROBE:
+                self._submit_probe(self._chunk_bytes(lo, hi), n, b)
+            deliver, keep, reachable, lossy, md, ml = \
+                self._compute_host(lo, hi)
+            dt = time.perf_counter_ns() - t0
+            with self._route_lock:
+                self.route.record_host(dt, n)
+            self.host_route_ns += dt
+            if self.wall is not None:
+                self.wall.add("propagate-host", dt, t0)
+        self.rounds_dispatched += 1
+        t0 = time.perf_counter_ns()
+        deliver_l = deliver.tolist()
+        keep_l = keep.tolist()
+        reach_l = reachable.tolist()
+        lossy_l = lossy.tolist()
+        outbox = self._outbox
+        for i in range(n):
+            src_host, dst_host, seq, packet, _pseq, t_send, _ = \
+                outbox[lo + i]
+            if keep_l[i]:
+                deliver_to_host(dst_host, deliver_l[i], src_host.id, seq,
+                                packet)
+            elif not reach_l[i]:
+                src_host.trace_drop(packet, "unreachable", at_time=t_send)
+            elif lossy_l[i]:
+                packet.record(pktmod.ST_INET_DROPPED)
+                src_host.trace_drop(packet, "inet-loss", at_time=t_send)
+        if route == ROUTE_DEVICE:
+            self.phase_ns["scatter"] += time.perf_counter_ns() - t0
+        return md, ml
+
+    def _chunk_columns(self, lo: int, hi: int):
+        """The outbox slice as numpy columns: src_node, dst_node (int32),
+        src_host (int64), pkt_seq (uint32), t_send (int64), is_ctl
+        (bool)."""
+        n = hi - lo
+        src_h, dst_h, _seq, _pkts, pseqs, t_send, is_ctl = \
+            zip(*self._outbox[lo:hi])
+        src_node = np.fromiter((h.node_index for h in src_h), np.int32, n)
+        dst_node = np.fromiter((h.node_index for h in dst_h), np.int32, n)
+        src_host = np.fromiter((h.id for h in src_h), np.int64, n)
+        pkt_seq = np.fromiter((s & _M32 for s in pseqs), np.uint32, n)
+        return (src_node, dst_node, src_host, pkt_seq,
+                np.asarray(t_send, dtype=np.int64),
+                np.asarray(is_ctl, dtype=bool))
+
+    def _chunk_bytes(self, lo: int, hi: int) -> tuple:
+        """The chunk's columns as export_round gives an engine round's:
+        byte views in its order (src_node, dst_node, dst_host, src_host,
+        pkt_seq, t_send, is_ctl; dst_host is not staged)."""
+        sn, dn, sh, ps, ts, ctl = self._chunk_columns(lo, hi)
+        return tuple(memoryview(c).cast("B")
+                     for c in (sn, dn, sn, sh, ps, ts, ctl.view(np.uint8)))
+
+    def _compute_device(self, lo: int, hi: int):
+        """The chunk through `stt_propagate_round`: its columns packed
+        into the round stage, one call, the results read from the stage.
+        On the card the call launches the kernel or raises."""
+        n = hi - lo
+        walls = self.phase_ns
+        if self._stage is None:
+            self._stage = self._new_stage(TIME_EVERY)
+        t0 = time.perf_counter_ns()
+        cols = self._chunk_bytes(lo, hi)
+        walls["export"] += time.perf_counter_ns() - t0
+        (keep, deliver, reachable, lossy), md, ml = self._dispatch(
+            self._stage, cols, n, self.window_end, False, walls)
+        return deliver, keep, reachable, lossy, md, ml
+
+    def _compute_host(self, lo: int, hi: int):
+        """The law's numpy twin over the chunk (the same matrices and
+        threefry bits as the kernel), for chunks the route model keeps
+        off the device."""
+        src_node, dst_node, src_host, pkt_seq, t_send, is_ctl = \
+            self._chunk_columns(lo, hi)
+        latency = self._lat_np[src_node, dst_node]
+        reachable = latency < TIME_NEVER
+        k0, k1 = self._keys
+        bits, _ = threefry2x32_np(np.uint32(k0), np.uint32(k1),
+                                  src_host.astype(np.uint32), pkt_seq)
+        threshold = self._thr_np[src_node, dst_node]
+        lossy = (bits.astype(np.int64) < threshold) & ~is_ctl \
+            & (t_send >= self.bootstrap_end)
+        deliver = np.maximum(t_send + latency, self.window_end)
+        keep = reachable & ~lossy
+        md = int(np.min(np.where(keep, deliver, I64_MAX), initial=I64_MAX))
+        ml = int(np.min(np.where(keep, latency, I64_MAX), initial=I64_MAX))
+        return deliver, keep, reachable, lossy, md, ml
 
     def _engine_round(self, n: int):
         eng = self.engine
@@ -973,9 +1126,7 @@ class TpuPropagator:
         self._raise_probe_error()
 
     def _deliver_exports(self, exports) -> None:
-        raise RuntimeError(f"engine exported packets to an object-path "
-                           f"host, which the port never builds "
-                           f"({_RM_OBJECT_PATH})")
+        deliver_engine_exports(self.hosts, exports)
 
     def summary(self) -> dict:
         """The dispatch summary's `propagate` block: the route split of
@@ -983,6 +1134,7 @@ class TpuPropagator:
         kernel's launch counts (process-wide, since their last reset),
         and the walls of each phase in ms, totals and per device round."""
         sizes = sorted(self.round_sizes)
+        chunks = sorted(self.chunk_sizes)
         per = max(self.rounds_device, 1)
         phase_ns = dict(self.phase_ns)
         stage = self._stage
@@ -1002,6 +1154,12 @@ class TpuPropagator:
             "packets_per_round": ({"min": sizes[0],
                                    "median": sizes[len(sizes) // 2],
                                    "max": sizes[-1]} if sizes else None),
+            # The object path's outbox chunks (each one dispatch).
+            "object_chunks": len(chunks),
+            "object_rounds_device": self.rounds_device_object,
+            "packets_per_chunk": ({"min": chunks[0],
+                                   "median": chunks[len(chunks) // 2],
+                                   "max": chunks[-1]} if chunks else None),
             "walls_ms": {**{p: phase_ns[p] / 1e6 for p in _PHASES},
                          "host_route": self.host_route_ns / 1e6},
             "per_device_round_us": {p: phase_ns[p] / 1e3 / per

@@ -292,11 +292,13 @@ def _bench_yaml(stop_time: str, seed: int, gml: str, scheduler: str,
 
 def tier10k_yaml(scheduler: str = "tpu", stop_s: int = SIM_SECONDS_10K,
                  n_hosts: int = HOSTS_10K,
-                 experimental_extra: dict | None = None) -> str:
+                 experimental_extra: dict | None = None,
+                 extra_hosts: list[str] | None = None) -> str:
     """bench.py config_10k, BASELINE config 4: 10k hosts over the 3-tier
     graph, 500 tgen-server relays on node 0, 9,500 tgen-clients on nodes
     1-2 each doing 3 x 25,000 B, starts staggered 100-933 ms, seed 7.
-    `n_hosts` shrinks the fleet (relays stay 1 in 20) for tests."""
+    `n_hosts` shrinks the fleet (relays stay 1 in 20) for tests;
+    `extra_hosts` are host lines appended (`pcap_clients`)."""
     relays = n_hosts // 20
     hosts = [f"  relay{i:04d}: {{network_node_id: 0, processes: ["
              + _proc("tgen-server", ["80"], "running") + "]}"
@@ -308,7 +310,19 @@ def tier10k_yaml(scheduler: str = "tpu", stop_s: int = SIM_SECONDS_10K,
                       f"{100 + (i % 50) * 17}ms") + "]}"
               for i in range(n_hosts - relays)]
     return _bench_yaml(f"{stop_s}s", 7, THREE_TIER_GML, scheduler,
-                       experimental_extra, hosts)
+                       experimental_extra, hosts + (extra_hosts or []))
+
+
+def pcap_clients(n: int) -> list[str]:
+    """bench.py mixed_pcap_rung's extra hosts, as tier10k_yaml host
+    lines: `n` pcap'd object-path clients (per-host `native_dataplane:
+    false`) `pcap00`.. on node 1, one 10,000 B transfer each from
+    relay0000.. at 150 + 20 i ms."""
+    return [f"  pcap{i:02d}: {{network_node_id: 1, pcap_enabled: true, "
+            "native_dataplane: false, processes: ["
+            + _proc("tgen-client", [f"relay{i:04d}", "80", "10000", "1"],
+                    "any", f"{150 + i * 20}ms") + "]}"
+            for i in range(n)]
 
 
 def tier1k_yaml(scheduler: str = "tpu") -> str:

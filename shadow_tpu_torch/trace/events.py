@@ -152,8 +152,30 @@ TEL_NAMES = (
 )
 assert len(TEL_NAMES) == TEL_N
 
+# Drop-reason string -> cause code (the engine's tel_cause_of): the
+# object path's Host.trace_drop maps every reason through it; a reason
+# without an entry counts as unattributed.
+TEL_BY_REASON = {
+    "codel": TEL_CODEL,
+    "rtr-limit": TEL_RTR_LIMIT,
+    "inet-loss": TEL_LOSS_EDGE,
+    "unreachable": TEL_UNREACHABLE,
+    "no-route": TEL_NO_ROUTE,
+    "no-socket": TEL_NO_SOCKET,
+    "tcp-closed": TEL_TCP_STATE,
+    "tcp-stray": TEL_TCP_STATE,
+    "tcp-dup-syn": TEL_TCP_STATE,
+    "accept-backlog-full": TEL_BACKLOG_FULL,
+    "udp-connected-filter": TEL_UDP_FILTER,
+    "rcvbuf-full": TEL_RECVBUF_FULL,
+    "host-down": TEL_HOST_DOWN,
+    "link-down": TEL_LINK_DOWN,
+}
+
 # ECN mark causes: the DCTCP-K threshold leg that fired (packets checked
 # first); they sum to the fabric ledger's marked_pkts.
+MARK_THRESH_PKTS = 0   # queue depth >= DCTCP_K_PKTS at enqueue
+MARK_THRESH_BYTES = 1  # queued bytes >= DCTCP_K_BYTES at enqueue
 MARK_N = 2
 MARK_NAMES = (
     "dctcp-k-pkts",
@@ -161,9 +183,11 @@ MARK_NAMES = (
 )
 assert len(MARK_NAMES) == MARK_N
 
-# Syscall dispositions of Python-dispatched syscalls.  Engine-resident
-# apps dispatch C++-side and sit outside this accounting, so the port
-# (engine-resident hosts only) writes an empty table.
+# Syscall dispositions of Python-dispatched syscalls (the object path's
+# internal apps).  Engine-resident apps dispatch C++-side and sit
+# outside this accounting.
+SC_SERVICED = 0   # emulated by the simulated kernel (done / error)
+SC_PARKED = 1     # parked on a SyscallCondition (re-dispatched on wake)
 SC_N = 5
 SC_NAMES = (
     "serviced",

@@ -7,8 +7,10 @@ bit set) in ascending host id, and per-flow lifecycle records (FCT_REC)
 swept once when the artifact is written and sorted by their full field
 tuple.  The engine's ring samples C++ spans and per-round rounds; both
 device-span families sample on the card and emit their rows after the
-import (`emit_device_rows`).  Every host of the port is an engine host,
-so the object-path walker does nothing.  No wall clock is read here.
+import (`emit_device_rows`).  Object-path hosts are sampled here at the
+per-round boundary after the engine's block (`host_queue_sample`), and
+their flows swept from their sockets (`object_host_flow_rows`).  No
+wall clock is read here.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import numpy as np
 
 from shadow_tpu_torch.trace.events import (FAB_HDR, FAB_MAGIC, FAB_VERSION,
+                                           FB_ACT_CODEL, FB_ACT_LINK,
+                                           FB_ACT_TB_IN, FB_ACT_TB_OUT,
                                            FB_DTYPE, FB_FIELD_NAMES,
                                            FB_REC, FB_REC_BYTES,
                                            FCT_F_COMPLETE, FCT_F_RECEIVER,
@@ -26,6 +30,63 @@ from shadow_tpu_torch.trace.recorder import FixedRecordChannel
 
 # tcp/connection.py's MSS: fct_table's segment estimate.
 MSS = 1460
+# tcp/connection.py's CLOSED (a completed flow).
+_CLOSED = 0
+# net/relay.py's pending state.
+_RELAY_PENDING = 1
+
+
+def host_queue_sample(host, t: int) -> tuple | None:
+    """One object-path host's FB_REC field tuple at sim time `t`, or
+    None when no FB_ACT_* bit is set."""
+    codel = host.router._inbound
+    r1 = host.relay_inet_out
+    r2 = host.relay_inet_in
+    eth = host.eth0
+    flags = 0
+    depth = len(codel)
+    if depth > 0:
+        flags |= FB_ACT_CODEL
+    if r1._state == _RELAY_PENDING:
+        flags |= FB_ACT_TB_OUT
+    if r2._state == _RELAY_PENDING:
+        flags |= FB_ACT_TB_IN
+    if eth.packets_sent + eth.packets_received > 0:
+        flags |= FB_ACT_LINK
+    if not flags:
+        return None
+    head = codel.peek_entry()
+    sojourn = (t - head[1]) if head is not None else 0
+    return (t, host.id, flags, depth, codel._bytes, sojourn,
+            codel.enqueued_count, codel.dropped_count,
+            codel.marked_count,
+            r1._bucket.peek_balance(t) if r1._bucket is not None else -1,
+            r1.stalls,
+            r2._bucket.peek_balance(t) if r2._bucket is not None else -1,
+            r2.stalls,
+            eth.packets_sent, eth.bytes_sent,
+            eth.packets_received, eth.bytes_received)
+
+
+def host_fabric_counters(host) -> tuple:
+    """One object-path host's fabric counters, field for field the
+    engine's `fabric_counters(hid)`: (enq_pkts, enq_bytes, fwd_pkts,
+    fwd_bytes, drop_pkts, drop_bytes, marked, qdepth, qbytes,
+    peak_depth, r1_stalls, r2_stalls, psent, bsent, precv, brecv,
+    parked_pkts, parked_bytes)."""
+    codel = host.router._inbound
+    eth = host.eth0
+    r2 = host.relay_inet_in
+    parked = r2._pending_packet
+    return (codel.enqueued_count, codel.enqueued_bytes,
+            r2.forwarded_pkts, r2.forwarded_bytes,
+            codel.dropped_count, codel.dropped_bytes,
+            codel.marked_count, len(codel), codel._bytes,
+            codel.peak_depth, host.relay_inet_out.stalls,
+            r2.stalls, eth.packets_sent,
+            eth.bytes_sent, eth.packets_received, eth.bytes_received,
+            1 if parked is not None else 0,
+            parked.total_size() if parked is not None else 0)
 
 
 class FabricChannel(FixedRecordChannel):
@@ -44,10 +105,15 @@ class FabricChannel(FixedRecordChannel):
         self.records += 1
 
     def sample_object_hosts(self, hosts, t: int) -> None:
-        """Sample the object-path hosts' queues.  Every host of the port
-        is an engine host, which the engine's ring samples, until
-        ROADMAP A2b brings object-path hosts."""
-        del hosts, t
+        """Sample every active object-path host's queues, in ascending
+        host id.  Engine hosts are skipped: the engine's ring samples
+        theirs."""
+        for h in hosts:
+            if h.plane is not None or not h.net_built():
+                continue
+            fields = host_queue_sample(h, t)
+            if fields is not None:
+                self.record(fields)
 
     def write(self, data_dir: str, flow_rows: list) -> None:
         """The framed artifact: header, queue samples, then the flow
@@ -59,6 +125,39 @@ class FabricChannel(FixedRecordChannel):
                            len(fb) // FB_REC_BYTES, len(rows))
         with open(os.path.join(data_dir, self.FILE), "wb") as f:
             f.write(hdr + fb + fct)
+
+
+def flow_row(host_id: int, lport: int, rport: int, rip: int,
+             conn) -> tuple | None:
+    """One endpoint's FCT_REC field tuple from a (live or torn-down)
+    object-path connection, or None when the flow never carried
+    payload (the engine's fct_row twin)."""
+    if conn.fct_first < 0:
+        return None
+    flags = 0
+    if conn.state == _CLOSED:
+        flags |= FCT_F_COMPLETE
+    if conn.fct_bytes_in > conn.fct_bytes_out:
+        flags |= FCT_F_RECEIVER
+    return (conn.fct_first, conn.fct_last, host_id, lport, rport, rip,
+            flags, conn.fct_bytes_in, conn.fct_bytes_out,
+            conn.retransmit_count, conn.ce_seen)
+
+
+def object_host_flow_rows(host) -> list:
+    """One object-path host's flow rows: its teardown log and every
+    still-associated connection with payload history (the twin of the
+    engine's fct_flows sweep)."""
+    from shadow_tpu_torch.trace.netstat import iter_host_tcp_sockets
+    rows = list(host.fct_log)
+    for s in iter_host_tcp_sockets(host):
+        conn = s.conn
+        if conn is None or s.local is None or s.peer is None:
+            continue
+        row = flow_row(host.id, s.local[1], s.peer[1], s.peer[0], conn)
+        if row is not None:
+            rows.append(row)
+    return rows
 
 
 def emit_device_rows(channel, rows: dict, n_hosts: int) -> None:

@@ -4,10 +4,10 @@
 Every pollable simulated object counts its allocation at construction
 and its deallocation when the last reference releases it; the manager
 writes the table to sim-stats.json and warns about classes with
-alloc != dealloc.  The port's engine-resident hosts build no such
-Python object (their sockets live in the C++ engine), so a port run
-writes the empty table the reference writes for the same run.  The
-counters are lock-protected: host threads allocate concurrently.
+alloc != dealloc.  The object path's sockets and descriptors count
+here; engine-resident hosts build no such Python object (their sockets
+live in the C++ engine).  The counters are lock-protected: host threads
+allocate concurrently.
 """
 
 from __future__ import annotations

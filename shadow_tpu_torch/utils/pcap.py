@@ -1,11 +1,11 @@
-"""Pcap capture, the port's copy of `shadow_tpu/utils/pcap.py` for the
-engine's records.
+"""Pcap capture, the port's copy of `shadow_tpu/utils/pcap.py`.
 
 Classic libpcap (magic 0xA1B2C3D4, LINKTYPE_RAW = 101) with synthesized
 IPv4 and TCP/UDP headers, stamped with emulated time.  The engine
 captures on its hosts' interfaces and the Manager drains the records
-each round (`write_fields`), so the files are byte-identical to the JAX
-package's for the same run.
+each round (`write_fields`); an object-path host's interfaces write
+their packets as they pass (`write_packet`).  The files are
+byte-identical to the JAX package's for the same run.
 """
 
 from __future__ import annotations
@@ -59,6 +59,15 @@ class PcapWriter:
         self.capture_size = capture_size
         self._f.write(struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0,
                                   capture_size, _LINKTYPE_RAW))
+
+    def write_packet(self, sim_now: int, p) -> None:
+        """One packet an object-path interface captured (net/packet.py
+        Packet): the same frame as the engine's record of it."""
+        t = p.tcp
+        self.write_fields(sim_now, p.src_host_id, p.seq, p.protocol,
+                          p.src_ip, p.src_port, p.dst_ip, p.dst_port,
+                          p.payload, None if t is None
+                          else (t.seq, t.ack, t.flags, t.window))
 
     def write_fields(self, sim_now: int, src_host_id: int, seq: int,
                      proto: int, src_ip: int, src_port: int, dst_ip: int,

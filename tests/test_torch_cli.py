@@ -127,11 +127,28 @@ def test_torch_cli_tpu_on_the_cpu_writes_the_baselines_directory(
                      collect(str(tmp_path / "tpc")), "tpu vs baseline")
 
 
-@pytest.mark.parametrize("sched", ["serial", "thread_per_host"])
+@pytest.mark.parametrize("sched", ["serial", "thread_per_host",
+                                   "thread_per_core"])
 def test_torch_cli_unserved_scheduler_exits_1(tmp_path, capsys, sched):
-    assert main([_stream(tmp_path), "--scheduler", sched,
-                 "--data-directory", str(tmp_path / "d")]) == 1
-    assert "ROADMAP A2b" in capsys.readouterr().err
+    """The object path's schedulers, once refused, are served: the CLI
+    with `--scheduler` serial, thread_per_host and (with
+    `native_dataplane: off`) thread_per_core writes the directory the
+    JAX package's CLI writes for the same YAML."""
+    from shadow_tpu.__main__ import main as jmain
+    from test_parity_tpu import MULTI_NODE
+    cfg = _config(tmp_path, MULTI_NODE.format(scheduler="tpu", seed=5)
+                  .replace("experimental: { scheduler: tpu }",
+                           "experimental: { scheduler: tpu, "
+                           "native_dataplane: off }"))
+    for cli, d in ((main, "port"), (jmain, "jax")):
+        assert cli([cfg, "--scheduler", sched, "--parallelism", "2",
+                    "--stop-time", "8s",
+                    "--data-directory", str(tmp_path / d)]) == 0
+    capsys.readouterr()
+    port, ref = collect(str(tmp_path / "port")), \
+        collect(str(tmp_path / "jax"))
+    assert_same_dirs(port, ref, f"{sched} CLI")
+    assert port["packet-trace.txt"]
 
 
 def test_torch_cli_refused_config_exits_1(tmp_path, capsys):

@@ -62,8 +62,71 @@ def test_torch_port_file_list_is_complete():
                  "shadow_tpu_torch/trace/netstat.py",
                  "shadow_tpu_torch/trace/fabricstat.py",
                  "shadow_tpu_torch/trace/kernstat.py",
-                 "shadow_tpu_torch/__main__.py"):
+                 "shadow_tpu_torch/__main__.py") + tuple(
+            f"shadow_tpu_torch/{m}.py" for m in _COPIES) + (
+            "shadow_tpu_torch/host/process.py",
+            "shadow_tpu_torch/host/syscalls.py"):
         assert want in files
+
+
+# The object path's modules, each the port's copy of the JAX package's
+# module of the same path.
+_COPIES = ("core/event", "net/packet", "net/token_bucket", "net/codel",
+           "net/router", "net/relay", "net/interface", "net/dns_wire",
+           "host/status", "host/condition", "host/descriptor", "host/cpu",
+           "host/socket_udp", "host/socket_tcp", "tcp/connection",
+           "tcp/__init__", "host/apps", "host/host", "host/process",
+           "host/syscalls", "core/propagate_scalar")
+
+
+def _module(path: str, pkg: str):
+    import importlib
+    name = f"{pkg}.{path.replace('/', '.')}".removesuffix(".__init__")
+    return importlib.import_module(name)
+
+
+def _constants(mod) -> dict:
+    """Every module-level UPPER_CASE value of plain data (the copied
+    constants: sizes, times, flags, names, tables)."""
+    out = {}
+    for n, v in vars(mod).items():
+        if n.isupper() and not n.startswith("__") and isinstance(
+                v, (int, float, str, bytes, tuple, frozenset, dict)):
+            if isinstance(v, dict):
+                # a registry of classes or functions: by their names
+                v = {k: getattr(x, "__name__", x) for k, x in v.items()}
+            out[n] = v
+    return out
+
+
+@pytest.mark.parametrize("path", _COPIES)
+def test_torch_object_path_constants_pinned(path):
+    """Every constant a copied object-path module keeps equals the JAX
+    package's value of the same name, and each such module keeps one."""
+    port = _constants(_module(path, "shadow_tpu_torch"))
+    ref = _constants(_module(path, "shadow_tpu"))
+    for n, v in port.items():
+        assert n in ref, f"{path}: {n} is not the reference's"
+        assert v == ref[n], f"{path}: {n}"
+    if path not in ("tcp/__init__", "core/propagate_scalar", "net/router",
+                    "host/syscalls", "host/process", "host/descriptor",
+                    "host/condition", "host/cpu"):
+        assert port, path
+
+
+def test_torch_object_path_tables_pinned():
+    """The tables the object path reads from trace/events.py and the app
+    registry's names."""
+    from shadow_tpu.host import apps as ref_apps
+    from shadow_tpu.trace import events as ref
+    from shadow_tpu_torch.host import apps as port_apps
+    from shadow_tpu_torch.trace import events as port
+    assert port.TEL_BY_REASON == ref.TEL_BY_REASON
+    assert (port.MARK_THRESH_PKTS, port.MARK_THRESH_BYTES) == \
+        (ref.MARK_THRESH_PKTS, ref.MARK_THRESH_BYTES)
+    assert (port.SC_SERVICED, port.SC_PARKED) == \
+        (ref.SC_SERVICED, ref.SC_PARKED)
+    assert sorted(port_apps.APP_REGISTRY) == sorted(ref_apps.APP_REGISTRY)
 
 
 # (port module, JAX module, names): every copied constant, pinned.

@@ -10,9 +10,13 @@ baseline (`native_dataplane: on`).
    `per-round:scheduler`, and every run's audit sums to its rounds.
 3. The baseline builds no torch device: with CUDA absent and no
    `device` argument it runs, where `tpu` raises.
-4. The schedulers the port does not serve (`serial`,
-   `thread_per_host`, `thread_per_core` without `native_dataplane: on`)
-   raise, naming ROADMAP A2b, from the YAML and from an override.
+4. The object path's schedulers (`serial`, `thread_per_host`,
+   `thread_per_core` without `native_dataplane: on`), once refused
+   naming ROADMAP A2b, are served: the YAML and an override build a
+   Manager with no engine and the scalar propagator, and `tpu` with
+   `native_dataplane: off` one with no engine and the per-round kernel's
+   propagator (tests/test_torch_object_path.py runs them against the
+   JAX package).
 
 Each cell's `tpu` run is made once (module-scoped) and read by every
 test that needs it.
@@ -149,14 +153,25 @@ def test_torch_unserved_schedulers_name_a2b(sched, plane):
     if plane is not None:
         text = text.replace("experimental:\n", "experimental:\n  "
                             f"native_dataplane: {plane}\n", 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2b"):
-        ConfigOptions.from_yaml_text(text)
-    if plane == "off":
-        return  # refused under every scheduler (the object path)
-    # The same refusal after an override of a served config.
+    cfgs = [ConfigOptions.from_yaml_text(text)]
+    # The same scheduler by an override of a tpu config.
     cfg = ConfigOptions.from_yaml_text(stream_yaml("tpu").replace(
         "  native_dataplane: on\n", "" if plane is None
         else f"  native_dataplane: {plane}\n"))
     cfg.experimental.scheduler = sched
-    with pytest.raises(NotImplementedError, match="ROADMAP A2b"):
-        Manager(cfg, device="cpu")
+    cfgs.append(cfg)
+    for cfg in cfgs:
+        m = Manager(cfg, device="cpu")
+        assert m.plane is None and m.device is None
+        assert isinstance(m.propagator, ScalarPropagator)
+        assert all(h.plane is None for h in m.hosts)
+        assert (m._pool is None) == (sched == "serial")
+        if m._pool is not None:
+            m._pool.shutdown()
+    # tpu with the engine off: every host on the object path, the
+    # per-round kernel's propagator.
+    cfg = ConfigOptions.from_yaml_text(stream_yaml("tpu").replace(
+        "  native_dataplane: on\n", "  native_dataplane: off\n"))
+    m = Manager(cfg, device="cpu")
+    assert m.plane is None and not isinstance(m.propagator,
+                                              ScalarPropagator)

@@ -88,14 +88,14 @@ def test_torch_routing_arrays_match_reference(gml):
 
 
 @pytest.mark.parametrize("patch,needle", [
-    ("  scheduler: tpu", "  scheduler: serial"),
+    ("hosts:\n", "faults: [{at: 1s, kind: host_kill, host: h0}]\nhosts:\n"),
     ("experimental:\n", "experimental:\n  tpu_shards: 2\n"),
     ("experimental:\n", "experimental:\n  syscall_observatory: on\n"),
     ("experimental:\n",
      "experimental:\n  strace_logging_mode: deterministic\n"),
     ("experimental:\n", "experimental:\n  openssl_crypto_noop: true\n"),
-    # an engine app with an argv shape only the object path takes
-    ("path: tgen-server", "path: udp-pinger"),
+    # a managed process (a binary by path)
+    ("path: tgen-server", "path: /usr/bin/tgen-server"),
     ("hosts:\n", "checkpoint: {at: [1s]}\nhosts:\n"),
 ])
 def test_torch_config_refuses_unported_paths(patch, needle):
