@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Nine phases; any failed check raises, so the script exits non-zero:
+Ten phases; any failed check raises, so the script exits non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
@@ -126,7 +126,7 @@ Nine phases; any failed check raises, so the script exits non-zero:
    at 4 rounds so that the device stretch takes several spans: through
    the span kernel, then through the window kernel and the eager round
    ends (`tcp_window.TCP_WINDOW.bind`: one window-kernel launch per
-   window stepped, no span kernel); then to EAGER_STOP (400 ms) off and
+   window stepped, no span kernel); then to EAGER_STOP (330 ms) off and
    forced through the eager window (`tcp_window.eager_window`), the
    path that still launches the relay kernels: each once per fire of
    its stage, and no window or span kernel.
@@ -240,8 +240,33 @@ Nine phases; any failed check raises, so the script exits non-zero:
    chunk (pack, call, views, scatter, the kernel's events); the kernels
    line's stt_propagate_round row carries the forced run's launches and
    the kernel timed at its median chunk (`object_path`).
+10. The reports.  dctcp-incast-8 (the reference's forced-device DCTCP
+   shape: `incast_yaml(8, nbytes=2_000_000, stop_time="2s", seed=17)`
+   with `tcp: {cc: dctcp, ecn: on}`, every channel on) four times: the
+   serial object path, tpu with spans off (the C++ engine), forced
+   through stt_tcp_span and forced through the plain loop (each window
+   by stt_tcp_window, the eager round ends).  Requires one trace in the
+   four runs, `fabric_conservation()` and `fabric_summary()` equal in
+   all four with marks and no violation, at least half the forced runs'
+   rounds on the card, through the span kernel one launch and one read
+   per dispatch, through the plain loop one window-kernel launch a
+   window.  Then the whole data directory (`write_data_dir`) of the
+   kernel and the plain run of tcp-stream-16 and mesh-codel-10 (phase
+   8's cells but phold-8k: REPORT_PATHS) and of dctcp-incast-8, and
+   over each the reports in-process (tools/trace.py summarize with
+   its Chrome export, net, fabric, fct, kern, explain): every
+   conservation verdict True (fct's where the cell moves TCP payload),
+   the Chrome export's round slices and a counter track for each
+   channel with rows, and the net, fabric and fct reports' text
+   identical for the kernel and the plain directory.  Meanwhile `python
+   -m shadow_tpu_torch.tools.trace --smoke` runs in a child process on
+   the card and must exit 0 having launched stt_phold_span.
 
-Each phase prints its own seconds on a line of its own.  The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
+Each phase prints its own seconds on a line of its own.  To fit the
+time limit, work that only waits for child processes runs beside other
+phases: phase 5's CLI child beside its ring runs, and phase 7 (its
+seven CLI children, on a thread) beside phases 8, 10 and 9, in that
+order; phase 7's line comes last and gives its own wall.  The device runs of phases 3-4 run with `span_overlap: auto` (on, on the
 card) and print their residency and overlap counters too.  It prints a
 `kernels` JSON line before the last line, and as the last
 line `{"ok": true, "device": {...}}`.  It imports nothing of JAX and
@@ -338,8 +363,9 @@ PROPAGATE_KEYS = (0x9E3779B9, 0x7F4A7C15)
 PROPAGATE_WE = PROPAGATE_BOOT = 5_000_000_000
 # The 16-host stream's run through the eager window, the path that still
 # launches the relay kernels: the fleet enters the TCP domain near 270 ms,
-# so 400 ms gives a dozen device rounds at a few seconds each.
-EAGER_STOP = "400ms"
+# so 330 ms gives half a dozen device rounds at a few seconds each (cut
+# from 400 ms for the script's time limit).
+EAGER_STOP = "330ms"
 
 
 CARD_LINE = ""  # nvidia-smi's name and power limit, set by card()
@@ -2387,10 +2413,12 @@ def ring_runs() -> dict:
             for name, run in runs.items()}
 
 
-def cli_overlap() -> None:
-    """`python -m shadow_tpu_torch` on the card with `span_overlap: on`:
-    a 512-LP PHOLD ring (the rung's generator) with forced device spans
-    must exit 0 with a speculative window landed."""
+def start_cli_overlap():
+    """`python -m shadow_tpu_torch` on the card with `span_overlap: on`,
+    started in a child process (phase 5's ring runs go on meanwhile): a
+    512-LP PHOLD ring (the rung's generator) with forced device spans.
+    finish_cli_overlap requires it to exit 0 with a speculative window
+    landed."""
     import os
     import tempfile
 
@@ -2400,25 +2428,47 @@ def cli_overlap() -> None:
                       device_spans="force", peers_per_host=16).replace(
         "experimental:\n", "experimental:\n  span_overlap: on\n")
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "phold-512.yaml")
-        with open(path, "w") as f:
-            f.write(text)
-        t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", "shadow_tpu_torch", path],
-                           cwd=root, capture_output=True, text=True,
-                           timeout=600)
+    d = tempfile.mkdtemp()
+    path = os.path.join(d, "phold-512.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    err = open(os.path.join(d, "stderr"), "w+")
+    proc = subprocess.Popen([sys.executable, "-m", "shadow_tpu_torch", path,
+                             "--data-directory", os.path.join(d, "data")],
+                            cwd=root, stdout=subprocess.DEVNULL, stderr=err)
+    return proc, err, d, time.perf_counter()
+
+
+def finish_cli_overlap(child, kill: bool = False) -> None:
+    """Wait for start_cli_overlap's child (kill it first when `kill`)
+    and check it."""
+    import shutil
+    proc, err, d, t0 = child
+    try:
+        if kill:
+            proc.kill()
+        proc.wait(timeout=600)
+        err.seek(0)
+        stderr = err.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+        shutil.rmtree(d, ignore_errors=True)
+    if kill:
+        return
     tag = "[cli]"
-    line = [ln for ln in p.stderr.splitlines()
+    line = [ln for ln in stderr.splitlines()
             if ln.startswith("[shadow-tpu-torch] dispatch: ")]
-    if p.returncode != 0 or not line:
-        raise AssertionError(f"{tag} exit {p.returncode}: "
-                             f"{p.stderr[-2000:]}")
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"{tag} exit {proc.returncode}: "
+                             f"{stderr[-2000:]}")
     d = json.loads(line[-1].split(": ", 1)[1])
     ov = d["device_span_phold"]["overlap"]
     print(f"{tag} python -m shadow_tpu_torch (512 LPs, span_overlap: on) "
-          f"in {time.perf_counter() - t0:.1f}s: {json.dumps(d)}",
-          flush=True)
+          f"in {time.perf_counter() - t0:.1f}s (beside phase 5's ring "
+          f"runs): {json.dumps(d)}", flush=True)
     if not d["span_overlap_on"] or ov["windows"] < 1 or ov["hits"] < 1:
         raise AssertionError(f"{tag} no speculative window landed: {d}")
 
@@ -2488,6 +2538,44 @@ def propagate_run(tag: str, name: str, cfg) -> dict:
                 launches=launches, probe_launches=probe_launches,
                 dev_span_rounds=dev_span_rounds, wall=wall,
                 host_ns_per_pkt=mgr.propagator.route.host_ns_per_pkt)
+
+
+# Set when the main thread fails, so a background phase's children are
+# killed (cli_runs) and the script ends.
+STOP = threading.Event()
+
+
+class Background:
+    """One phase on a thread beside the main thread's phases (it starts
+    child processes and waits for them): `result()` joins it and returns
+    its value or raises its exception."""
+
+    def __init__(self, fn, *args):
+        self._out: dict = {}
+        self.t0 = time.perf_counter()
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:  # re-raised by result()
+                self._out["error"] = e
+            self._out["wall"] = time.perf_counter() - self.t0
+
+        self._thread = threading.Thread(target=run)
+        self._thread.start()
+
+    def join(self) -> None:
+        self._thread.join()
+
+    def result(self):
+        self.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+    @property
+    def wall(self) -> float:
+        return self._out["wall"]
 
 
 def kernel_wrappers() -> dict:
@@ -2709,6 +2797,9 @@ def cli_runs(tag: str, runs: dict) -> dict:
             if time.perf_counter() > deadline:
                 raise AssertionError(f"{tag}: runs past 600 s: "
                                      f"{sorted(set(procs) - set(walls))}")
+            if STOP.is_set():
+                raise AssertionError(f"{tag}: stopped (the main thread "
+                                     f"failed)")
             time.sleep(0.05)
     finally:
         for p, err, _t0 in procs.values():
@@ -2973,17 +3064,29 @@ def channel_files(mgr, d: str) -> dict:
     return out
 
 
-def channel_runs() -> dict:
+def plain_loops(mgr) -> None:
+    """Both span runners of `mgr` on their plain loops: the eager loop,
+    each window by the family's window kernel."""
+    from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
+    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
+    for attr, make_runner, factory in (
+            ("_dev_span", mgr.make_dev_span_runner, PHOLD_WINDOW.bind),
+            ("_dev_span_tcp", mgr.make_tcp_span_runner, TCP_WINDOW.bind)):
+        r = make_runner()
+        r.window_factory = factory
+        setattr(mgr, attr, r)
+
+
+def channel_runs(keep: dict | None = None) -> dict:
     """Phase 8: each channel cell spans off, through the span kernels
     ("kernel") and through the plain loops ("plain": the eager loop, its
     windows by the family's window kernel).  Returns each device run's
-    kernel launches by path."""
+    kernel launches by path; `keep` gets each cell's kernel and plain
+    run ({"kernel": (manager, summary), "plain": ...}) for phase 10."""
     import hashlib
     import tempfile
 
     from shadow_tpu_torch.core.manager import Manager
-    from shadow_tpu_torch.ops.phold_window import PHOLD_WINDOW
-    from shadow_tpu_torch.ops.tcp_window import TCP_WINDOW
     from shadow_tpu_torch.trace.events import (FAM_PHOLD, FAM_TCP,
                                                KS_REC_BYTES)
     from shadow_tpu_torch.trace.kernstat import family_trips
@@ -2997,14 +3100,7 @@ def channel_runs() -> dict:
                 mgr = Manager(make("off" if path == "off" else "force"),
                               device="cuda")
                 if path == "plain":
-                    for attr, make_runner, factory in (
-                            ("_dev_span", mgr.make_dev_span_runner,
-                             PHOLD_WINDOW.bind),
-                            ("_dev_span_tcp", mgr.make_tcp_span_runner,
-                             TCP_WINDOW.bind)):
-                        r = make_runner()
-                        r.window_factory = factory
-                        setattr(mgr, attr, r)
+                    plain_loops(mgr)
                 zero_counts(wrappers)
                 gc.collect()
                 t0 = time.perf_counter()
@@ -3021,6 +3117,7 @@ def channel_runs() -> dict:
                     else mgr._dev_span
                 runs[path] = dict(
                     digest=digest, r=r, wall=wall, summary=summary,
+                    mgr=mgr if path != "off" else None,
                     launches={k: w.launches for k, w in wrappers.items()},
                     host_reads={k: wrappers[k].host_reads
                                 for k in ("tcp_span", "phold_span")},
@@ -3069,6 +3166,10 @@ def channel_runs() -> dict:
             if bad:
                 raise AssertionError(f"{tag} {bad}")
             out[f"{name}/channels"] = kern["launches"]
+            paths = REPORT_PATHS.get(name, ("kernel", "plain"))
+            if keep is not None and paths:
+                keep[name] = {p: (runs[p]["mgr"], runs[p]["summary"])
+                              for p in paths}
             print(f"{tag} PASS: one trace ({off['digest'][:16]}) in the "
                   f"three runs; the four channel files identical through "
                   f"{kname} and the plain loop, the samples equal to the "
@@ -3295,6 +3396,239 @@ def object_runs() -> dict:
     return out
 
 
+# Phase 10's DCTCP cell: the reference's forced-device DCTCP shape
+# (tests/test_dctcp.py test_dctcp_forced_device_differential), what a
+# datacenter user runs DCTCP for: an 8 -> 1 incast on a 20 Mbit sink.
+DCTCP_INCAST = dict(nbytes=2_000_000, stop_time="2s", seed=17,
+                    tcp={"cc": "dctcp", "ecn": "on"})
+TRACE_SMOKE_TIMEOUT_S = 600
+# The runs phase 10 writes and reports a data directory of, by phase-8
+# cell (default: the kernel and the plain run).  None of phold-8k's: on
+# the card's host each of its directories took ~33 s to write (the
+# pure-Python YAML dump of an 11 MB processed config) and ~15 s to
+# report, which the script's time limit has no room for; phase 8 holds
+# its channel files equal between the two runs.
+REPORT_PATHS = {"phold-8k": ()}
+
+
+def dctcp_config(path: str):
+    """dctcp-incast-8 for one of phase 10's routes, every channel on."""
+    from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.tools.netgen import incast_yaml
+    sched = "serial" if path == "serial" else "tpu"
+    spans = {"serial": None, "off": "off"}.get(path, "force")
+    c = ConfigOptions.from_yaml_text(incast_yaml(
+        8, scheduler=sched, device_spans=spans, **DCTCP_INCAST))
+    for k, v in CHANNELS_ON.items():
+        setattr(c.experimental, k, v)
+    return c
+
+
+def dctcp_runs(wrappers: dict) -> dict:
+    """Phase 10's dctcp-incast-8 on four routes: the serial object path,
+    tpu spans off (the C++ engine), forced through stt_tcp_span
+    ("kernel") and forced through the plain loop ("plain").  Returns
+    path -> the run (its manager, summary, launches)."""
+    from shadow_tpu_torch.core.manager import Manager
+    tag = "[reports dctcp-incast-8]"
+    runs = {}
+    for path in ("serial", "off", "kernel", "plain"):
+        cfg = dctcp_config(path)
+        mgr = Manager(cfg, device="cuda")
+        if path == "plain":
+            plain_loops(mgr)
+        zero_counts(wrappers)
+        gc.collect()
+        t0 = time.perf_counter()
+        summary = mgr.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not summary.ok:
+            raise AssertionError(f"{tag} {path}: plugin errors "
+                                 f"{summary.plugin_errors[:3]}")
+        digest, lines, _ = trace_digest(mgr)
+        r = mgr._dev_span_tcp
+        runs[path] = dict(
+            mgr=mgr, summary=summary, wall=wall, digest=digest, r=r,
+            launches={k: w.launches for k, w in wrappers.items()},
+            host_reads=wrappers["tcp_span"].host_reads,
+            cons=mgr.fabric_conservation(),
+            fabric=mgr.fabric_summary(cfg.general.stop_time_ns))
+        print(f"{tag} {path}: wall {wall:.2f}s, rounds {summary.rounds} "
+              f"(device {r.rounds if r else 0} in {r.spans if r else 0} "
+              f"spans, {r.aborts if r else 0} aborts), trace "
+              f"{digest[:16]} ({lines} lines), packets "
+              f"{summary.packets_sent}, marks {runs[path]['cons']['marks']}"
+              f", fabric {json.dumps(runs[path]['fabric'])}, launches "
+              f"{runs[path]['launches']}", flush=True)
+    bad = []
+    if len({x["digest"] for x in runs.values()}) != 1:
+        bad.append(f"traces {[x['digest'][:16] for x in runs.values()]}")
+    cons = runs["serial"]["cons"]
+    if any(x["cons"] != cons for x in runs.values()) \
+            or cons["marked_pkts"] <= 0 or cons["violations"]:
+        bad.append(f"conservation {[x['cons'] for x in runs.values()]}")
+    if any(x["fabric"] != runs["kernel"]["fabric"] for x in runs.values()):
+        bad.append(f"fabric_summary {[x['fabric'] for x in runs.values()]}")
+    for path in ("serial", "off"):
+        r = runs[path]["r"]
+        if any(runs[path]["launches"].values()) or (r and r.rounds):
+            bad.append(f"{path}: device work {runs[path]['launches']}")
+    k, pl = runs["kernel"], runs["plain"]
+    r, n = k["r"], k["launches"]["tcp_span"]
+    if r is None or r.spans == 0 or n != r.spans_all \
+            or k["host_reads"] != n or r.ks_spans != r.spans \
+            or r.ks_windows != r.rounds or r.eager_round_ends \
+            or k["launches"]["tcp_window"]:
+        bad.append(f"kernel: {n} stt_tcp_span launches for "
+                   f"{r and r.spans_all} dispatches, {k['host_reads']} "
+                   f"reads, {k['launches']}")
+    rp = pl["r"]
+    if rp is None or pl["launches"]["tcp_span"] \
+            or pl["launches"]["tcp_window"] != rp.windows_all \
+            or rp.windows_all < rp.rounds or rp.rounds == 0:
+        bad.append(f"plain: {pl['launches']} for "
+                   f"{rp and rp.windows_all} windows")
+    for path in ("kernel", "plain"):
+        x = runs[path]
+        if x["r"] is None or x["r"].rounds * 2 < x["summary"].rounds:
+            bad.append(f"{path}: only {x['r'] and x['r'].rounds} of "
+                       f"{x['summary'].rounds} rounds on the card")
+    if bad:
+        raise AssertionError(f"{tag} {bad}")
+    print(f"{tag} PASS: one trace ({k['digest'][:16]}) in the four runs; "
+          f"{cons['marked_pkts']} packets marked ({cons['marks']}), no "
+          f"violation, fabric_summary equal in all four; {n} stt_tcp_span "
+          f"launches = dispatches = reads ({r.rounds} of "
+          f"{k['summary'].rounds} rounds on the card), "
+          f"{pl['launches']['tcp_window']} stt_tcp_window launches "
+          f"through the plain loop; walls "
+          + ", ".join(f"{p} {x['wall']:.2f}s" for p, x in runs.items()),
+          flush=True)
+    return runs
+
+
+def check_report_dir(tag: str, d: str, tcp: bool) -> dict:
+    """The reports over one data directory, in-process: every verdict
+    True (fct's only where TCP payload moved), the Chrome export's round
+    slices and each channel's counter track where it has rows.  Returns
+    the reports' text by name."""
+    import io
+    import os
+
+    from shadow_tpu_torch.tools import trace as trace_cli
+    from shadow_tpu_torch.trace.chrome import (PID_FABRIC, PID_KERN,
+                                               PID_NETSTAT, PID_SIM)
+    from shadow_tpu_torch.trace.events import split_fabric
+    chrome_out = os.path.join(d, "chrome-trace.json")
+    text, verdicts = {}, {}
+    t0 = time.perf_counter()
+    for name in ("summarize", "net_report", "fabric_report", "fct_report",
+                 "kern_report", "explain_report"):
+        buf = io.StringIO()
+        kw = {"chrome_out": chrome_out} if name == "summarize" else {}
+        verdicts[name] = getattr(trace_cli, name)(d, out=buf, **kw)
+        text[name] = buf.getvalue()
+    wall = time.perf_counter() - t0
+    with open(chrome_out) as f:
+        ev = json.load(f)["traceEvents"]
+    _stats, _sim, _wall, tel, _sc, fab = trace_cli._load(d)
+    fb = split_fabric(fab)[0] if fab else b""
+    ks = trace_cli._kern_bytes(d)
+    counts = {"X": sum(e["ph"] == "X" and e["pid"] == PID_SIM for e in ev)}
+    for key, pid in (("netstat", PID_NETSTAT), ("fabric", PID_FABRIC),
+                     ("kern", PID_KERN)):
+        counts[key] = sum(e["ph"] == "C" and e["pid"] == pid for e in ev)
+    bad = [n for n, ok in verdicts.items()
+           if not ok and (n != "fct_report" or tcp)]
+    for key, data in (("netstat", tel), ("fabric", fb), ("kern", ks)):
+        if bool(counts[key]) != bool(data):
+            bad.append(f"chrome {key} track {counts[key]} for "
+                       f"{len(data)} B")
+    if not counts["X"]:
+        bad.append("chrome: no round slices")
+    if bad:
+        raise AssertionError(f"{tag} {d}: {bad}\n"
+                             + "".join(text.values())[-3000:])
+    print(f"{tag} reports {wall:.2f}s: verdicts "
+          f"{json.dumps(verdicts)}; chrome {len(ev)} events, "
+          f"{json.dumps(counts)}", flush=True)
+    return text
+
+
+def report_runs(channel_mgrs: dict) -> dict:
+    """Phase 10.  The port's own trace smoke starts first, in a child
+    process on the card; then dctcp-incast-8 on its four routes; then
+    the data directory of each run in `channel_mgrs` (phase 8's kernel
+    and plain runs, REPORT_PATHS) and of dctcp-incast-8's kernel and
+    plain runs, the reports over each, and the net, fabric and fct
+    reports' text equal between a cell's two.  Returns each
+    dctcp-incast-8 run's kernel launches by path."""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = tempfile.TemporaryFile("w+")
+    smoke = subprocess.Popen(
+        [sys.executable, "-m", "shadow_tpu_torch.tools.trace", "--smoke"],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    t_smoke = time.perf_counter()
+    smoke_end: list = []
+    waiter = threading.Thread(target=lambda: (
+        smoke.wait(), smoke_end.append(time.perf_counter())))
+    waiter.start()
+    wrappers = kernel_wrappers()
+    try:
+        runs = dctcp_runs(wrappers)
+        cells = dict(channel_mgrs)
+        cells["dctcp-incast-8"] = {p: (runs[p]["mgr"], runs[p]["summary"])
+                                   for p in ("kernel", "plain")}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, pair in cells.items():
+                tag = f"[reports {name}]"
+                tcp = name.startswith(("tcp", "dctcp"))
+                texts = {}
+                for path, (mgr, summary) in pair.items():
+                    d = os.path.join(tmp, f"{name}-{path}")
+                    mgr.config.general.data_directory = d
+                    t0 = time.perf_counter()
+                    mgr.write_data_dir(summary)
+                    print(f"{tag} {path}: data directory written in "
+                          f"{time.perf_counter() - t0:.2f}s", flush=True)
+                    texts[path] = check_report_dir(f"{tag} {path}", d, tcp)
+                differ = [n for n in ("net_report", "fabric_report",
+                                      "fct_report")
+                          if texts["kernel"][n] != texts["plain"][n]]
+                if differ:
+                    raise AssertionError(f"{tag} the kernel and plain "
+                                         f"directories' {differ} differ")
+                print(f"{tag} PASS: every verdict True; net, fabric and fct "
+                      f"reports identical for the kernel and the plain "
+                      f"directory", flush=True)
+        waiter.join(timeout=max(
+            TRACE_SMOKE_TIMEOUT_S - (time.perf_counter() - t_smoke), 1))
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+        waiter.join()
+    wall = smoke_end[0] - t_smoke
+    log.seek(0)
+    out = log.read()
+    log.close()
+    m = re.search(r"span kernel launches (\{.*\})", out)
+    launches = json.loads(m.group(1)) if m else {}
+    if smoke.returncode != 0 or launches.get("stt_phold_span", 0) <= 0:
+        raise AssertionError(f"[reports trace-smoke] exit "
+                             f"{smoke.returncode}, launches {launches}: "
+                             f"{out[-3000:]}")
+    print(f"[reports trace-smoke] PASS: `python -m "
+          f"shadow_tpu_torch.tools.trace --smoke` exit 0, its wall "
+          f"{wall:.1f}s beside the phase's other work, span kernel launches "
+          f"{json.dumps(launches)}; its lines: "
+          + " | ".join(ln for ln in out.splitlines()
+                       if ln.startswith("trace smoke:")), flush=True)
+    return {f"dctcp-incast-8/{p}": x["launches"] for p, x in runs.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-time", default="1.31s",
@@ -3412,9 +3746,14 @@ def main(argv=None) -> int:
     phase_done("4 (phold-8k, mesh-24, mesh-codel-10)")
     # The law kernels' main path: phold-64k-ring with residency and the
     # speculative overlap; then the overlap through the CLI.
-    by_path.update(ring_runs())
-    cli_overlap()
-    phase_done("5 (phold-64k-ring, the CLI's overlap)")
+    overlap_child = start_cli_overlap()
+    try:
+        by_path.update(ring_runs())
+    except BaseException:
+        finish_cli_overlap(overlap_child, kill=True)
+        raise
+    finish_cli_overlap(overlap_child)
+    phase_done("5 (phold-64k-ring, the CLI's overlap beside it)")
     # Phase 6: per-round device propagation.  The main path of
     # stt_propagate: tier10k forced, every round through the kernel.
     for cell, runs in (("tier10k", tier10k_runs()),
@@ -3427,22 +3766,45 @@ def main(argv=None) -> int:
     phase_done("6 (tier10k, mesh-100)")
     # Phase 7: the data directory and the two schedulers, through the
     # CLI in child processes (their launches are not this process's).
-    data_dir_runs(CARD_LINE)
-    phase_done("7 (the CLI's data directories, seven runs at once)")
-    # Phase 8: the sim-time channels through the span kernels and the
-    # plain loops.
-    by_path.update(channel_runs())
-    phase_done("8 (the channels: tcp-stream-16, mesh-codel-10, phold-8k)")
-    # Phase 9: object-path hosts, their sends through stt_propagate_round.
-    obj = object_runs()
-    for name, run in obj["object-1k"].items():
-        by_path[f"object-1k/{name}"] = dict(
-            run["launches"], propagate_probes=run["probe_launches"])
-    by_path["mixed-pcap-10k/tpu"] = dict(
-        obj["mixed-pcap-10k"]["launches"],
-        propagate_probes=obj["mixed-pcap-10k"]["probe_launches"])
-    obj_chunk = obj["object-1k"]["forced"]["block"]["packets_per_chunk"]
-    phase_done("9 (object-1k, mixed-pcap-10k)")
+    # This process only waits for them, so phases 8, 10 and 9 run
+    # meanwhile, on a thread beside it.
+    phase7 = Background(data_dir_runs, CARD_LINE)
+    try:
+        # Phase 8: the sim-time channels through the span kernels and
+        # the plain loops.
+        channel_mgrs: dict = {}
+        by_path.update(channel_runs(channel_mgrs))
+        phase_done("8 (the channels: tcp-stream-16, mesh-codel-10, "
+                   "phold-8k; beside phase 7)")
+        # Phase 10: the reports over card-written data directories, with
+        # dctcp-incast-8 through both TCP paths, and the trace smoke.
+        by_path.update(report_runs(channel_mgrs))
+        del channel_mgrs
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_done("10 (the reports: dctcp-incast-8 on four routes, the "
+                   "reports over six data directories, the trace smoke; "
+                   "beside phase 7)")
+        # Phase 9: object-path hosts, their sends through
+        # stt_propagate_round.
+        obj = object_runs()
+        for name, run in obj["object-1k"].items():
+            by_path[f"object-1k/{name}"] = dict(
+                run["launches"], propagate_probes=run["probe_launches"])
+        by_path["mixed-pcap-10k/tpu"] = dict(
+            obj["mixed-pcap-10k"]["launches"],
+            propagate_probes=obj["mixed-pcap-10k"]["probe_launches"])
+        obj_chunk = obj["object-1k"]["forced"]["block"]["packets_per_chunk"]
+        phase_done("9 (object-1k, mixed-pcap-10k; beside phase 7's "
+                   "last runs)")
+    except BaseException:
+        STOP.set()
+        phase7.join()
+        raise
+    phase7.result()
+    phase_done(f"7 (the CLI's data directories, seven runs at once; "
+               f"{phase7.wall:.1f} s from its start, beside phases 8, 10 "
+               f"and 9), the wait for it")
     # The kernel's row: timed at the main path's median round.
     print(f"[main] propagate: the forced tier10k run's packets per round "
           f"{per_round}; the kernels line's row is timed at the median",

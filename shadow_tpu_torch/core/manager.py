@@ -1161,6 +1161,37 @@ class Manager:
                 rows.extend(object_host_flow_rows(h))
         return rows
 
+    def fabric_summary(self, end_time_ns: int) -> dict:
+        """bench.py's `fabric` block: the conservation ledger's peak
+        queue depth, refill stalls and marks, the hottest link's
+        utilization over `end_time_ns`, the verdict, and FCT
+        percentiles over one record a flow (the receiver's) where TCP
+        flows exist."""
+        from shadow_tpu_torch.trace.fabricstat import (percentile,
+                                                       receiver_rows)
+        cons, max_link_s = self._fabric_sweep()
+        dur_s = end_time_ns / 1e9
+        util = max_link_s / dur_s if dur_s > 0 else 0.0
+        out = {
+            "peak_queue_depth": cons["peak_queue_depth"],
+            "refill_stalls": cons["refill_stalls"],
+            "marked_pkts": cons["marked_pkts"],
+            "marks": cons["marks"],
+            "link_utilization": round(util, 4),
+            "conservation": ("ok" if cons["violations"] == 0
+                             else f"{cons['violations']} violations"),
+        }
+        durs = sorted(r[1] - r[0]
+                      for r in receiver_rows(self.collect_fct_rows()))
+        if durs:
+            out["fct"] = {
+                "flows": len(durs),
+                "p50_ns": percentile(durs, 500),
+                "p99_ns": percentile(durs, 990),
+                "p999_ns": percentile(durs, 999),
+            }
+        return out
+
     def sc_disposition_totals(self) -> dict:
         """Syscall dispositions summed over hosts: SC name -> count
         (nonzero only).  They count the internal apps' Python-dispatched

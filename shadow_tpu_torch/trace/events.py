@@ -293,6 +293,14 @@ def iter_fb_records(fb_bytes: bytes):
         yield FB_REC.unpack_from(fb_bytes, off)
 
 
+def iter_fct_records(fct_bytes: bytes):
+    """Yield (t_first, t_last, host, lport, rport, rip, flags, bytes_in,
+    bytes_out, rtx, marks) tuples from a packed FCT_REC stream."""
+    for off in range(0, len(fct_bytes) - len(fct_bytes) % FCT_REC_BYTES,
+                     FCT_REC_BYTES):
+        yield FCT_REC.unpack_from(fct_bytes, off)
+
+
 # ---------------------------------------------------------------------
 # Kernel observatory (`kernel-sim.bin`): one 224-byte record a committed
 # device span: int64 t (the span's first window start), int32 family
@@ -342,3 +350,10 @@ def iter_ks_records(buf: bytes):
         yield (rec[0], rec[1], rec[2], rec[3], rec[4],
                rec[5:5 + KS_N], rec[5 + KS_N:5 + 2 * KS_N])
 
+
+def iter_records(buf: bytes):
+    """Yield (t, kind, a, b, c) tuples from a packed flight-record
+    stream (`flight-sim.bin`)."""
+    for off in range(0, len(buf) - len(buf) % FLIGHT_REC_BYTES,
+                     FLIGHT_REC_BYTES):
+        yield REC.unpack_from(buf, off)

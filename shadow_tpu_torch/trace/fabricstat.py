@@ -1,5 +1,5 @@
 """The fabric observatory's channel (`fabric-sim.bin`), the port's copy
-of `shadow_tpu/trace/fabricstat.py`'s writer half.
+of `shadow_tpu/trace/fabricstat.py`: the writer and the report helpers.
 
 Two record families in one artifact behind FAB_HDR: per-queue samples
 (FB_REC) at sampled round boundaries, each ACTIVE host (any FB_ACT_*
@@ -10,7 +10,9 @@ device-span families sample on the card and emit their rows after the
 import (`emit_device_rows`).  Object-path hosts are sampled here at the
 per-round boundary after the engine's block (`host_queue_sample`), and
 their flows swept from their sockets (`object_host_flow_rows`).  No
-wall clock is read here.
+wall clock is read here.  `group_by_host`, `top_by_peak_depth`,
+`percentile`, `receiver_rows` and `fct_table` are the readers the
+reports, the Chrome export and `Manager.fabric_summary` share.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from shadow_tpu_torch.trace.events import (FAB_HDR, FAB_MAGIC, FAB_VERSION,
                                            FB_DTYPE, FB_FIELD_NAMES,
                                            FB_REC, FB_REC_BYTES,
                                            FCT_F_COMPLETE, FCT_F_RECEIVER,
-                                           FCT_REC)
+                                           FCT_REC, iter_fb_records)
 from shadow_tpu_torch.trace.recorder import FixedRecordChannel
 
 # tcp/connection.py's MSS: fct_table's segment estimate.
@@ -184,6 +186,22 @@ def emit_device_rows(channel, rows: dict, n_hosts: int) -> None:
         arr[name] = np.asarray(rows[f"fab_{name}"][:fn],
                                dtype=np.int64).reshape(-1)[sel]
     channel.extend(arr.tobytes())
+
+
+def group_by_host(fb_bytes: bytes) -> dict:
+    """FB records grouped by host id -> [records in time order]."""
+    by_host: dict = {}
+    for rec in iter_fb_records(fb_bytes):
+        by_host.setdefault(rec[1], []).append(rec)
+    return by_host
+
+
+def top_by_peak_depth(by_host: dict, n: int) -> list:
+    """Top-n host ids by peak sampled CoDel depth, ties broken by host
+    id: the one ranking the fabric report and the Chrome per-link
+    counter tracks both render."""
+    return sorted(by_host,
+                  key=lambda h: (-max(r[3] for r in by_host[h]), h))[:n]
 
 
 def percentile(sorted_vals: list, permille: int) -> int:

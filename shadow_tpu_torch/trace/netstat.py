@@ -9,7 +9,9 @@ card and emits the rows after its import (ops/tcp_span.py).  The
 object-path hosts' connections are sampled here at the per-round
 boundary, after the engine's block (in a homogeneous run the stream is
 host-sorted either way); they are not sampled inside C++ spans, where
-they run no events.  No wall clock is read here.
+they run no events.  No wall clock is read here.  `iter_records`,
+`group_by_conn` and `top_by_retransmits` are the readers
+`tools/trace.py` and the Chrome export share.
 """
 
 from __future__ import annotations
@@ -77,3 +79,27 @@ def iter_host_tcp_sockets(host):
                     or getattr(s, "listening", False):
                 seen[id(s)] = s
     return seen.values()
+
+
+def iter_records(buf: bytes):
+    """Yield (t, host, lport, rport, rip, state, cwnd, ssthresh, srtt,
+    rto, backoff, sndbuf, rcvbuf, rtx, sacks, marks) tuples."""
+    for off in range(0, len(buf) - len(buf) % TEL_REC_BYTES,
+                     TEL_REC_BYTES):
+        yield TEL_REC.unpack_from(buf, off)
+
+
+def group_by_conn(tel_bytes: bytes) -> dict:
+    """Telemetry records grouped by connection:
+    (host, lport, rport, rip) -> [records in time order]."""
+    by_conn: dict = {}
+    for rec in iter_records(tel_bytes):
+        by_conn.setdefault(rec[1:5], []).append(rec)
+    return by_conn
+
+
+def top_by_retransmits(by_conn: dict, n: int) -> list:
+    """The top-n connection keys by final retransmit count, ties broken
+    by connection key: the one ranking the net report and the Chrome
+    counter tracks both render."""
+    return sorted(by_conn, key=lambda k: (-by_conn[k][-1][13], k))[:n]

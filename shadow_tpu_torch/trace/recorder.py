@@ -143,6 +143,11 @@ class WallChannel:
             else:
                 self.dropped_events += 1
 
+    def totals(self) -> dict:
+        """name -> total seconds (rounded), for one-line summaries."""
+        return {name: round(ns / 1e9, 3)
+                for name, (ns, _cnt) in sorted(self.phases.items())}
+
     def as_dict(self) -> dict:
         return {
             "phases": {name: {"ns": ns, "count": cnt}

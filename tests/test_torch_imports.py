@@ -62,6 +62,8 @@ def test_torch_port_file_list_is_complete():
                  "shadow_tpu_torch/trace/netstat.py",
                  "shadow_tpu_torch/trace/fabricstat.py",
                  "shadow_tpu_torch/trace/kernstat.py",
+                 "shadow_tpu_torch/trace/chrome.py",
+                 "shadow_tpu_torch/tools/trace.py",
                  "shadow_tpu_torch/__main__.py") + tuple(
             f"shadow_tpu_torch/{m}.py" for m in _COPIES) + (
             "shadow_tpu_torch/host/process.py",
@@ -244,6 +246,14 @@ PINS = (
         "PholdSpanRunner.FAB_ROWS", "PholdSpanRunner.FAB_ROWS")]
     + [("shadow_tpu_torch.core.config", "shadow_tpu.core.config",
         "ON_FAILURE_POLICIES", "ON_FAILURE_POLICIES")]
+    # The reports' constants: the Chrome export's processes and track
+    # cap, the kernel observatory's bounds and dispatch keys.
+    + [("shadow_tpu_torch.trace.chrome", "shadow_tpu.trace.chrome", n, n)
+       for n in ("PID_SIM", "PID_WALL", "PID_NETSTAT", "PID_SYSCALL",
+                 "PID_FABRIC", "PID_KERN", "DEFAULT_TOP_N")]
+    + [("shadow_tpu_torch.trace.kernstat", "shadow_tpu.trace.kernstat", n, n)
+       for n in ("STAGE_MAX_PASSES", "LOW_OCCUPANCY_PERMILLE",
+                 "DISPATCH_KEYS")]
 )
 
 
