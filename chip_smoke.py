@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Ten phases; any failed check raises, so the script exits non-zero:
+Ten phases run; any failed check raises, so the script exits non-zero
+(an eleventh, the managed processes', is `managed_runs()`, run alone:
+see 11 below):
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
@@ -153,7 +155,8 @@ Ten phases; any failed check raises, so the script exits non-zero:
    launch-to-end time, the span codec's bytes and walls and the peak
    device memory.
 5. Run phold-64k-ring (the reference ladder's 65,536-LP ring-caps rung,
-   to 1.0 s so that the device stretch takes three spans) three times:
+   to RING_STOP, 0.5 s, so that the device stretch takes several spans;
+   1.0 s until the managed phase needed the time) three times:
    spans off, forced with `span_overlap: off` (residency alone, through
    the plain window) and forced with `span_overlap: auto` (on, on the
    card, through the span kernel: the speculative spans launch on the
@@ -261,6 +264,30 @@ Ten phases; any failed check raises, so the script exits non-zero:
    identical for the kernel and the plain directory.  Meanwhile `python
    -m shadow_tpu_torch.tools.trace --smoke` runs in a child process on
    the card and must exit 0 having launched stt_phold_span.
+11. Managed processes (`managed_runs()`; not in `main`: under gVisor,
+   the kernel of the card machines this script has run on, every
+   managed process dies at start, PERF.md section 6): real binaries
+   (tests/plugins, compiled with `cc`)
+   under the shim (native/shim.c, built in phase 2; on a kernel without
+   the rdtsc trap, such as gVisor's, without it).  First the machine:
+   the kernel, pidfd_open's thread flag, ASLR off by personality(2),
+   seccomp, /dev/shm and the fd limit (the soft RLIMIT_NOFILE raised to
+   the hard one); the fleet must fit.  managed-fleet-1k (the JAX
+   package's bench[managed-1k] rung, tools/netgen.py managed_fleet_yaml:
+   62 UDP echo servers and 938 clients, 3 pings of 64 B each, 30 s,
+   every host an engine host whose sockets are socket_native's) under
+   tpu with `tpu_min_device_batch: 0` (every round's packets through
+   stt_propagate_round) and under the engine thread_per_core baseline:
+   one trace, every process in its expected final state, the same
+   stdout and stderr, equal `metrics.sim` blocks (the syscall
+   dispositions among them), stt_propagate_round launches = device
+   rounds = dispatched rounds > 0 and no other kernel.  mixed-quiescent-6
+   (the reference's quiescence shape: 6-LP PHOLD beside one managed
+   sleep_time host) under tpu with device spans forced, against serial:
+   one trace, the audit summing to the rounds, engine-span:
+   managed-quiescent rounds > 0, and no kernel launch (those rounds are
+   C++ spans: device spans wait for no Python-side work, as in the
+   reference, and a managed host always has some).
 
 Each phase prints its own seconds on a line of its own.  To fit the
 time limit, work that only waits for child processes runs beside other
@@ -278,9 +305,11 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -295,6 +324,7 @@ BANDWIDTH = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 BYTES_PER_LANE = {"bucket_step": 66, "codel_head": 46}
 H_PHOLD = 8_192  # the phold-8k cell's lanes
 H_RING = 65_536  # the phold-64k-ring cell's lanes: the law kernels' main path
+RING_STOP = "0.5s"  # phase 5's depth (1.0 s until the managed phase)
 # The reference rung's ring caps (bench.py phold_rung): the defaults carry
 # a 2,048-deep CoDel ring per host, pure waste at PHOLD rates.
 RING_CAPS = dict(CAP_I=32, CAP_T=16, CAP_R=64, CAP_S=64, CAP_C=256,
@@ -323,9 +353,11 @@ SOURCE = {"bucket_step": "shadow_tpu_torch/csrc/queues.cu",
 # to the reference's 30 s; the lines of its trace before 1 s are the
 # trace of a run stopped at 1 s (tests/test_torch_phold_window.py), the
 # cut the earlier digest was taken at (PREFIX_DIGESTS: cut ns, digest).
+# phold-64k-ring's is the C++-only run's at RING_STOP, 0.5 s (the 1.0 s
+# run's was 8a7e37bc1464a71e).
 DIGESTS = {"phold-8k": "193df0b724ca82af", "mesh-24": "418a93e5434d900a",
            "mesh-codel-10": "465140a4129e63e7",
-           "phold-64k-ring": "8a7e37bc1464a71e"}
+           "phold-64k-ring": "589e6df7d76928bf"}
 PREFIX_DIGESTS = {"mesh-24": (1_000_000_000, "7e888cfb90af5447")}
 # The 10,000-host stream's C++-only run (stream_results) by stop time,
 # as every earlier run of this script on the card gave it (PERF.md): its
@@ -412,8 +444,12 @@ def build_all():
         if plane.load_netplane() is None:
             raise RuntimeError(plane.load_error())
 
+    def shim():
+        from shadow_tpu_torch.native import ensure_shim_built
+        ensure_shim_built()
+
     threads = [threading.Thread(target=run, args=a)
-               for a in (("engine", engine),
+               for a in (("engine", engine), ("shim", shim),
                          ("queues.cu", queues.LIBRARY.build),
                          ("relay.cu", relay.LIBRARY.build),
                          ("propagate.cu", propagate.LIBRARY.build),
@@ -430,7 +466,8 @@ def build_all():
     if errs:
         raise RuntimeError(f"build failed: {errs}")
     print(f"[build] engine {walls['engine']:.1f}s (make "
-          f"{plane.build_seconds():.1f}s), queues.cu "
+          f"{plane.build_seconds():.1f}s), the shim (native/shim.c) "
+          f"{walls['shim']:.1f}s, queues.cu "
           f"{walls['queues.cu']:.1f}s (nvcc {queues.LIBRARY.build_s:.1f}s), "
           f"relay.cu {walls['relay.cu']:.1f}s (nvcc "
           f"{relay.LIBRARY.build_s:.1f}s), propagate.cu "
@@ -969,18 +1006,18 @@ def check_propagate() -> dict:
 
 def ring_config(spans: str, overlap: str):
     """phold-64k-ring (bench.py phold_rung's 64k rung: 65,536 LPs, ring
-    peers 16; 1 Gbit, 5 ms, LPs start at 100 ms) to 1.0 s instead of the
-    rung's 0.15 s, every per-round round on the C++ twin.  The YAML is
-    generated and parsed once."""
+    peers 16; 1 Gbit, 5 ms, LPs start at 100 ms) to RING_STOP instead of
+    the rung's 0.15 s, every per-round round on the C++ twin.  The YAML
+    is generated and parsed once."""
     from shadow_tpu_torch.ops.propagate import HOST_ONLY
     from shadow_tpu_torch.tools.netgen import phold_yaml
     if not hasattr(ring_config, "base"):
         t0 = time.perf_counter()
         text = phold_yaml(H_RING, n_init=1, mean_delay_ns=20_000_000,
-                          stop_time="1.0s", seed=13, scheduler="tpu",
+                          stop_time=RING_STOP, seed=13, scheduler="tpu",
                           peers_per_host=16)
         ring_config.base = parse_yaml(text)
-        print(f"[phold-64k-ring] {H_RING} LPs, stop_time 1.0s, caps "
+        print(f"[phold-64k-ring] {H_RING} LPs, stop_time {RING_STOP}, caps "
               f"{RING_CAPS}; YAML {len(text) / 2**20:.1f} MiB parsed in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     return config_with(ring_config.base, tpu_device_spans=spans,
@@ -3627,6 +3664,244 @@ def report_runs(channel_mgrs: dict) -> dict:
           + " | ".join(ln for ln in out.splitlines()
                        if ln.startswith("trace smoke:")), flush=True)
     return {f"dctcp-incast-8/{p}": x["launches"] for p, x in runs.items()}
+
+
+# Phase 11's fleet: managed_fleet_yaml at the JAX package's
+# bench[managed-1k] rung (62 UDP echo servers, 938 clients, 3 pings of
+# 64 B each, 30 s), every host an engine host through socket_native.
+MANAGED_FLEET = 1000
+MANAGED_WORK = os.path.join(tempfile.gettempdir(), "chip_smoke_managed")
+
+
+def managed_env(n_procs: int) -> dict:
+    """What the card machine offers managed processes, printed before the
+    phase's results: the kernel, pidfd_open's thread flag (Linux 6.9+;
+    host/managed.py falls back to polling without it), ASLR off by
+    personality(2) in a spawning thread, this process's seccomp mode,
+    /dev/shm and the fd limit.  The soft RLIMIT_NOFILE is raised to the
+    hard limit (this process's own limit, no machine setting).  The
+    fleet's need (svc/containment.py preflight_managed: ~8 fds and 1 MiB
+    of /dev/shm a process) must fit, or the phase fails here."""
+    import ctypes
+    import resource
+    out = {"kernel": os.uname().release}
+    try:
+        fd = os.pidfd_open(threading.get_native_id(), 0x80)
+        os.close(fd)
+        out["pidfd_thread"] = True
+    except OSError as e:
+        out["pidfd_thread"] = f"no ({e.strerror}; polling fallback)"
+
+    def aslr(res):
+        libc = ctypes.CDLL(None, use_errno=True)
+        cur = libc.personality(0xFFFFFFFF)
+        ok = libc.personality(cur | 0x0040000) >= 0
+        res["aslr_off"] = ok and bool(libc.personality(0xFFFFFFFF)
+                                      & 0x0040000)
+    t = threading.Thread(target=aslr, args=(out,))
+    t.start()
+    t.join()
+    with open("/proc/self/status") as f:
+        out["seccomp"] = next((ln.split()[1] for ln in f
+                               if ln.startswith("Seccomp:")), "?")
+    st = os.statvfs("/dev/shm")
+    out["shm_free_mib"] = st.f_bavail * st.f_frsize // 2**20
+    out["shm_size_mib"] = st.f_blocks * st.f_frsize // 2**20
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    out["nofile_soft_hard_before"] = [soft, hard]
+    out["nofile_soft"] = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    need_fds, need_shm = 8 * n_procs + 256, n_procs
+    out["need_fds_shm_mib"] = [need_fds, need_shm]
+    print(f"[managed] machine: {json.dumps(out)}", flush=True)
+    if out["nofile_soft"] < need_fds or out["shm_free_mib"] < need_shm:
+        raise AssertionError(f"[managed] this machine cannot hold "
+                             f"{n_procs} managed processes: {out}")
+    return out
+
+
+def managed_stats(d: str) -> dict:
+    with open(os.path.join(d, "sim-stats.json")) as f:
+        return json.load(f)["metrics"]["sim"]
+
+
+def managed_outputs(mgr) -> dict:
+    return {(h.name, p.name): (bytes(p.stdout), bytes(p.stderr))
+            for h in mgr.hosts for p in h.processes.values()}
+
+
+def managed_run(tag: str, name: str, cfg, device) -> dict:
+    """One run of a managed cell through the port's Manager, every
+    kernel's launch count zeroed just before it, its data directory
+    written."""
+    from shadow_tpu_torch.core.manager import Manager
+    from shadow_tpu_torch.host.managed import ManagedProcess
+    t0 = time.perf_counter()
+    mgr = Manager(cfg, device=device)
+    build_s = time.perf_counter() - t0
+    wrappers = kernel_wrappers()
+    zero_counts(wrappers)
+    wrappers["propagate"].probe_launches = 0
+    gc.collect()
+    t0 = time.perf_counter()
+    summary = mgr.run()
+    if device is not None:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    probes = wrappers["propagate"].probe_launches
+    t0 = time.perf_counter()
+    mgr.write_data_dir(summary)
+    write_s = time.perf_counter() - t0
+    digest, nlines, _ = trace_digest(mgr)
+    spawned = sum(isinstance(p, ManagedProcess) for h in mgr.hosts
+                  for p in h.processes.values())
+    disp = mgr.sc_disposition_totals()
+    block = mgr.dispatch_summary().get("propagate", {})
+    print(f"{tag} {name}: {len(mgr.hosts)} hosts, managed processes "
+          f"spawned {spawned}, rounds {summary.rounds} (span rounds "
+          f"{summary.span_rounds}), events {summary.events}, packets "
+          f"{summary.packets_sent} sent / {summary.packets_recv} received, "
+          f"syscalls {summary.syscalls} (dispositions {disp}), trace lines "
+          f"{nlines} sha256 {digest[:16]}, audit {mgr.audit.as_dict()}, "
+          f"service plane "
+          f"{mgr.svc.wall_summary() if mgr.svc is not None else None}, "
+          f"Manager build {build_s:.1f}s, run wall {wall:.2f}s, data "
+          f"directory {write_s:.1f}s, "
+          f"{summary.end_time_ns / 1e9 / wall:.4f} sim-s/wall-s, launches "
+          f"{launches} (probes {probes}); device rounds "
+          f"{block.get('rounds_device')} of "
+          f"{block.get('rounds_dispatched')} dispatched, packets per round "
+          f"{block.get('packets_per_round')}", flush=True)
+    if not summary.ok:
+        raise AssertionError(f"{tag} {name}: final states: "
+                             f"{summary.plugin_errors[:3]}")
+    return dict(summary=summary, digest=digest, launches=launches,
+                probes=probes, block=block, spawned=spawned, wall=wall,
+                audit=mgr.audit, outputs=managed_outputs(mgr),
+                sim=managed_stats(cfg.general.data_directory))
+
+
+def managed_runs() -> dict:
+    """Phase 11, managed processes: real binaries under the shim (built
+    from native/ with the engine in build_all).
+
+    managed-fleet-1k: the JAX package's bench[managed-1k] rung through
+    `scheduler: tpu` with `tpu_min_device_batch: 0` (every round's
+    packets through stt_propagate_round) and through the engine
+    thread_per_core baseline: one trace, every process in its expected
+    final state, the same stdout and stderr, equal `metrics.sim` blocks
+    (the syscall dispositions among them), and stt_propagate_round
+    launches equal to the device rounds and above 0.
+
+    mixed-quiescent-6: the reference's quiescence shape (6-LP PHOLD
+    beside one managed sleep_time host) under `tpu` with device spans
+    forced, against `serial`: one trace, the audit summing to the rounds,
+    rounds under engine-span:managed-quiescent.  Those rounds are C++
+    spans: the reference serves device spans only with no Python-side
+    work pending (a device import rewrites every host's next-event
+    slot), and a managed host's work flag stays set for the whole run,
+    so stt_phold_span launches 0 here, and the gate requires it."""
+    import shutil as _shutil
+
+    from shadow_tpu_torch.core.config import ConfigOptions
+    from shadow_tpu_torch.tools.netgen import (compile_echo_binaries,
+                                               managed_fleet_yaml,
+                                               phold_yaml)
+    managed_env(MANAGED_FLEET)
+    _shutil.rmtree(MANAGED_WORK, ignore_errors=True)
+    os.makedirs(MANAGED_WORK)
+    out: dict = {}
+    try:
+        bins = compile_echo_binaries(MANAGED_WORK)
+        if bins is None:
+            raise AssertionError("[managed] no C compiler (cc) on this "
+                                 "machine")
+        sleep_bin = os.path.join(MANAGED_WORK, "sleep_time")
+        subprocess.run(["cc", "-O1", "-o", sleep_bin, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests",
+            "plugins", "sleep_time.c")], check=True)
+        tag = "[managed-fleet-1k]"
+        text = managed_fleet_yaml(bins["udp_echo_server"],
+                                  bins["udp_echo_client"], MANAGED_FLEET)
+        runs = {}
+        for name, sched, device in (("tpu", "tpu", "cuda"),
+                                    ("thread_per_core", "thread_per_core",
+                                     None)):
+            cfg = ConfigOptions.from_yaml_text(text)
+            cfg.general.data_directory = os.path.join(MANAGED_WORK,
+                                                      f"fleet-{name}")
+            cfg.experimental.scheduler = sched
+            if sched == "tpu":
+                cfg.experimental.tpu_min_device_batch = 0
+            else:
+                cfg.experimental.native_dataplane = "on"
+            runs[name] = managed_run(tag, name, cfg, device)
+        a, b = runs["tpu"], runs["thread_per_core"]
+        n = a["launches"]["propagate"]
+        if a["digest"] != b["digest"] or a["outputs"] != b["outputs"] \
+                or a["sim"] != b["sim"]:
+            raise AssertionError(f"{tag} tpu and thread_per_core differ: "
+                                 f"trace {a['digest'][:16]} / "
+                                 f"{b['digest'][:16]}, outputs equal "
+                                 f"{a['outputs'] == b['outputs']}, "
+                                 f"metrics.sim {a['sim']} / {b['sim']}")
+        if a["spawned"] != MANAGED_FLEET or b["spawned"] != MANAGED_FLEET:
+            raise AssertionError(f"{tag} spawned {a['spawned']} / "
+                                 f"{b['spawned']}")
+        if not (n == a["block"]["rounds_device"]
+                == a["block"]["rounds_dispatched"] > 0) or a["probes"] \
+                or any(v for k, v in a["launches"].items()
+                       if k != "propagate") \
+                or any(b["launches"].values()):
+            raise AssertionError(f"{tag} launches {a['launches']} "
+                                 f"(probes {a['probes']}) vs "
+                                 f"{a['block']}; baseline {b['launches']}")
+        print(f"{tag} PASS: one trace, every process in its expected "
+              f"final state, equal metrics.sim; stt_propagate_round "
+              f"launches {n} = device rounds; syscalls serviced "
+              f"{a['summary'].syscalls}; managed processes spawned "
+              f"{a['spawned']}; walls tpu {a['wall']:.2f}s, "
+              f"thread_per_core {b['wall']:.2f}s", flush=True)
+        out.update({f"managed-fleet-1k/{k}": r["launches"]
+                    for k, r in runs.items()})
+        tag = "[mixed-quiescent-6]"
+        text = phold_yaml(6, stop_time="3500ms", seed=17, scheduler="tpu")
+        text += (f"  mgd00:\n    network_node_id: 0\n    processes:\n"
+                 f"      - {{ path: {sleep_bin}, start_time: 500ms }}\n")
+        runs = {}
+        for name, sched, device in (("tpu", "tpu", "cuda"),
+                                    ("serial", "serial", None)):
+            cfg = ConfigOptions.from_yaml_text(text)
+            cfg.general.data_directory = os.path.join(MANAGED_WORK,
+                                                      f"mixed-{name}")
+            cfg.experimental.scheduler = sched
+            cfg.experimental.tpu_device_spans = "force"
+            runs[name] = managed_run(tag, name, cfg, device)
+        a, b = runs["tpu"], runs["serial"]
+        counts = a["audit"].as_dict()
+        quiescent = counts.get("engine-span:managed-quiescent", 0)
+        if a["digest"] != b["digest"] \
+                or a["audit"].total() != a["summary"].rounds \
+                or quiescent <= 0 or any(a["launches"].values()) \
+                or any(b["launches"].values()):
+            raise AssertionError(f"{tag} traces {a['digest'][:16]} / "
+                                 f"{b['digest'][:16]}, audit {counts} over "
+                                 f"{a['summary'].rounds} rounds, launches "
+                                 f"{a['launches']}")
+        print(f"{tag} PASS: one trace against serial, the audit sums to "
+              f"{a['summary'].rounds} rounds, {quiescent} "
+              f"engine-span:managed-quiescent rounds in C++ spans, "
+              f"stt_phold_span launches {a['launches']['phold_span']} "
+              f"(device spans wait for no Python-side work, as in the "
+              f"reference); walls tpu {a['wall']:.2f}s, serial "
+              f"{b['wall']:.2f}s", flush=True)
+        out.update({f"mixed-quiescent-6/{k}": r["launches"]
+                    for k, r in runs.items()})
+    finally:
+        _shutil.rmtree(MANAGED_WORK, ignore_errors=True)
+    return out
 
 
 def main(argv=None) -> int:

@@ -42,6 +42,10 @@ ON_FAILURE_POLICIES = ("abort", "quarantine", "restart")
 _RM_SHARDED = "ROADMAP A5 (sharded multi-GPU)"
 _RM_OBS = ("ROADMAP A7 (observatories, checkpoint and faults, managed "
            "processes)")
+_RM_SYSOBS = ("ROADMAP A7b-2 (the syscall observability of managed "
+              "processes: strace, the syscall observatory)")
+_RM_CONTAIN = ("ROADMAP A7c (containment's quarantine and restart "
+               "policies, with checkpoint and faults)")
 
 
 def _onoff(v):
@@ -226,10 +230,9 @@ _EXP_KEYS = {
 # changes nothing on the paths the port serves (managed-process timing,
 # sharded sizing, wall-side knobs) or is read by the Manager.
 _EXP_REFUSED = {
-    "strace_logging_mode": (lambda v: v != "off", _RM_OBS),
+    "strace_logging_mode": (lambda v: v != "off", _RM_SYSOBS),
     "tpu_shards": (lambda v: v != 1, _RM_SHARDED),
-    "syscall_observatory": (lambda v: v != "off", _RM_OBS),
-    "openssl_crypto_noop": (bool, _RM_OBS),
+    "syscall_observatory": (lambda v: v != "off", _RM_SYSOBS),
 }
 
 # The reference's closed value sets.
@@ -479,6 +482,17 @@ def _experimental(e: dict) -> ExperimentalConfig:
               "pcap_span_cap"):
         if getattr(out, k) < 1:
             raise ValueError(f"{k} must be >= 1")
+    if out.managed_death_poll_ns < 1_000_000:
+        raise ValueError(
+            "managed_death_poll must be >= 1ms (it is the waitpid "
+            "safety-net poll slice, not a latency knob)")
+    if out.managed_watchdog_ns < 0 or \
+            0 < out.managed_watchdog_ns < 100_000_000:
+        raise ValueError(
+            "managed_watchdog must be 0 (off) or >= 100ms: a shorter "
+            "wall watchdog would kill healthy processes mid-compute")
+    if out.managed_spawn_stagger_ns < 0:
+        raise ValueError("managed_spawn_stagger must be >= 0")
     for attr, (needs, item) in _EXP_REFUSED.items():
         v = getattr(out, attr)
         if needs(v):
@@ -548,18 +562,13 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
             if isinstance(args, str):
                 args = shlex.split(args)
             args = [str(a) for a in args]
-            if "/" in path:
-                _refuse(f"{where}: {path} (a managed process)", _RM_OBS)
-            if "shutdown_time" in p:
-                _refuse(f"{where}: shutdown_time (signal delivery)",
-                        _RM_OBS)
             on_failure = str(p.get("on_failure", "abort"))
             if on_failure not in ON_FAILURE_POLICIES:
                 raise ValueError(f"{where}: unknown on_failure "
                                  f"{on_failure!r}; expected one of "
                                  f"{ON_FAILURE_POLICIES}")
             if on_failure != "abort":
-                _refuse(f"{where}: on_failure", _RM_OBS)
+                _refuse(f"{where}: on_failure {on_failure}", _RM_CONTAIN)
             restart_budget = int(p.get("restart_budget", 2))
             if restart_budget < 1:
                 raise ValueError(f"{where}: restart_budget must be >= 1")
@@ -568,6 +577,8 @@ def _hosts(raw: dict) -> dict[str, HostConfig]:
                 environment={str(k): str(v) for k, v in
                              (p.get("environment") or {}).items()},
                 start_time_ns=units.parse_time_ns(p.get("start_time", 0)),
+                shutdown_time_ns=(units.parse_time_ns(p["shutdown_time"])
+                                  if "shutdown_time" in p else None),
                 shutdown_signal=str(p.get("shutdown_signal", "SIGTERM")),
                 expected_final_state=_validate_final_state(
                     p.get("expected_final_state", "exited 0"), where),
@@ -608,16 +619,21 @@ def _validate_final_state(v, where: str):
         if v in ("running", "any"):
             return v
         parts = v.split()
-        if parts and parts[0] == "exited" and len(parts) <= 2:
-            try:
+        try:
+            if parts and parts[0] == "exited" and len(parts) <= 2:
                 if len(parts) == 2:
                     int(parts[1])
                 return v
-            except ValueError:
-                pass
-        if parts and parts[0] == "signaled":
-            _refuse(f"{where}: expected_final_state {v!r} (signal "
-                    f"delivery)", _RM_OBS)
+            if parts and parts[0] == "signaled" and len(parts) <= 2:
+                if len(parts) == 2:
+                    from shadow_tpu_torch.host.signals import (
+                        NSIG, parse_signal)
+                    sig = parse_signal(parts[1])
+                    if not 0 < sig < NSIG:
+                        raise ValueError(f"signal {sig} out of range")
+                return v
+        except ValueError:
+            pass
     raise ValueError(
         f"{where}: invalid expected_final_state {v!r} (expected "
         f"'running', 'any', 'exited [code]', or 'signaled [SIG]')")

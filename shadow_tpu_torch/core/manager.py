@@ -92,7 +92,9 @@ from shadow_tpu_torch.host.engine_app import (EngineAppProcess,
                                               engine_app_args)
 from shadow_tpu_torch.host.host import Host
 from shadow_tpu_torch.host.process import Process
+from shadow_tpu_torch.host.signals import parse_signal
 from shadow_tpu_torch.host.syscalls import SyscallHandler
+from shadow_tpu_torch.host.syscalls_native import NativeSyscallHandler
 from shadow_tpu_torch.net.dns import Dns
 from shadow_tpu_torch.net.graph import IpAssignment, routing_arrays
 from shadow_tpu_torch.trace import events as trev
@@ -164,8 +166,10 @@ def span_overlap_on(mode: str, device) -> bool:
 
 class SpawnTask:
     """One configured process spawn.  On an engine host an app with an
-    engine twin spawns engine-side; otherwise the app runs as an
-    internal (Python-coroutine) process on the object path."""
+    engine twin spawns engine-side; a path no internal app claims runs
+    as a managed process (a real binary under the shim); otherwise the
+    app runs as an internal (Python-coroutine) process, over the object
+    path's sockets or, on an engine host, the engine's."""
 
     __slots__ = ("pcfg", "index", "bufs")
 
@@ -185,14 +189,28 @@ class SpawnTask:
                 process = EngineAppProcess(
                     h, f"{pcfg.path}.{self.index}",
                     expected_final_state=pcfg.expected_final_state)
+                process.spawn_tag = self.index
                 process.app_idx = h.plane.engine.app_spawn(
                     h.id, kind, a, b, c, d, e, send_buf, recv_buf,
                     int(send_at), int(recv_at), h.now(), *extra)
                 return
         factory = app_registry.lookup(pcfg.path)
+        if factory is None and "/" in pcfg.path:
+            # A path: a real Linux binary under the shim (host/managed.py).
+            # A bare name never falls through to $PATH.
+            from shadow_tpu_torch.host.managed import ManagedProcess
+            process = ManagedProcess(
+                h, f"{os.path.basename(pcfg.path)}.{self.index}",
+                [pcfg.path] + list(pcfg.args), pcfg.environment,
+                expected_final_state=pcfg.expected_final_state,
+                work_dir=h.data_path)
+            process.spawn_tag = self.index
+            process.start_native(h, pcfg.path)
+            return
         process = Process(h, f"{pcfg.path}.{self.index}", pcfg.args,
                           pcfg.environment,
                           expected_final_state=pcfg.expected_final_state)
+        process.spawn_tag = self.index
         if factory is None:
             process.stderr += (f"[shadow-tpu] unknown app "
                                f"{pcfg.path!r}\n").encode()
@@ -200,6 +218,29 @@ class SpawnTask:
             process.exit_code = 127
             return
         process.start(h, factory(process, pcfg.args))
+
+
+class ShutdownTask:
+    """A process's `shutdown_time`: deliver its signal to every process
+    its paired SpawnTask created (matched by spawn_tag)."""
+
+    __slots__ = ("index", "signal")
+
+    def __init__(self, index: int, signal: int):
+        self.index = index
+        self.signal = signal
+
+    def __call__(self, h) -> None:
+        for proc in list(h.processes.values()):
+            if getattr(proc, "spawn_tag", None) == self.index \
+                    and not proc.exited:
+                proc.raise_signal(h, self.signal)
+
+
+def is_managed(pcfg) -> bool:
+    """The one managed-process predicate (SpawnTask's dispatch rule): a
+    path that no internal app claims."""
+    return "/" in pcfg.path and app_registry.lookup(pcfg.path) is None
 
 
 class Manager:
@@ -222,6 +263,18 @@ class Manager:
         bufs = (exp.socket_send_buffer, exp.socket_recv_buffer,
                 exp.socket_send_autotune, exp.socket_recv_autotune)
         self.syscall_handler = SyscallHandler(*bufs)
+        self.syscall_handler_native = NativeSyscallHandler(*bufs)
+        # The preloads, built once here (never by hosts spawning on
+        # worker threads); a failed build raises.
+        managed = any(is_managed(p) for h in config.hosts.values()
+                      for p in h.processes)
+        if managed:
+            from shadow_tpu_torch.native import ensure_shim_built
+            ensure_shim_built()
+        crypto_noop_path = None
+        if exp.openssl_crypto_noop:
+            from shadow_tpu_torch.native import ensure_crypto_noop_built
+            crypto_noop_path = ensure_crypto_noop_built()
 
         # Hosts in sorted-name order: host ids, and with them every RNG
         # stream and ordering tiebreak, are config-deterministic.  Spawn
@@ -252,17 +305,86 @@ class Manager:
                 host.cpu = Cpu(threshold=exp.host_cpu_threshold_ns,
                                precision=exp.host_cpu_precision_ns)
                 host.cpu_event_cost_ns = exp.host_cpu_event_cost_ns
+            # The managed path's syscall latency model, preemption and
+            # native file I/O billing.
+            host.syscall_latency_ns = (
+                exp.unblocked_syscall_latency_ns
+                if config.general.model_unblocked_syscall_latency else 0)
+            if exp.native_preemption_enabled:
+                host.preempt_native_ns = \
+                    exp.native_preemption_native_interval_ns
+                host.preempt_sim_ns = exp.native_preemption_sim_interval_ns
+            host.max_unapplied_ns = exp.max_unapplied_cpu_latency_ns
+            host.death_poll_ns = exp.managed_death_poll_ns
+            host.crypto_noop = crypto_noop_path
+            bw = exp.native_file_io_bandwidth_bps
+            if config.general.model_unblocked_syscall_latency and bw > 0:
+                host.native_io_ns_per_kib = max(
+                    1, (1_000_000_000 * 1024) // bw)
             host.dns = self.dns
             host.syscall_handler = self.syscall_handler
+            host.syscall_handler_native = self.syscall_handler_native
+            host.data_path = os.path.join(config.general.data_directory,
+                                          "hosts", name)
             self.dns.register(host_id, ip, name)
             self.hosts.append(host)
             for i, pcfg in enumerate(hcfg.processes):
                 host.schedule_task_at(pcfg.start_time_ns,
                                       TaskRef("spawn",
                                               SpawnTask(pcfg, i, bufs)))
+                if pcfg.shutdown_time_ns is not None:
+                    host.schedule_task_at(
+                        pcfg.shutdown_time_ns,
+                        TaskRef("shutdown", ShutdownTask(
+                            i, parse_signal(pcfg.shutdown_signal
+                                            or "SIGTERM"))))
 
         self.runahead = Runahead(exp.runahead_ns, graph.min_latency_ns(),
                                  exp.use_dynamic_runahead)
+
+        # Managed hosts are known from the config.  Their service goes to
+        # the service plane's host-affine workers when it is on, and
+        # `py_pinned` keeps their Python-work flag True for the whole
+        # run, so the engine's span loop stops before any window that
+        # would touch one (the quiescence gate).
+        managed_hosts = []
+        for host in self.hosts:
+            host.svc_managed = any(
+                is_managed(p) for p in config.hosts[host.name].processes)
+            if host.svc_managed:
+                host.py_pinned = True
+                managed_hosts.append(host)
+        # Failure containment (the hang watchdog and the spawn gate),
+        # after the resource preflight.
+        self.containment = None
+        if managed_hosts:
+            from shadow_tpu_torch.svc.containment import (
+                ContainmentPlane, preflight_managed)
+            preflight_managed(sum(
+                1 for host in managed_hosts
+                for p in config.hosts[host.name].processes
+                if is_managed(p)))
+            self.containment = ContainmentPlane(
+                watchdog_ns=exp.managed_watchdog_ns)
+            for host in managed_hosts:
+                host.containment = self.containment
+                host.spawn_stagger_ns = exp.managed_spawn_stagger_ns
+        # The syscall service plane: `on`, or `auto` with more than one
+        # worker (parallelism 0 = the core count); off under perf timers.
+        svc_workers = max(1, int(config.general.parallelism
+                                 or os.cpu_count() or 1))
+        svc_mode = exp.syscall_service_plane
+        self.svc = None
+        if managed_hosts and not exp.use_perf_timers and (
+                svc_mode == "on" or (svc_mode == "auto"
+                                     and svc_workers > 1)):
+            from shadow_tpu_torch.svc import SyscallServicePlane
+            self.svc = SyscallServicePlane(
+                max(1, min(svc_workers, len(managed_hosts))))
+            for host in managed_hosts:
+                # Advertised to the shim through the IPC block.
+                host.svc_active = True
+        self._managed_mask = None  # built in _init_next_times
 
         # The C++ engine: every host runs on it under `tpu` (unless
         # `native_dataplane: off`) and under the engine `thread_per_core`
@@ -282,7 +404,6 @@ class Manager:
                     self.plane.add_host(host, qdisc_rr)
             self.plane.engine.set_dctcp_k(exp.dctcp_k_pkts,
                                           exp.dctcp_k_bytes)
-            self._check_engine_apps()
         eng = self.plane.engine if self.plane is not None else None
         threaded = sched in ("thread_per_core", "thread_per_host")
         self._per_host_tasks = sched == "thread_per_host"
@@ -297,7 +418,10 @@ class Manager:
         else:
             self.propagator = ScalarPropagator(
                 self.hosts, self.dns, lat, thr, seed,
-                config.general.bootstrap_end_time_ns, threaded=threaded,
+                config.general.bootstrap_end_time_ns,
+                # The service plane runs managed hosts concurrently even
+                # under `serial`.
+                threaded=threaded or self.svc is not None,
                 runahead=self.runahead)
         for host in self.hosts:
             host._send_packet_fn = self.propagator.send
@@ -396,30 +520,14 @@ class Manager:
     # The round loop
     # ------------------------------------------------------------------
 
-    def _check_engine_apps(self) -> None:
-        """An engine host runs the apps with an engine twin; an internal
-        app of another shape would need Python-side sockets on the
-        engine host, which the port does not serve yet."""
-        for host in self.hosts:
-            if host.plane is None:
-                continue
-            for pcfg in self.config.hosts[host.name].processes:
-                if app_registry.lookup(pcfg.path) is not None \
-                        and engine_app_args(pcfg, self.dns) is None:
-                    raise NotImplementedError(
-                        f"shadow_tpu_torch does not serve host "
-                        f"{host.name!r} process {pcfg.path} {pcfg.args} "
-                        f"on the engine yet: ROADMAP A7b (Python-side "
-                        f"sockets on engine hosts, host/socket_native.py);"
-                        f" set native_dataplane: false on the host")
-
     def _init_next_times(self) -> None:
         """The shared next-event snapshot (one slot a host) and the
         Python-work flags.  From here on each host writes its own slot
         at the end of execute() and cross-host deliveries lower the
         destination's slot; the engine writes its hosts' in place.
         Object-path hosts' flags stay True; engine hosts' follow their
-        Python heap and inbox."""
+        Python heap and inbox, but a managed host's stays True.  The
+        managed mask marks the hosts the service plane drains."""
         nt = np.empty(len(self.hosts), dtype=np.int64)
         for h in self.hosts:
             t = h.next_event_time()
@@ -429,9 +537,12 @@ class Manager:
             h._nt_list = nt
             if h.plane is not None:
                 h._py_work_arr = pw
-                pw[h.id] = bool(h.queue._heap) or bool(h._inbox)
+                pw[h.id] = bool(h.queue._heap) or bool(h._inbox) \
+                    or h.py_pinned
         self._nt = nt
         self._py_work = pw
+        mng = np.array([h.svc_managed for h in self.hosts], dtype=bool)
+        self._managed_mask = mng if mng.any() else None
         if self.plane is not None:
             self.plane.engine.set_nt(nt)
             self.plane.engine.set_py_work(pw)
@@ -454,17 +565,25 @@ class Manager:
             return trev.EL_OBJ_PCAP
         return trev.EL_OBJ_OTHER
 
+    def _svc_excluded(self, mask):
+        """`mask` without the managed hosts when the service plane
+        drains them."""
+        if self.svc is not None and self._managed_mask is not None:
+            return mask & ~self._managed_mask
+        return mask
+
     def _active_hosts(self, until: int) -> list:
         """Hosts whose execute(until) has work by the shared snapshot."""
         hosts = self.hosts
-        return [hosts[i] for i in np.flatnonzero(self._nt < until)]
+        mask = self._svc_excluded(self._nt < until)
+        return [hosts[i] for i in np.flatnonzero(mask)]
 
     def _run_engine_batch(self, until: int, nthreads: int) -> list:
         """Hosts whose pending work is all engine-side run the window in
         one C call (over `nthreads` OS threads); returns the hosts that
         need the Python path."""
         eng = self.plane.engine
-        mask = self._nt < until
+        mask = self._svc_excluded(self._nt < until)
         fast = np.flatnonzero(mask & ~self._py_work)
         slow = np.flatnonzero(mask & self._py_work)
         if fast.size:
@@ -480,7 +599,23 @@ class Manager:
         return [hosts[i] for i in slow.tolist()]
 
     def _run_hosts(self, until: int) -> None:
-        """One round's host execution under the configured scheduler."""
+        """One round's host execution under the configured scheduler.
+        With the service plane on, the round's due managed hosts drain
+        on its workers beside the walk of every other host, joined
+        before the propagation barrier."""
+        svc_join = None
+        if self.svc is not None and self._managed_mask is not None:
+            due = np.flatnonzero((self._nt < until) & self._managed_mask)
+            if due.size:
+                svc_join = self.svc.dispatch(
+                    [self.hosts[i] for i in due.tolist()], until)
+        try:
+            self._run_hosts_inner(until)
+        finally:
+            if svc_join is not None:
+                svc_join()
+
+    def _run_hosts_inner(self, until: int) -> None:
         if self._perf_timers:
             # use_perf_timers: each host's execution wall, serially.
             for h in self.hosts:
@@ -668,6 +803,7 @@ class Manager:
                 else:
                     span_now = True
             py_limit = None
+            py_quiescent = False
             if span_now and self._py_work.any():
                 # Python-side work pending (an engine host's spawn task,
                 # or an object-path host in a mixed sim): spans may still
@@ -682,6 +818,15 @@ class Manager:
                     round_reason = self._object_block_reason(py_min)
                 else:
                     py_limit = py_min - ra + 1
+                    # The quiescence gate: when the earliest Python-side
+                    # work is all managed hosts' (every managed process
+                    # parked with no expiry before py_min), the span
+                    # rounds below count as managed-quiescent.
+                    if self._managed_mask is not None:
+                        idx = np.flatnonzero(self._py_work
+                                             & (self._nt == py_min))
+                        py_quiescent = bool(idx.size) and bool(
+                            self._managed_mask[idx].all())
             if span_now:
                 limit = stop
                 if heartbeat_lines:
@@ -694,7 +839,8 @@ class Manager:
                 # Why the rounds below land in a C++ span instead of a
                 # device span (the audit's engine-span:* split).
                 if py_limit is not None:
-                    span_reason = trev.EL_ENGINE_PYLIMIT
+                    span_reason = (trev.EL_SVC_QUIESCENT if py_quiescent
+                                   else trev.EL_ENGINE_PYLIMIT)
                 elif not dev_span_on:
                     span_reason = dev_off_reason
                 else:
@@ -848,10 +994,16 @@ class Manager:
             start = nxt
         summary.end_time_ns = min(start, stop) if start is not None \
             else stop
+        if self.containment is not None:
+            # The end-of-run teardown of still-running binaries is not a
+            # failure.
+            self.containment.active = False
         if status is not None:
             status.finish(summary.end_time_ns)
         if self._pool is not None:
             self._pool.shutdown()
+        if self.svc is not None:
+            self.svc.shutdown()
         if overlap_on:
             # A window the run ended before landing: join and discard.
             for r in (self._dev_span, self._dev_span_tcp):
@@ -881,11 +1033,18 @@ class Manager:
                 h._now = summary.end_time_ns
         if eng is not None:
             eng.advance_clocks(summary.end_time_ns)
+        from shadow_tpu_torch.host.managed import ManagedProcess
         for h in self.hosts:
             for proc in h.processes.values():
+                if isinstance(proc, ManagedProcess) and not proc.exited:
+                    proc.kill_native()
+                    proc.collect_output()
                 if not proc.exited:
-                    # The forced teardown releases the fd table.
+                    # The forced teardown releases the fd tables.
                     proc.fds.close_all(h)
+                    low = getattr(proc, "fds_low", None)
+                    if low is not None:
+                        low.close_all(h)
         # Object-path captures (an engine host's interfaces are never
         # built).
         for h in self.hosts:
@@ -1299,6 +1458,8 @@ class Manager:
         reg = self.metrics
         # Wall channel: the scheduler's telemetry (the gate strips it).
         reg.ingest("dispatch", self.dispatch_summary(), channel="wall")
+        if self.svc is not None:
+            reg.ingest("svc", self.svc.wall_summary(), channel="wall")
         # Sim channel: deterministic and path-identical, byte-diffed.
         # The conservation contract: the wire causes sum to
         # packets_dropped; the two TCP receiver discards sit outside.
@@ -1325,6 +1486,14 @@ class Manager:
             self.kern.write(base)
         reg.ingest("syscalls.dispositions", self.sc_disposition_totals(),
                    channel="sim")
+        if self.containment is not None:
+            # The fault ledger: the containment plane's record of every
+            # containment action.
+            ledger = self.containment.ledger()
+            with open(os.path.join(base, "fault-ledger.json"), "w") as f:
+                json.dump(ledger, f, indent=1, sort_keys=True)
+            reg.gauge("containment.quarantines", channel="sim").set(
+                len(ledger["ops"]))
         # One reason code per conservative round.
         reg.ingest("eligibility", self.audit.as_dict(), channel="wall")
         if self.flight is not None:

@@ -1,6 +1,6 @@
 """Engine-resident applications (the port's copy of
 `shadow_tpu/host/engine_app.py`: the tgen TCP apps and the UDP/PHOLD
-apps, without signal delivery).
+apps, with default-disposition signal delivery).
 
 The apps have C++ twins inside the engine (netplane.cpp AppN): the
 same socket-operation sequence at the same instants, so the whole
@@ -42,6 +42,28 @@ class _EngineFdView:
         if p.app_idx is not None and not p.exited:
             host.plane.engine.app_teardown(p.app_idx, host.now())
 
+    def __len__(self) -> int:
+        return 0
+
+
+class _AppThreadView:
+    """The thread-table entry kill/tgkill addressing reads (tid and
+    liveness), polling the engine app that backs the thread."""
+
+    __slots__ = ("tid", "_proc", "_app_idx")
+
+    def __init__(self, tid: int, proc, app_idx: int):
+        self.tid = tid
+        self._proc = proc
+        self._app_idx = app_idx
+
+    @property
+    def state(self):
+        from shadow_tpu_torch.host.process import ST_EXITED, ST_RUNNABLE
+        exited, _c, _t = self._proc.host.plane.engine.app_status(
+            self._app_idx)
+        return ST_EXITED if exited else ST_RUNNABLE
+
 
 class EngineAppProcess:
     """A process backed by an engine-resident app: exit state is polled
@@ -53,7 +75,30 @@ class EngineAppProcess:
         self.pid = host.register_process(self)
         self.expected_final_state = expected_final_state
         self.app_idx: int | None = None   # set right after app_spawn
+        self.term_signal = None
         self.stderr = bytearray()  # the engine apps write none
+        self.fds = _EngineFdView(self)
+        # The Process attributes host-wide machinery (kill addressing,
+        # wait4 scans over host.processes) reads on every process.
+        self.parent_pid: int | None = None
+        self.pgid = self.pid
+        self.sid = self.pid
+        self.zombies: list = []
+        self.stop_report: int | None = None
+        self.continue_report = False
+        self._stopped = False
+        self._shielded: list[tuple] = []
+
+    @property
+    def threads(self) -> tuple:
+        """The engine enumerates the process's app threads in spawn
+        order (main, accepted handlers, then the mesh sender), so tgkill
+        addressing matches the Python twin's tid numbering."""
+        if self.app_idx is None:
+            return ()
+        idxs = self.host.plane.engine.app_threads(self.app_idx)
+        return tuple(_AppThreadView(self.pid + i, self, idx)
+                     for i, idx in enumerate(idxs))
 
     def _status(self):
         return self.host.plane.engine.app_status(self.app_idx)
@@ -75,15 +120,56 @@ class EngineAppProcess:
         return bytearray(out)
 
     @property
-    def fds(self) -> "_EngineFdView":
-        return _EngineFdView(self)
+    def stopped(self) -> bool:
+        return self._stopped
+
+    def raise_signal(self, host, sig: int, target_tid=None,
+                     si_code: int = 0, si_pid: int = 0,
+                     si_status: int = 0) -> None:
+        """Engine apps install no handlers: apply the default action
+        (terminate, stop, continue or ignore).  A stop shields the
+        non-KILL fatal signals until the continue, as
+        Process.raise_signal does."""
+        from shadow_tpu_torch.host import signals as sigmod
+        if self.exited or sig <= 0 or sig >= sigmod.NSIG:
+            return
+        eng = self.host.plane.engine
+        if sig == sigmod.SIGCONT:
+            if self._stopped:
+                self._stopped = False
+                self.stop_report = None
+                self.continue_report = True
+                eng.app_continue(self.app_idx, host.now())
+                shielded, self._shielded = self._shielded, []
+                for s, ttid, scode, spid, sstatus in shielded:
+                    self.raise_signal(host, s, ttid, scode, spid, sstatus)
+            return
+        disp = sigmod.ProcessSignals().disposition(sig)
+        if sig == sigmod.SIGKILL:
+            self.term_signal = sig
+            eng.app_kill(self.app_idx, sig, host.now())
+            return
+        if self._stopped:
+            if disp not in ("ignore", "stop"):
+                self._shielded.append(
+                    (sig, target_tid, si_code, si_pid, si_status))
+            return
+        if disp == "stop":
+            self._stopped = True
+            self.stop_report = sig
+            self.continue_report = False
+            eng.app_stop(self.app_idx)
+            return
+        if disp != "terminate":
+            return
+        self.term_signal = sig
+        eng.app_kill(self.app_idx, sig, host.now())
 
     def matches_expected_final_state(self) -> bool:
-        """Engine apps take no signals (the config refuses
-        shutdown_time)."""
         exited, code, _t = self._status()
         return matches_final_state(self.expected_final_state, exited,
-                                   code if exited else None)
+                                   code if exited else None,
+                                   self.term_signal)
 
 
 # Engine-runnable app -> the (least, most) argv length its engine twin

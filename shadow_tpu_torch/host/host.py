@@ -1,6 +1,6 @@
 """Host: one emulated Linux system, the port's copy of
-`shadow_tpu/host/host.py` (without checkpoint state, fault flags and
-managed processes: ROADMAP A7c and A7b).
+`shadow_tpu/host/host.py` (without checkpoint state and fault flags:
+ROADMAP A7c).
 
 A host owns its private event queue, the deterministic per-host RNG
 stream, its process table and its canonical packet trace.  It runs one
@@ -56,6 +56,15 @@ class Host:
     # object path's router marking law reads them).
     dctcp_k_pkts = 20
     dctcp_k_bytes = 30_000
+    # Failure containment (svc/containment.py): set by the Manager on
+    # hosts carrying managed processes, None everywhere else.  The
+    # spawn stagger is its wall-only companion knob.
+    containment = None
+    spawn_stagger_ns = 0
+    # The syscall observatory's wall profile and record channel (ROADMAP
+    # A7b-2): the managed path's seams read them, None until then.
+    sc_wall = None
+    sc_log = None
 
     def __init__(self, host_id: int, name: str, ip: int, node_index: int,
                  seed: int, bw_down_bits: int, bw_up_bits: int,
@@ -84,6 +93,21 @@ class Host:
         # host_cpu_threshold is configured.
         self.cpu = None
         self.cpu_event_cost_ns = 0
+        # The per-host output directory (managed processes' stdout and
+        # stderr files); set by the Manager.
+        self.data_path = None
+        # AF_UNIX name table: fs paths and '@'-prefixed abstract names
+        # (paths never touch the real file system).
+        self.unix_ns: dict[str, object] = {}
+        # The managed path's unblocked-syscall latency model and native
+        # preemption (0 = off); the Manager sets them from the config.
+        self.syscall_latency_ns = 1_000
+        self.max_unapplied_ns = 20_000
+        self.preempt_native_ns = 0
+        self.preempt_sim_ns = 0
+        # Native file I/O billing: simulated ns per KiB moved by
+        # DO_NATIVE byte-I/O syscalls (0 = not modeled).
+        self.native_io_ns_per_kib = 0
         # Network plane, built at first touch of any of its six objects
         # (__getattr__): engine hosts never use them.
         self._net_qdisc = qdisc
@@ -92,19 +116,25 @@ class Host:
         self._send_packet_fn = None
         self.dns = None
         self.syscall_handler = None
+        self.syscall_handler_native = None
         # The engine (native/plane.py) when attached: it owns this host's
         # inet plane and the event/packet seq counters.  None = the
         # object path.
         self.plane = None
-        self.nsocks: dict[int, object] = {}  # engine token -> proxy
-        self._native_merged = (0, 0, 0, 0)   # engine counters merged
-        self._app_sys_merged: dict = {}      # engine-app syscalls merged
+        self._nsocks: dict[int, object] = {}  # engine token -> proxy
+        self._native_merged = (0, 0, 0, 0)    # engine counters merged
+        self._app_sys_merged: dict = {}       # engine-app syscalls merged
         # The Manager's shared next-event snapshot (one slot a host) and
         # Python-work flags: each host writes its own slot at the end of
         # execute(); cross-host deliveries lower the destination's slot
         # under the inbox lock.
         self._nt_list = None
         self._py_work_arr = None
+        # A managed-process host's Python-work flag stays True for the
+        # whole run: its packets always need Python-side servicing, and
+        # the engine's span loop relies on the flag to stop before any
+        # window that would touch it (the quiescence gate).
+        self.py_pinned = False
         # Canonical packet trace: (time, kind, src_host, pkt_seq, text).
         self.trace_entries: list = []
         self.tracing_enabled = True
@@ -298,7 +328,8 @@ class Host:
                 if self._py_work_arr is not None:
                     # Under the same lock as a deliverer's True store.
                     self._py_work_arr[self.id] = \
-                        bool(self.queue._heap) or bool(self._inbox)
+                        bool(self.queue._heap) or bool(self._inbox) \
+                        or self.py_pinned
 
     def next_event_time(self):
         t = self.queue.peek_time()

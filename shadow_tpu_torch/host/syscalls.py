@@ -1,6 +1,7 @@
 """Syscall dispatch of internal apps: the port's copy of
-`shadow_tpu/host/syscalls.py`, object-path sockets only (the engine
-hosts' Python-side sockets, `host/socket_native.py`, are ROADMAP A7b).
+`shadow_tpu/host/syscalls.py`.  On an object-path host the sockets are
+host/socket_udp.py and host/socket_tcp.py; on an engine host they are
+the engine's, through host/socket_native.py's proxies.
 
 The single seam between applications and the simulated kernel.  Calls
 are tuples `(name, *args)`; results are `("done", value)`, `("error",
@@ -89,17 +90,26 @@ class SyscallHandler:
 
     def sys_socket(self, host, process, thread, restarted, kind: str,
                    nonblocking: bool = False):
-        if host.plane is not None:
-            raise NotImplementedError(
-                "shadow_tpu_torch does not serve Python-side sockets on "
-                "an engine host yet: ROADMAP A7b (host/socket_native.py)")
+        native = host.plane is not None
         if kind in ("udp", "dgram"):
-            sock = UdpSocket(host, self.send_buf, self.recv_buf)
+            if native:
+                from shadow_tpu_torch.host.socket_native import \
+                    UdpSocket as NativeUdp
+                sock = NativeUdp(host, self.send_buf, self.recv_buf)
+            else:
+                sock = UdpSocket(host, self.send_buf, self.recv_buf)
         elif kind in ("tcp", "stream"):
-            from shadow_tpu_torch.host.socket_tcp import TcpSocket
-            sock = TcpSocket(host, self.send_buf, self.recv_buf,
-                             send_autotune=self.send_autotune,
-                             recv_autotune=self.recv_autotune)
+            if native:
+                from shadow_tpu_torch.host.socket_native import \
+                    TcpSocket as NativeTcp
+                sock = NativeTcp(host, self.send_buf, self.recv_buf,
+                                 send_autotune=self.send_autotune,
+                                 recv_autotune=self.recv_autotune)
+            else:
+                from shadow_tpu_torch.host.socket_tcp import TcpSocket
+                sock = TcpSocket(host, self.send_buf, self.recv_buf,
+                                 send_autotune=self.send_autotune,
+                                 recv_autotune=self.recv_autotune)
         else:
             return _error(errno.EINVAL, f"bad socket kind {kind!r}")
         sock.nonblocking = bool(nonblocking)

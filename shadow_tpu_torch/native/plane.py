@@ -6,9 +6,11 @@ data plane, the engine-resident tgen apps and their TCP state; this
 module builds and loads the port's own copy of the extension and wires
 the engine's callbacks back into the simulation:
 
- - status changes   -> the socket proxy's mirrored status bits;
- - child born/dead  -> the proxy registry (an accepting tgen server's
-                       children are born inside engine calls);
+ - status changes   -> the socket proxy's mirrored status bits
+                       (host/socket_native.py);
+ - child born/dead  -> the proxy registry and the object counter (an
+                       accepting server's children are born inside
+                       engine calls);
  - RNG draws        -> the host's one deterministic stream.
 
 Both packages' `_netplane` can live in one process (the tests import
@@ -30,6 +32,8 @@ import time
 
 from shadow_tpu_torch.native import (LIB_DIR, SRC_DIR, isa_stale,
                                      mark_isa, stale)
+
+R_BLOCK = 1000000  # the engine's "park on a condition" return
 
 
 class EngineLoader:
@@ -117,21 +121,6 @@ def build_seconds() -> float:
     return _LOADER.build_s
 
 
-class SocketProxy:
-    """The Python face of one engine socket that the engine created on
-    its own (an accepted child): it mirrors the engine's status bits
-    from the CB_STATUS callback, as the reference's proxy does."""
-
-    __slots__ = ("tok", "status")
-
-    def __init__(self, tok: int, status: int):
-        self.tok = tok
-        self.status = status
-
-    def apply_status(self, set_mask: int, clear_mask: int) -> None:
-        self.status = (self.status | set_mask) & ~clear_mask
-
-
 class NativePlane:
     """Engine + callback bridge for one simulation."""
 
@@ -181,15 +170,20 @@ class NativePlane:
         if t > host._now:
             host._now = t
         if kind == self.mod.CB_STATUS:
-            sock = host.nsocks.get(tok)
+            sock = host._nsocks.get(tok)
             if sock is not None:
-                sock.apply_status(a, b)
+                sock.apply_status(host, a, b)
         elif kind == self.mod.CB_CHILD_BORN:
             # tok = listener, a = child: the proxy exists from birth so
-            # status mirroring starts here.
-            host.nsocks[a] = SocketProxy(a, self.engine.sock_status(a))
-        else:  # CB_CHILD_DEAD: pre-accept teardown
-            host.nsocks.pop(tok, None)
+            # lifecycle accounting and status mirroring start here.
+            from shadow_tpu_torch.host.socket_native import TcpSocket
+            TcpSocket(host, 0, 0, _tok=a)  # registers itself
+        else:  # CB_CHILD_DEAD: pre-accept teardown = its deallocation
+            sock = host._nsocks.pop(tok, None)
+            if sock is not None:
+                from shadow_tpu_torch.utils.object_counter import \
+                    mark_dealloc
+                mark_dealloc(sock)
 
     def _rng_u64(self, hid: int) -> int:
         return self._hosts[hid].rng.next_u64()

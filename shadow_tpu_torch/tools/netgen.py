@@ -354,6 +354,77 @@ def mesh100_yaml(scheduler: str = "tpu") -> str:
     return _bench_yaml("30s", 3, MESH_GML, scheduler, None, hosts)
 
 
+def compile_echo_binaries(out_dir: str) -> dict | None:
+    """Build the managed-fleet C plugins (udp echo server/client) into
+    `out_dir`; returns {name: path} or None without a C toolchain.
+    The JAX package's compile step, exactly: `cc -O1` over
+    tests/plugins/udp_echo_{server,client}.c."""
+    import os
+    import shutil
+    import subprocess
+    if shutil.which("cc") is None:
+        return None
+    plug = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))),
+        "tests", "plugins")
+    bins = {}
+    for name in ("udp_echo_server", "udp_echo_client"):
+        out = os.path.join(out_dir, name)
+        subprocess.run(["cc", "-O1", "-o", out,
+                        os.path.join(plug, name + ".c")], check=True)
+        bins[name] = out
+    return bins
+
+
+def managed_fleet_yaml(server_bin: str, client_bin: str, n_procs: int,
+                       stop_time: str = "30s", seed: int = 3) -> str:
+    """N-process managed (real-binary) fleet: one C UDP echo server
+    per 16 processes, the rest clients (the JAX package's generator of
+    its managed-1k/10k bench rungs).  Servers get
+    EXPLICIT ip_addr so clients can target them at any fleet size —
+    the auto-assignment pool skips .0/.255 octets and is not
+    arithmetic — and each server's echo budget counts exactly the
+    clients its `i % n_servers` slot serves (an over-counted server
+    would wait forever, an under-counted one would exit early and
+    strand its last client)."""
+    n_servers = max(1, n_procs // 16)
+    n_clients = n_procs - n_servers
+    blocks = []
+    for i in range(n_servers):
+        served = n_clients // n_servers + (1 if i < n_clients
+                                           % n_servers else 0)
+        blocks.append(f"""
+  srv{i:04d}:
+    network_node_id: 0
+    ip_addr: 11.200.{i // 250}.{i % 250 + 1}
+    processes:
+      - path: {server_bin}
+        args: "9000 {3 * served}"
+        start_time: 1s""")
+    for i in range(n_clients):
+        s = i % n_servers
+        blocks.append(f"""
+  cli{i:05d}:
+    network_node_id: 0
+    processes:
+      - path: {client_bin}
+        args: "11.200.{s // 250}.{s % 250 + 1} 9000 3 64"
+        start_time: 2s""")
+    return f"""
+general:
+  stop_time: {stop_time}
+  seed: {seed}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        node [ id 0 host_bandwidth_down "1 Gbit" host_bandwidth_up "1 Gbit" ]
+        edge [ source 0 target 0 latency "10 ms" ] ]
+hosts:{''.join(blocks)}
+"""
+
+
 def incast_yaml(fan_in: int, nbytes: int = 500_000,
                 server_bw: str = "20 Mbit", client_bw: str = "100 Mbit",
                 latency: str = "2 ms", stop_time: str = "3s",

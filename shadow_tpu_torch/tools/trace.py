@@ -34,7 +34,8 @@ stream (summary, drops, fabric, FCT, explain, Chrome tracks) and an
 8-LP PHOLD with forced device spans and the kernel observatory on
 (`kern` conserves, a per-stage counter track).  Its managed-process leg,
 the `sys` report and `explain`'s join with the syscall channel need the
-managed processes (ROADMAP A7b) and raise NotImplementedError.
+managed processes' syscall observability (ROADMAP A7b-2) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -496,10 +497,10 @@ def _host_names(cfg: dict) -> list:
 
 def sys_report(data_dir: str, top_n: int = 10, out=None) -> bool:
     """`trace sys`: the syscall-observatory report, which reads the
-    managed processes' syscall channel (not yet ported)."""
+    managed processes' syscall channel (ROADMAP A7b-2)."""
     raise NotImplementedError(
         "shadow_tpu_torch: `trace sys` reads the syscall channel of the "
-        "managed processes, not yet ported (ROADMAP A7b)")
+        "managed processes, not yet ported (ROADMAP A7b-2)")
 
 
 # Eligibility-blocker remediation hints (`trace explain`), keyed by
@@ -579,7 +580,7 @@ def _managed_blockers(data_dir: str, sc_bytes: bytes, out,
                 raise NotImplementedError(
                     "shadow_tpu_torch: `trace explain` on managed hosts "
                     "reads the managed processes' syscall channel, not "
-                    "yet ported (ROADMAP A7b)")
+                    "yet ported (ROADMAP A7b-2)")
 
 
 def _hottest_queue(data_dir: str, fab_bytes: bytes, out) -> None:
@@ -761,8 +762,8 @@ def run_config(config_path: str, data_dir: str | None = None,
 def smoke_managed() -> int:
     """The managed-process smoke leg: a real binary under the shim."""
     raise NotImplementedError(
-        "shadow_tpu_torch: the managed-process smoke leg needs the "
-        "managed processes, not yet ported (ROADMAP A7b)")
+        "shadow_tpu_torch: the managed-process smoke leg reads the "
+        "syscall observability, not yet ported (ROADMAP A7b-2)")
 
 
 def smoke_kern(device: str = "cuda") -> int:
@@ -888,8 +889,8 @@ def smoke(n_hosts: int, device: str = "cuda") -> int:
     rc = smoke_kern(device)
     if rc:
         return rc
-    print("trace smoke: managed leg not run (the managed processes are "
-          "ROADMAP A7b)")
+    print("trace smoke: managed leg not run (it reads the syscall "
+          "observability, ROADMAP A7b-2)")
     print("trace smoke: span kernel launches "
           + json.dumps({"stt_tcp_span": TCP_SPAN.launches,
                         "stt_phold_span": PHOLD_SPAN.launches}))

@@ -16,8 +16,8 @@ Wall-time channel: per-phase slices on a second process with real
 (relative) microseconds.
 
 The syscall channel (`syscalls-sim.bin`) belongs to the managed
-processes, which the port has not ported (ROADMAP A7b): a non-empty one
-is refused.
+processes' syscall observatory, which the port has not ported (ROADMAP
+A7b-2): a non-empty one is refused.
 """
 
 from __future__ import annotations
@@ -158,7 +158,7 @@ def chrome_trace(sim_bytes: bytes, wall: dict | None = None,
     if sc_bytes:
         raise NotImplementedError(
             "shadow_tpu_torch: the syscall channel's Chrome tracks need "
-            "the managed processes, not yet ported (ROADMAP A7b)")
+            "the syscall observatory, not yet ported (ROADMAP A7b-2)")
     ev: list[dict] = [
         _meta(PID_SIM, 0, "process_name", "sim-time (simulated µs)"),
         _meta(PID_SIM, 1, "thread_name", "rounds & spans"),

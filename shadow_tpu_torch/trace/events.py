@@ -183,11 +183,16 @@ MARK_NAMES = (
 )
 assert len(MARK_NAMES) == MARK_N
 
-# Syscall dispositions of Python-dispatched syscalls (the object path's
-# internal apps).  Engine-resident apps dispatch C++-side and sit
-# outside this accounting.
+# Syscall dispositions of Python-dispatched syscalls (managed processes'
+# ABI dispatch and internal apps' dispatch alike), one code each; the C
+# twin of the enum lives in native/shim.c, which owns the SC_SHIM count
+# of locally answered time reads.  Engine-resident apps dispatch
+# C++-side and sit outside this accounting.
 SC_SERVICED = 0   # emulated by the simulated kernel (done / error)
 SC_PARKED = 1     # parked on a SyscallCondition (re-dispatched on wake)
+SC_NATIVE = 2     # natively injected (DO_NATIVE / exit short-circuits)
+SC_SHIM = 3       # answered shim-side (time family), no round trip
+SC_PROTO = 4      # IPC protocol error ended the conversation
 SC_N = 5
 SC_NAMES = (
     "serviced",
@@ -197,6 +202,14 @@ SC_NAMES = (
     "protocol-error",
 )
 assert len(SC_NAMES) == SC_N
+
+# Result classes of a dispatch (what it returned, orthogonal to how the
+# call was routed): the syscall observatory's records carry them.
+RC_OK = 0      # completed with a non-error value
+RC_ERR = 1     # completed with -errno
+RC_NATIVE = 2  # executed natively; the manager never saw the value
+RC_NONE = 3    # no result this dispatch (parked / protocol error)
+RC_NAMES = ("ok", "error", "native", "none")
 
 # ---------------------------------------------------------------------
 # Sim-netstat (`telemetry-sim.bin`): one 104-byte record a live TCP

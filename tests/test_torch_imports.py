@@ -78,7 +78,13 @@ _COPIES = ("core/event", "net/packet", "net/token_bucket", "net/codel",
            "host/status", "host/condition", "host/descriptor", "host/cpu",
            "host/socket_udp", "host/socket_tcp", "tcp/connection",
            "tcp/__init__", "host/apps", "host/host", "host/process",
-           "host/syscalls", "core/propagate_scalar")
+           "host/syscalls", "core/propagate_scalar",
+           # the managed path's
+           "host/shim_abi", "host/child_watcher", "host/futex",
+           "host/signals", "host/files", "host/epoll", "host/socket_unix",
+           "host/socket_netlink", "host/socket_native",
+           "host/syscalls_native", "host/managed",
+           "svc/plane", "svc/containment")
 
 
 def _module(path: str, pkg: str):
@@ -103,8 +109,9 @@ def _constants(mod) -> dict:
 
 @pytest.mark.parametrize("path", _COPIES)
 def test_torch_object_path_constants_pinned(path):
-    """Every constant a copied object-path module keeps equals the JAX
-    package's value of the same name, and each such module keeps one."""
+    """Every constant a copied object-path or managed-path module keeps
+    equals the JAX package's value of the same name (the shim's IPC ABI
+    in host/shim_abi.py among them), and each such module keeps one."""
     port = _constants(_module(path, "shadow_tpu_torch"))
     ref = _constants(_module(path, "shadow_tpu"))
     for n, v in port.items():
@@ -112,7 +119,9 @@ def test_torch_object_path_constants_pinned(path):
         assert v == ref[n], f"{path}: {n}"
     if path not in ("tcp/__init__", "core/propagate_scalar", "net/router",
                     "host/syscalls", "host/process", "host/descriptor",
-                    "host/condition", "host/cpu"):
+                    "host/condition", "host/cpu", "host/futex",
+                    "host/child_watcher",
+                    "host/epoll", "host/socket_unix", "svc/plane"):
         assert port, path
 
 
@@ -126,8 +135,13 @@ def test_torch_object_path_tables_pinned():
     assert port.TEL_BY_REASON == ref.TEL_BY_REASON
     assert (port.MARK_THRESH_PKTS, port.MARK_THRESH_BYTES) == \
         (ref.MARK_THRESH_PKTS, ref.MARK_THRESH_BYTES)
-    assert (port.SC_SERVICED, port.SC_PARKED) == \
-        (ref.SC_SERVICED, ref.SC_PARKED)
+    assert (port.SC_SERVICED, port.SC_PARKED, port.SC_NATIVE,
+            port.SC_SHIM, port.SC_PROTO) == \
+        (ref.SC_SERVICED, ref.SC_PARKED, ref.SC_NATIVE, ref.SC_SHIM,
+         ref.SC_PROTO)
+    assert (port.RC_OK, port.RC_ERR, port.RC_NATIVE, port.RC_NONE,
+            port.RC_NAMES) == (ref.RC_OK, ref.RC_ERR, ref.RC_NATIVE,
+                               ref.RC_NONE, ref.RC_NAMES)
     assert sorted(port_apps.APP_REGISTRY) == sorted(ref_apps.APP_REGISTRY)
 
 

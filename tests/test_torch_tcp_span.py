@@ -93,9 +93,9 @@ def test_torch_routing_arrays_match_reference(gml):
     ("experimental:\n", "experimental:\n  syscall_observatory: on\n"),
     ("experimental:\n",
      "experimental:\n  strace_logging_mode: deterministic\n"),
-    ("experimental:\n", "experimental:\n  openssl_crypto_noop: true\n"),
-    # a managed process (a binary by path)
-    ("path: tgen-server", "path: /usr/bin/tgen-server"),
+    # containment's quarantine and restart policies
+    ("path: tgen-server", "on_failure: quarantine, path: tgen-server"),
+    ("path: tgen-server", "on_failure: restart, path: tgen-server"),
     ("hosts:\n", "checkpoint: {at: [1s]}\nhosts:\n"),
 ])
 def test_torch_config_refuses_unported_paths(patch, needle):
