@@ -2,14 +2,13 @@
 
     python3 chip_smoke.py [--stop-time 1.31s]
 
-Ten phases run; any failed check raises, so the script exits non-zero
-(an eleventh, the managed processes', is `managed_runs()`, run alone:
-see 11 below):
+Eleven phases run; any failed check raises, so the script exits
+non-zero:
 
 1. Identify the card (name, and name + power limit from nvidia-smi).
 2. Build the engine and the kernel libraries from this checkout (in
-   parallel, one nvcc per source), hold each kernel against its plain
-   PyTorch version on the card and time both:
+   parallel, one nvcc per source; the shim is phase 11's), hold each
+   kernel against its plain PyTorch version on the card and time both:
    - the standalone law kernels (stt_bucket_step, stt_codel_head) on
      adversarial integer inputs at H = 10,000, a ragged H = 10,001, a
      scalar `now`, and the PHOLD paths' shapes (scalar `size`):
@@ -155,8 +154,8 @@ see 11 below):
    launch-to-end time, the span codec's bytes and walls and the peak
    device memory.
 5. Run phold-64k-ring (the reference ladder's 65,536-LP ring-caps rung,
-   to RING_STOP, 0.5 s, so that the device stretch takes several spans;
-   1.0 s until the managed phase needed the time) three times:
+   to RING_STOP, 0.5 s, so that the device stretch takes two spans;
+   1.0 s and three spans until phase 11 needed the time) three times:
    spans off, forced with `span_overlap: off` (residency alone, through
    the plain window) and forced with `span_overlap: auto` (on, on the
    card, through the span kernel: the speculative spans launch on the
@@ -264,12 +263,11 @@ see 11 below):
    identical for the kernel and the plain directory.  Meanwhile `python
    -m shadow_tpu_torch.tools.trace --smoke` runs in a child process on
    the card and must exit 0 having launched stt_phold_span.
-11. Managed processes (`managed_runs()`; not in `main`: under gVisor,
-   the kernel of the card machines this script has run on, every
-   managed process dies at start, PERF.md section 6): real binaries
-   (tests/plugins, compiled with `cc`)
-   under the shim (native/shim.c, built in phase 2; on a kernel without
-   the rdtsc trap, such as gVisor's, without it).  First the machine:
+11. Managed processes (`managed_runs()`, after phase 7's wait, alone):
+   real binaries (tests/plugins, compiled with `cc`) under the shim
+   (native/shim.c, built here; on a kernel without the rdtsc trap, such
+   as gVisor's, without it and its vDSO patch: the build is printed and
+   recorded in each run's sim-stats.json).  First the machine:
    the kernel, pidfd_open's thread flag, ASLR off by personality(2),
    seccomp, /dev/shm and the fd limit (the soft RLIMIT_NOFILE raised to
    the hard one); the fleet must fit.  managed-fleet-1k (the JAX
@@ -324,7 +322,7 @@ BANDWIDTH = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 BYTES_PER_LANE = {"bucket_step": 66, "codel_head": 46}
 H_PHOLD = 8_192  # the phold-8k cell's lanes
 H_RING = 65_536  # the phold-64k-ring cell's lanes: the law kernels' main path
-RING_STOP = "0.5s"  # phase 5's depth (1.0 s until the managed phase)
+RING_STOP = "0.5s"  # phase 5's depth: 1.0 s until phase 11 (PERF.md 5)
 # The reference rung's ring caps (bench.py phold_rung): the defaults carry
 # a 2,048-deep CoDel ring per host, pure waste at PHOLD rates.
 RING_CAPS = dict(CAP_I=32, CAP_T=16, CAP_R=64, CAP_S=64, CAP_C=256,
@@ -444,12 +442,8 @@ def build_all():
         if plane.load_netplane() is None:
             raise RuntimeError(plane.load_error())
 
-    def shim():
-        from shadow_tpu_torch.native import ensure_shim_built
-        ensure_shim_built()
-
     threads = [threading.Thread(target=run, args=a)
-               for a in (("engine", engine), ("shim", shim),
+               for a in (("engine", engine),
                          ("queues.cu", queues.LIBRARY.build),
                          ("relay.cu", relay.LIBRARY.build),
                          ("propagate.cu", propagate.LIBRARY.build),
@@ -466,8 +460,7 @@ def build_all():
     if errs:
         raise RuntimeError(f"build failed: {errs}")
     print(f"[build] engine {walls['engine']:.1f}s (make "
-          f"{plane.build_seconds():.1f}s), the shim (native/shim.c) "
-          f"{walls['shim']:.1f}s, queues.cu "
+          f"{plane.build_seconds():.1f}s), queues.cu "
           f"{walls['queues.cu']:.1f}s (nvcc {queues.LIBRARY.build_s:.1f}s), "
           f"relay.cu {walls['relay.cu']:.1f}s (nvcc "
           f"{relay.LIBRARY.build_s:.1f}s), propagate.cu "
@@ -3785,7 +3778,7 @@ def managed_run(tag: str, name: str, cfg, device) -> dict:
 
 def managed_runs() -> dict:
     """Phase 11, managed processes: real binaries under the shim (built
-    from native/ with the engine in build_all).
+    here from native/; which build, full or gVisor's, is printed).
 
     managed-fleet-1k: the JAX package's bench[managed-1k] rung through
     `scheduler: tpu` with `tpu_min_device_batch: 0` (every round's
@@ -3809,7 +3802,13 @@ def managed_runs() -> dict:
     from shadow_tpu_torch.tools.netgen import (compile_echo_binaries,
                                                managed_fleet_yaml,
                                                phold_yaml)
+    from shadow_tpu_torch.native import ensure_shim_built, shim_build
     managed_env(MANAGED_FLEET)
+    t0 = time.perf_counter()
+    shim = ensure_shim_built()
+    print(f"[managed] the shim (native/shim.c): {shim_build(shim)} build "
+          f"{os.path.relpath(shim)}, {time.perf_counter() - t0:.1f}s",
+          flush=True)
     _shutil.rmtree(MANAGED_WORK, ignore_errors=True)
     os.makedirs(MANAGED_WORK)
     out: dict = {}
@@ -4080,6 +4079,9 @@ def main(argv=None) -> int:
     phase_done(f"7 (the CLI's data directories, seven runs at once; "
                f"{phase7.wall:.1f} s from its start, beside phases 8, 10 "
                f"and 9), the wait for it")
+    # Phase 11: managed processes, alone (they spawn real processes).
+    by_path.update(managed_runs())
+    phase_done("11 (managed-fleet-1k, mixed-quiescent-6)")
     # The kernel's row: timed at the main path's median round.
     print(f"[main] propagate: the forced tier10k run's packets per round "
           f"{per_round}; the kernels line's row is timed at the median",

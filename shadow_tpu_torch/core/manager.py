@@ -268,9 +268,18 @@ class Manager:
         # worker threads); a failed build raises.
         managed = any(is_managed(p) for h in config.hosts.values()
                       for p in h.processes)
+        # Which shim build ran goes into sim-stats.json's wall channel.
+        self.shim_build = None
         if managed:
-            from shadow_tpu_torch.native import ensure_shim_built
-            ensure_shim_built()
+            from shadow_tpu_torch.native import ensure_shim_built, shim_build
+            self.shim_build = shim_build(ensure_shim_built())
+            if self.shim_build != "full":
+                import warnings
+                warnings.warn(
+                    "this kernel refuses the shim's rdtsc trap (gVisor): "
+                    "the shim is built without it and without its vDSO "
+                    "patch, so a managed binary that executes rdtsc, or "
+                    "calls the vDSO without libc, reads the host's clock")
         crypto_noop_path = None
         if exp.openssl_crypto_noop:
             from shadow_tpu_torch.native import ensure_crypto_noop_built
@@ -1496,6 +1505,8 @@ class Manager:
                 len(ledger["ops"]))
         # One reason code per conservative round.
         reg.ingest("eligibility", self.audit.as_dict(), channel="wall")
+        if self.shim_build is not None:
+            reg.gauge("shim_build", channel="wall").set(self.shim_build)
         if self.flight is not None:
             reg.ingest("phases", {name: ns for name, (ns, _c) in
                                   self.flight.wall.phases.items()},

@@ -123,17 +123,24 @@ def ensure_shim_built() -> str:
     trap (gVisor), the build force-includes shim_gvisor.h, which
     compiles out the rdtsc trap and the vDSO patch (into its own
     library, libshadowtpu_shim_gvisor.so): the shim otherwise dies at
-    start there."""
+    start there.  The header rides on the compiler's command (`CC`), so
+    the Makefile's own CFLAGS stay in force for both builds."""
     sources = ["shim.c", "shim_trampoline.S", "shim_ipc.h", "Makefile"]
     if tsc_trap_supported():
         return ensure_built(SHIM_SO, "shim", sources)
     header = os.path.join(_PKG_DIR, "shim_gvisor.h")
+    cc = os.environ.get("CC", "cc")
     return ensure_built(
         SHIM_GVISOR_SO, "shim", sources + [header],
         built_name=os.path.basename(SHIM_SO),
-        make_args=("CFLAGS=-O2 -g -fPIC "
-                   "-Werror=implicit-function-declaration "
-                   f"-include {header}",))
+        make_args=(f"CC={cc} -include {header}",))
+
+
+def shim_build(path: str) -> str:
+    """Which build of the shim `path` is: "full", or "gvisor" (no rdtsc
+    trap, no vDSO patch: a binary that executes rdtsc itself, or calls
+    the vDSO without libc, reads the host's clock)."""
+    return "gvisor" if path == SHIM_GVISOR_SO else "full"
 
 
 def ensure_crypto_noop_built() -> str:

@@ -373,6 +373,10 @@ def test_torch_shim_build_without_tsc_trap(bins, tmp_path_factory,
     ref = _reference("fork_exec", _text("fork_exec", bins),
                      str(tmp_path_factory.getbasetemp() / "jax-fork_exec"))
     d = str(tmp_path_factory.mktemp("gvisor"))
-    _m, s = run_port(_text("fork_exec", bins), d)
+    with pytest.warns(UserWarning, match="rdtsc trap"):
+        m, s = run_port(_text("fork_exec", bins), d)
     assert s.ok, s.plugin_errors
+    assert m.shim_build == "gvisor"
+    with open(os.path.join(d, "sim-stats.json")) as f:
+        assert json.load(f)["metrics"]["wall"]["shim_build"] == "gvisor"
     assert_same_dirs(ref, collect(d))
